@@ -1,0 +1,547 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Drives the port (real_time_video_deepfake_detection_tpu_torch) on the card,
+in phases, each printing one JSON line:
+
+  1. device   the card's name and power limit; TF32 off for convolutions
+              and matmuls
+  2. build    nvcc builds the package's CUDA kernels (csrc/*.cu, sm_90a)
+  3. kernels  each kernel against its plain torch version at main-path
+              shapes, timed with CUDA events (and its device time from
+              torch.profiler) beside its bound, the plain version and
+              (where one exists) a PyTorch library call
+  4. serve    MultiStreamEngine on cuda with full-size EfficientNet-B0
+              (random weights from a seed, batch-norm statistics set from
+              one batch), 16 streams x 12 synthetic 480x640 frames from 16
+              threads, with both kernels on; checks the responses and that
+              the kernels were launched; times host prep on one thread
+  5. parity   device_step_compact at bucket 64 on cuda against the same
+              tick on the CPU (where the plain versions run); the tick's
+              time, a profiler window over it (device busy and idle share,
+              largest device entries) and its forensics/classifier split
+
+then a `{"kernels": [...]}` line and, last, `{"ok": true, "device": ...}`.
+Any failed phase makes it exit non-zero without the last line. It needs a
+CUDA device and the repository checkout around it.
+"""
+
+from __future__ import annotations
+
+import functools
+import json
+import os
+import statistics
+import subprocess
+import sys
+import threading
+import time
+import traceback
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+PKG = "real_time_video_deepfake_detection_tpu_torch"
+SEED = 0
+
+# Device memory rate (bytes/s) and float32 rate outside the tensor cores
+# (FLOP/s) by card, from NVIDIA's data sheets; the bound of a kernel is the
+# larger of its bytes over the first and its operations over the second.
+_PEAKS = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
+          ("H200", 4.8e12, 67e12), ("H100", 3.35e12, 67e12))
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def card_peaks(name: str):
+    for key, bw, flops in _PEAKS:
+        if key in name:
+            return key, bw, flops
+    return "H100", 3.35e12, 67e12
+
+
+def bound_ms(bytes_moved: float, ops: float, peaks):
+    t_bytes = bytes_moved / peaks[1] * 1e3
+    t_ops = ops / peaks[2] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_cuda(fn, n: int = 60, warmup: int = 5) -> float:
+    """Median milliseconds of `fn` over `n` runs, each timed with CUDA
+    events on the current stream (so a call's host-side launch path counts
+    when the device waits on it)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def profile_device(fn, n: int):
+    """Run `fn` n times under torch.profiler and return (wall ms per call,
+    device-busy ms per call, device activities per call, the 8 largest
+    device activities by total ms). Busy time sums the CUDA activities
+    (kernels, copies, sets) of the trace; everything runs on one stream, so
+    they do not overlap. Busy ms is None when the trace holds no device
+    activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
+    busy = sum(sum(v) for v in by_name.values()) / n
+    top = sorted(((k, sum(v) / n, len(v) / n) for k, v in by_name.items()),
+                 key=lambda kv: -kv[1])[:8]
+    return (wall, busy if busy > 0 else None,
+            sum(len(v) for v in by_name.values()) / n,
+            [{"name": k[:80], "ms_per_call": ms, "per_call": c} for k, ms, c in top])
+
+
+def b0_state(ctx):
+    """Full-size EfficientNet-B0 parameters from a seeded generator (the
+    engine's init laws), with every batch norm's statistics set to those of
+    its input on one batch of random inputs. With the init laws alone the
+    activations shrink by ~1e-14 over the 16 blocks and every face gets the
+    same probability; set this way, each layer sees unit-scale inputs and
+    the classifier's output depends on the face."""
+    if "b0_state" in ctx:
+        return ctx["b0_state"]
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.models import backbones
+    from real_time_video_deepfake_detection_tpu_torch.models.efficientnet import BatchNorm
+    model = backbones.build_model(backbones.make("b0"),
+                                  torch.Generator().manual_seed(SEED)).cuda().eval()
+
+    def set_stats(bn, args):
+        x = args[0]
+        dims = [d for d in range(x.ndim) if d != 1]
+        bn.mean.copy_(x.mean(dims))
+        bn.var.copy_(x.var(dims, correction=0))
+
+    hooks = [m.register_forward_pre_hook(set_stats) for m in model.modules()
+             if isinstance(m, BatchNorm)]
+    x = torch.randn((32, 224, 224, 3), generator=torch.Generator().manual_seed(SEED + 2))
+    with torch.no_grad():
+        model(x.cuda())
+    for h in hooks:
+        h.remove()
+    ctx["b0_state"] = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    return ctx["b0_state"]
+
+
+# ----------------------------------------------------------------- phases
+
+def phase_device(ctx):
+    import torch
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    line = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unavailable"
+    print(line, flush=True)
+    ctx["name"], ctx["smi"], ctx["peaks"] = name, line, card_peaks(name)
+    return {"name": name, "nvidia_smi": line, "count": torch.cuda.device_count(),
+            "torch": torch.__version__, "cuda": torch.version.cuda,
+            "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+            "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "peaks_assumed": {"card": ctx["peaks"][0], "bytes_per_s": ctx["peaks"][1],
+                              "f32_flop_per_s": ctx["peaks"][2]}}
+
+
+def phase_build(ctx):
+    from real_time_video_deepfake_detection_tpu_torch.kernels import build
+    t0 = time.time()
+    lib = build.library()
+    return {"seconds": round(time.time() - t0, 3), "nvcc_seconds": build.build_seconds,
+            "library": os.path.relpath(lib._name, REPO)}
+
+
+def phase_kernels(ctx):
+    import torch
+    import torch.nn.functional as F
+    from real_time_video_deepfake_detection_tpu_torch.kernels import color_stats, preproc
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    peaks = ctx["peaks"]
+    res = {}
+
+    # preprocess_faces: (64,160,160,3) u8 is the main path's input at a full
+    # bucket; f32 and (2,96,128,3) are the other shapes the wrapper takes
+    faces_u8 = torch.randint(0, 256, (64, 160, 160, 3), generator=g, device=dev,
+                             dtype=torch.uint8)
+    faces_f32 = torch.rand((64, 160, 160, 3), generator=g, device=dev) * 255
+    odd = torch.rand((2, 96, 128, 3), generator=g, device=dev) * 255
+    err = 0.0
+    for x in (faces_u8, faces_f32, odd):
+        got = preproc.preprocess_faces(x, 224)
+        want = preproc.preprocess_faces_plain(x, 224)
+        torch.cuda.synchronize()
+        err = max(err, float((got - want).abs().max()))
+    if not err <= 1e-4:
+        raise AssertionError(f"preprocess_faces max abs error {err} > 1e-4")
+    mean = torch.tensor(preproc.IMAGENET_MEAN, device=dev).view(1, 3, 1, 1)
+    std = torch.tensor(preproc.IMAGENET_STD, device=dev).view(1, 3, 1, 1)
+    nchw = faces_u8.permute(0, 3, 1, 2)
+
+    def library():
+        y = F.interpolate(nchw.float(), size=(224, 224), mode="bilinear",
+                          align_corners=False)
+        return (y * (1.0 / 255.0) - mean) / std
+
+    lib_err = float((library().permute(0, 2, 3, 1)
+                     - preproc.preprocess_faces_plain(faces_u8, 224)).abs().max())
+    n_out = 64 * 224 * 224 * 3
+    b_ms, b_by = bound_ms(faces_u8.numel() + 4 * n_out, 12 * n_out, peaks)
+    kernel = functools.partial(preproc.preprocess_faces, faces_u8, 224)
+    plain = functools.partial(preproc.preprocess_faces_plain, faces_u8, 224)
+    res["preprocess_faces"] = {
+        "name": "preprocess_faces", "route": "cuda",
+        "source": f"{PKG}/csrc/preproc.cu",
+        "replaces": "real_time_video_deepfake_detection_tpu/kernels/preproc.py:60",
+        "shape": [64, 160, 160, 3], "dtype": "uint8", "max_abs_err": err,
+        "ms": time_cuda(kernel),
+        "ms_f32_input": time_cuda(lambda: preproc.preprocess_faces(faces_f32, 224)),
+        "plain_ms": time_cuda(plain),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_cuda(library), "library_call_max_abs_diff": lib_err,
+        "device_ms": profile_device(kernel, 20)[1],
+        "plain_device_ms": profile_device(plain, 20)[1],
+        "library_device_ms": profile_device(library, 20)[1],
+    }
+
+    # unique_hue_count: random hues plus the edge frames
+    hues = torch.randint(0, 180, (64, 256, 256), generator=g, device=dev,
+                         dtype=torch.uint8)
+    every = torch.arange(256 * 256, device=dev).remainder(180).to(torch.uint8)
+    edge = torch.stack([torch.full((256, 256), 77, dtype=torch.uint8, device=dev),
+                        every.view(256, 256),
+                        torch.zeros((256, 256), dtype=torch.uint8, device=dev)])
+    for x, expect in ((hues, None), (edge, [1.0, 180.0, 1.0])):
+        got = color_stats.unique_hue_count(x)
+        want = color_stats.unique_hue_count_plain(x)
+        host = [float(len(torch.unique(f))) for f in x.cpu()[:4]]
+        if not torch.equal(got, want) or got[:4].cpu().tolist() != host:
+            raise AssertionError(f"unique_hue_count mismatch: {got[:4]} {want[:4]} {host}")
+        if expect is not None and got.cpu().tolist() != expect:
+            raise AssertionError(f"edge frames counted {got.tolist()}, want {expect}")
+    b_ms, b_by = bound_ms(hues.numel() + 4 * 64, 10 * hues.numel(), peaks)
+    kernel = functools.partial(color_stats.unique_hue_count, hues)
+    plain = functools.partial(color_stats.unique_hue_count_plain, hues)
+    res["unique_hue_count"] = {
+        "name": "unique_hue_count", "route": "cuda",
+        "source": f"{PKG}/csrc/color_stats.cu",
+        "replaces": "real_time_video_deepfake_detection_tpu/kernels/color_stats.py:45",
+        "shape": [64, 256, 256], "dtype": "uint8", "max_abs_err": 0.0,
+        "ms": time_cuda(kernel), "plain_ms": time_cuda(plain),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "device_ms": profile_device(kernel, 20)[1],
+        "plain_device_ms": profile_device(plain, 20)[1],
+    }
+    ctx["kernels"] = res
+    return {k: {kk: v.get(kk) for kk in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                         "library_ms", "device_ms", "plain_device_ms",
+                                         "library_device_ms")}
+            for k, v in res.items()}
+
+
+def _synthetic_frame(rng, face: bool, t: int):
+    """480x640 BGR: a smooth textured background and, on face streams, a
+    skin-toned ellipse (which the heuristic detector finds) moving a little
+    each frame."""
+    import numpy as np
+    yy, xx = np.mgrid[:480, :640]
+    f = 100 + 40 * np.sin(xx / 37.0 + t / 5.0) * np.cos(yy / 53.0)
+    # gray noise: equal channels keep the background out of the skin range
+    f = np.repeat((f + rng.integers(-12, 13, (480, 640)))[..., None], 3, axis=2)
+    if face:
+        m = ((xx - 320 - 3 * t) / 90.0) ** 2 + ((yy - 240) / 120.0) ** 2 <= 1.0
+        skin = np.array([140, 160, 210]) + rng.integers(-6, 7, (int(m.sum()), 3))
+        f[m] = skin
+    return np.clip(f, 0, 255).astype(np.uint8)
+
+
+_SCHEMA = {"success", "analysis_mode", "faces_detected", "fake_probability",
+           "frame_forensic_probability", "real_probability", "confidence_level",
+           "temporal_average", "stability_score", "frame_count",
+           "processing_time_ms"}
+
+
+def _host_prep_ms(engine, frames):
+    """Median ms of each host-prep step of MultiStreamEngine.analyze on one
+    thread with nothing else running, over a face stream's frames."""
+    from real_time_video_deepfake_detection_tpu_torch.pipeline.detector import (
+        preprocess_face_quality)
+    from real_time_video_deepfake_detection_tpu_torch.utils.host_resize import (
+        resize_analysis)
+    steps = {"resize_analysis": [], "detect": [], "clahe_lab": [], "align": []}
+    for f in frames:
+        t0 = time.perf_counter()
+        resize_analysis(f, 256, 256)
+        t1 = time.perf_counter()
+        x, y, fw, fh = engine.face_detector(f)[0]
+        t2 = time.perf_counter()
+        crop = preprocess_face_quality(f[y:y + fh, x:x + fw])
+        t3 = time.perf_counter()
+        engine.aligner(crop)
+        t4 = time.perf_counter()
+        for k, a, b in zip(steps, (t0, t1, t2, t3), (t1, t2, t3, t4)):
+            steps[k].append((b - a) * 1e3)
+    return {k: statistics.median(v) for k, v in steps.items()}
+
+
+def phase_serve(ctx):
+    import numpy as np
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.core.config import (
+        DetectorConfig, ServerConfig)
+    from real_time_video_deepfake_detection_tpu_torch.kernels import color_stats, preproc
+    from real_time_video_deepfake_detection_tpu_torch.serving.multi import MultiStreamEngine
+
+    cfg = DetectorConfig(use_pallas_preproc=True, use_pallas_color=True,
+                         face_backend="heuristic")
+    engine = MultiStreamEngine(cfg, ServerConfig(max_streams=64, max_batch=64),
+                               params=b0_state(ctx), device="cuda")
+    tick_ms, batch_sizes = [], []
+    dispatch = engine._dispatch
+
+    def timed_dispatch(tick_cfg, arrays, states):
+        t0 = time.perf_counter()
+        out = dispatch(tick_cfg, arrays, states)
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        batch_sizes.append(int(arrays[4].sum()))
+        return out
+
+    engine._dispatch = timed_dispatch
+    n_streams, n_frames = 16, 12
+    rng = np.random.default_rng(SEED)
+    frames = {s: [_synthetic_frame(rng, s % 2 == 0, t) for t in range(n_frames)]
+              for s in range(n_streams)}
+    results = {s: [] for s in range(n_streams)}
+    errors = []
+
+    def client(s):
+        try:
+            for t in range(n_frames):
+                results[s].append(engine.analyze(frames[s][t], f"stream-{s}"))
+        except Exception as e:   # reported below; the phase fails on it
+            errors.append(f"stream {s}: {type(e).__name__}: {e}")
+
+    preproc.launches = 0
+    color_stats.launches = 0
+    t0 = time.time()
+    threads = [threading.Thread(target=client, args=(s,)) for s in range(n_streams)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.time() - t0
+    launches = {"preprocess_faces": preproc.launches,
+                "unique_hue_count": color_stats.launches}
+    engine.shutdown()
+    ctx["launches"] = launches
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"clients failed: {errors[:3]}")
+
+    problems = []
+    for s, rs in results.items():
+        if len(rs) != n_frames:
+            problems.append(f"stream {s}: {len(rs)} responses")
+            continue
+        for t, r in enumerate(rs):
+            missing = _SCHEMA - set(r)
+            if missing or not r.get("success"):
+                problems.append(f"stream {s} frame {t}: missing {missing} {r.get('error')}")
+                continue
+            if s % 2 == 0 and (r["analysis_mode"] != "face+frame"
+                               or not {"face_probability", "face_bbox"} <= set(r)):
+                problems.append(f"stream {s} frame {t}: {r['analysis_mode']}")
+            if r["frame_count"] != t + 1:
+                problems.append(f"stream {s} frame {t}: frame_count {r['frame_count']}")
+            if r["frame_count"] >= 10 and r["confidence_level"] == "UNCERTAIN":
+                problems.append(f"stream {s} frame {t}: UNCERTAIN")
+            if not all(np.isfinite(r[k]) for k in ("fake_probability",
+                                                     "frame_forensic_probability")):
+                problems.append(f"stream {s} frame {t}: non-finite probability")
+    for k, n in launches.items():
+        if n <= 0:
+            problems.append(f"kernel {k} was not launched on the main path")
+    face_probs = [r["face_probability"] for rs in results.values() for r in rs
+                  if "face_probability" in r]
+    host_prep = _host_prep_ms(engine, frames[0])
+    if not max(face_probs) - min(face_probs) > 1e-3:
+        problems.append(f"the classifier gave every face the same probability {face_probs[0]}")
+    if problems:
+        raise AssertionError("; ".join(problems[:8]))
+    return {"streams": n_streams, "frames_per_stream": n_frames,
+            "ticks": len(tick_ms), "mean_batch": statistics.mean(batch_sizes),
+            "median_tick_ms": statistics.median(tick_ms), "wall_s": wall,
+            "frames_per_s": n_streams * n_frames / wall,
+            "launches": launches, "engine_metrics": engine.metrics,
+            "host_prep_ms_one_thread": host_prep,
+            "face_probability_range": [min(face_probs), max(face_probs)],
+            "verdicts_last": {f"stream-{s}": results[s][-1]["confidence_level"]
+                              for s in (0, 1)}}
+
+
+def phase_parity(ctx):
+    import numpy as np
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.core.config import DetectorConfig
+    from real_time_video_deepfake_detection_tpu_torch.kernels import preproc
+    from real_time_video_deepfake_detection_tpu_torch.models import backbones
+    from real_time_video_deepfake_detection_tpu_torch.ops import forensics
+    from real_time_video_deepfake_detection_tpu_torch.ops.color import bgr_to_gray_u8
+    from real_time_video_deepfake_detection_tpu_torch.ops.filters import canny_with_iterations
+    from real_time_video_deepfake_detection_tpu_torch.serving.batcher import (
+        device_step_compact, init_stream_states)
+    from real_time_video_deepfake_detection_tpu_torch.state.tree import tree_leaves, tree_map
+    from real_time_video_deepfake_detection_tpu_torch.utils.host_resize import resize_analysis
+
+    cfg = DetectorConfig(use_pallas_preproc=True, use_pallas_color=True)
+    b = 64
+    rng = np.random.default_rng(SEED + 1)
+    model_cpu = backbones.build_model(backbones.make("b0")).eval()
+    model_cpu.load_state_dict(b0_state(ctx))
+    model_gpu = backbones.build_model(backbones.make("b0")).eval()
+    model_gpu.load_state_dict(b0_state(ctx))
+    model_gpu.cuda()
+
+    def inputs(t):
+        frames = np.stack([resize_analysis(_synthetic_frame(rng, i % 2 == 0, t), 256, 256)
+                           for i in range(b)])
+        faces = rng.integers(0, 256, (b, 160, 160, 3), dtype=np.uint8)
+        has_face = rng.random(b) < 0.6
+        face_hw = rng.integers(40, 200, (b, 2)).astype(np.int32)
+        active = rng.random(b) < 0.9
+        slot_idx = np.where(active, np.arange(b), b).astype(np.int32)
+        return [torch.from_numpy(a) for a in (frames, faces, has_face, face_hw,
+                                              active, slot_idx)]
+
+    st_cpu = init_stream_states(b + 1, cfg, "cpu")
+    st_gpu = init_stream_states(b + 1, cfg, "cuda")
+    max_float_diff = 0.0
+    for t in range(2):   # a full-forensic tick, then a fast one
+        xs = inputs(t)
+        out_c, st_cpu = device_step_compact(model_cpu, cfg, *xs, st_cpu)
+        out_g, st_gpu = device_step_compact(model_gpu, cfg, *[x.cuda() for x in xs], st_gpu)
+        pairs = [(k, out_c[k], out_g[k].cpu()) for k in out_c]
+        pairs += [(f"state{i}", a, g.cpu()) for i, (a, g) in
+                  enumerate(zip(tree_leaves(st_cpu), tree_leaves(st_gpu)))]
+        faces = out_c["face_probability"][xs[2]]
+        if not float(faces.max() - faces.min()) > 1e-3:
+            raise AssertionError(f"tick {t}: every face has probability {float(faces[0])}")
+        for k, a, g in pairs:
+            if a.dtype.is_floating_point:
+                d = float((a - g).abs().max()) if a.numel() else 0.0
+                max_float_diff = max(max_float_diff, d)
+                if not d <= 1e-4:
+                    raise AssertionError(f"tick {t} {k}: max abs diff {d} > 1e-4")
+            elif not torch.equal(a, g):
+                raise AssertionError(f"tick {t} {k}: {int((a != g).sum())} integers differ")
+
+    xs = [x.cuda() for x in inputs(2)]
+    _, rounds = canny_with_iterations(bgr_to_gray_u8(xs[0]))
+    st = init_stream_states(b + 1, cfg, "cuda")
+
+    def tick():
+        device_step_compact(model_gpu, cfg, *xs, st)
+
+    for _ in range(3):
+        tick()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        tick()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    wall, busy, activities, top = profile_device(tick, 5)
+    frames, faces, has_face, face_hw, active, slot_idx = xs
+    idx = slot_idx.long()
+    sub_forensic = tree_map(lambda v: v[idx], st.forensic)
+    full = torch.ones(b, dtype=torch.bool, device="cuda")
+    split = {
+        "forensics": functools.partial(
+            forensics.analyze_frame_batch, frames, sub_forensic, full, cfg.forensic,
+            use_pallas_color=True),
+        "classifier": lambda: model_gpu(preproc.preprocess_faces(faces, 224)),
+    }
+    with torch.no_grad():
+        split_ms = {k: profile_device(fn, 5)[:2] for k, fn in split.items()}
+    return {"bucket": b, "ticks_compared": 2, "max_float_diff": max_float_diff,
+            "tolerance": 1e-4, "canny_rounds_bucket64": rounds,
+            "median_tick_ms_bucket64_full_forensic": statistics.median(times),
+            "profiled_tick": {"wall_ms": wall, "device_busy_ms": busy,
+                              "device_idle_share": None if busy is None else 1 - busy / wall,
+                              "device_activities": activities, "top": top},
+            "split_wall_and_device_ms": split_ms}
+
+
+PHASES = (("device", phase_device), ("build", phase_build),
+          ("kernels", phase_kernels), ("serve", phase_serve),
+          ("parity", phase_parity))
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on a GPU",
+              file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(REPO, PKG, "csrc")):
+        print(f"chip_smoke: {PKG}/ not found beside this script; run it from "
+              "a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    ctx = {}
+    for name, fn in PHASES:
+        t0 = time.time()
+        try:
+            info = fn(ctx)
+        except Exception as e:   # report, then fail the run
+            emit({"phase": name, "ok": False, "error": f"{type(e).__name__}: {e}",
+                  "traceback": traceback.format_exc(limit=6)})
+            return 1
+        emit({"phase": name, "ok": True, "seconds": round(time.time() - t0, 3), **info})
+
+    kernels = []
+    for k, v in ctx["kernels"].items():
+        kernels.append({key: v[key] for key in (
+            "name", "route", "source", "replaces")} | {"launches": ctx["launches"][k]}
+            | {key: v[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")})
+    emit({"kernels": kernels, "card": ctx["smi"]})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,18 @@
+"""Device selection for the port's entry points."""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """`None` means the CUDA card: it raises when CUDA is absent instead of
+    running on the CPU. Pass device="cpu" to run on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)

@@ -1,0 +1,227 @@
+"""The six forensic signals and the full/fast analyzers over a batch.
+
+Port of real_time_video_deepfake_detection_tpu/ops/forensics.py: the
+scoring contract of the reference FrameForensicAnalyzer
+(frame_analysis.py:22-395) as functions over a (B, H, W, 3) BGR u8 batch of
+analysis-size frames plus the batched ForensicState. The JAX package vmaps
+single-frame functions; here each function is written over the batch axis.
+Heuristic step scores are torch.where sums in the JAX functions' order; the
+underlying image ops are the cv2-exact ops of this package.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from ..core.config import ForensicConfig
+from ..kernels.color_stats import color_scores_batch, unique_hue_count_plain
+from ..state.forensic_state import ForensicState
+from .color import bgr_to_gray_u8, bgr_to_hsv_u8
+from .filters import canny, gaussian_blur5_f32, laplacian4
+from .jpeg import jpeg_roundtrip_bgr
+
+_DIMS = (-2, -1)
+
+
+@functools.lru_cache(maxsize=None)
+def _radial_masks_np(h: int, w: int):
+    """Frequency band masks (frame_analysis.py:40-46)."""
+    cy, cx = h // 2, w // 2
+    y = np.arange(h)[:, None]
+    x = np.arange(w)[None, :]
+    dist = np.sqrt((x - cx) ** 2 + (y - cy) ** 2)
+    inner = min(h, w) // 8
+    mid = min(h, w) // 4
+    outer = min(h, w) // 2
+    low = dist <= inner
+    midm = (dist > inner) & (dist <= mid)
+    high = (dist > mid) & (dist <= outer)
+    return low, midm, high
+
+
+def _step(x, lo, a, hi=None, b=0.0, greater=False):
+    """where(x < lo, a, where(x < hi, b, 0)) — or with `>` when greater."""
+    if greater:
+        inner = torch.where(x > hi, b, 0.0) if hi is not None else 0.0
+        return torch.where(x > lo, a, inner)
+    inner = torch.where(x < hi, b, 0.0) if hi is not None else 0.0
+    return torch.where(x < lo, a, inner)
+
+
+def frequency_score(gray_f32: torch.Tensor) -> torch.Tensor:
+    """FFT band-energy heuristic (frame_analysis.py:128-180); (B,H,W) -> (B,)."""
+    h, w = gray_f32.shape[-2], gray_f32.shape[-1]
+    low_m, mid_m, high_m = (torch.as_tensor(m, device=gray_f32.device)
+                            for m in _radial_masks_np(h, w))
+    f = torch.fft.fftshift(torch.fft.fft2(gray_f32), dim=_DIMS)
+    mag = torch.log1p(torch.abs(f))
+    zero = torch.zeros((), dtype=mag.dtype, device=mag.device)
+
+    def masked_mean(m):
+        return torch.where(m, mag, zero).sum(_DIMS) / max(int(m.sum()), 1)
+
+    low, mid, high = masked_mean(low_m), masked_mean(mid_m), masked_mean(high_m)
+    total = low + mid + high + 1e-10
+    hfr = high / total
+    mfr = mid / total
+    mid_n = max(int(mid_m.sum()), 1)
+    mid_var = torch.where(mid_m, (mag - mid[:, None, None]) ** 2, zero).sum(_DIMS) / mid_n
+    mid_cv = torch.sqrt(mid_var) / (mid + 1e-10)
+
+    score = _step(hfr, 0.18, 0.4, 0.22, 0.2)
+    score = score + _step(mid_cv, 0.6, 0.25, 0.45, 0.1, greater=True)
+    score = score + torch.where((mfr > 0.45) & (hfr < 0.2), 0.15, 0.0)
+    return torch.clamp(score, 0.0, 1.0)
+
+
+def _block_stats(x: torch.Tensor, block: int = 32) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-block (mean, population std) of a (B, H, W) batch, each (B, nb)."""
+    b_, h, w = x.shape
+    nb_h, nb_w = h // block, w // block
+    b = x[:, :nb_h * block, :nb_w * block].reshape(b_, nb_h, block, nb_w, block)
+    mean = b.mean(dim=(2, 4))
+    var = (b ** 2).mean(dim=(2, 4)) - mean ** 2
+    std = torch.sqrt(torch.clamp(var, min=0.0))
+    return mean.reshape(b_, -1), std.reshape(b_, -1)
+
+
+def _cv(v: torch.Tensor):
+    mean = v.mean(1)
+    return mean, v.std(1, correction=0) / (mean + 1e-10)
+
+
+def noise_score(gray_f32: torch.Tensor) -> torch.Tensor:
+    """Noise-consistency heuristic (frame_analysis.py:182-225)."""
+    _, stds = _block_stats(gray_f32 - gaussian_blur5_f32(gray_f32), 32)
+    mean_noise, noise_cv = _cv(stds)
+    score = _step(noise_cv, 0.7, 0.5, 0.5, 0.25, greater=True)
+    score = score + _step(mean_noise, 1.0, 0.3, 2.0, 0.1)
+    return torch.clamp(score, 0.0, 1.0)
+
+
+def ela_score(frames_bgr_u8: torch.Tensor) -> torch.Tensor:
+    """Error-level-analysis heuristic (frame_analysis.py:227-276), with the
+    bit-exact JPEG q90 round trip."""
+    recompressed = jpeg_roundtrip_bgr(frames_bgr_u8, 90)
+    diff = torch.abs(frames_bgr_u8.to(torch.int32) - recompressed.to(torch.int32))
+    diff_gray = bgr_to_gray_u8(torch.clamp(diff, 0, 255).to(torch.uint8)).to(torch.float32)
+    means, _ = _block_stats(diff_gray, 32)
+    ela_mean, ela_cv = _cv(means)
+    score = _step(ela_cv, 0.9, 0.5, 0.6, 0.2, greater=True)
+    score = score + _step(ela_mean, 15, 0.2, 10, 0.1, greater=True)
+    return torch.clamp(score, 0.0, 1.0)
+
+
+def edge_score(gray_u8: torch.Tensor) -> torch.Tensor:
+    """Edge-coherence heuristic (frame_analysis.py:278-309)."""
+    edges = canny(gray_u8, 50, 150)
+    density = (edges > 0).to(torch.float32).mean(_DIMS)
+    lap = laplacian4(gray_u8)
+    lap_var = ((lap - lap.mean(_DIMS, keepdim=True)) ** 2).mean(_DIMS)
+    score = _step(density, 0.02, 0.35, 0.04, 0.15)
+    score = score + _step(lap_var, 50, 0.3, 100, 0.1)
+    return torch.clamp(score, 0.0, 1.0)
+
+
+def color_score(frames_bgr_u8: torch.Tensor) -> torch.Tensor:
+    """Color-distribution heuristic (frame_analysis.py:311-347), with the
+    std as sqrt(E[x^2] - E[x]^2) as in the JAX function."""
+    hsv = bgr_to_hsv_u8(frames_bgr_u8)
+    sat = hsv[..., 1].to(torch.float32)
+    val = hsv[..., 2].to(torch.float32)
+    sat_std = torch.sqrt(torch.clamp((sat ** 2).mean(_DIMS) - sat.mean(_DIMS) ** 2, min=0.0))
+    val_std = torch.sqrt(torch.clamp((val ** 2).mean(_DIMS) - val.mean(_DIMS) ** 2, min=0.0))
+    # the JAX function popcounts a 6-word bitset of the hues; OpenCV's hue
+    # is below 180, so the kernel's plain presence count gives the same
+    unique = unique_hue_count_plain(hsv[..., 0])
+    score = _step(sat_std, 15, 0.3, 25, 0.1)
+    score = score + _step(val_std, 15, 0.25, 25, 0.1)
+    score = score + _step(unique, 30, 0.25, 50, 0.1)
+    return torch.clamp(score, 0.0, 1.0)
+
+
+def temporal_score(gray_f32: torch.Tensor, state: ForensicState,
+                   frame_count_post: torch.Tensor) -> Tuple[torch.Tensor, ForensicState]:
+    """Temporal-consistency heuristic and state evolution
+    (frame_analysis.py:349-389). `frame_count_post` is the analyzer count
+    AFTER this frame's increment."""
+    mean_diff = torch.abs(gray_f32 - state.prev_gray).mean(_DIMS)
+    push = state.has_prev
+    cap = state.diffs.shape[1]
+    written = state.diffs.scatter(1, state.diff_pos[:, None].long(), mean_diff[:, None])
+    new_diffs = torch.where(push[:, None], written, state.diffs)
+    n_diffs = torch.where(push, torch.clamp(state.n_diffs + 1, max=cap), state.n_diffs)
+    diff_pos = torch.where(push, torch.remainder(state.diff_pos + 1, cap), state.diff_pos)
+
+    mask = torch.arange(cap, device=gray_f32.device) < n_diffs[:, None]
+    zero = torch.zeros((), dtype=torch.float32, device=gray_f32.device)
+    nf = torch.clamp(n_diffs, min=1).to(torch.float32)
+    mean_diffs = torch.where(mask, new_diffs, zero).sum(1) / nf
+    var = torch.where(mask, (new_diffs - mean_diffs[:, None]) ** 2, zero).sum(1) / nf
+    temporal_cv = torch.sqrt(var) / (mean_diffs + 1e-10)
+
+    score = _step(temporal_cv, 1.5, 0.4, 1.0, 0.2, greater=True)
+    late = frame_count_post > 10
+    score = score + torch.where((mean_diff < 0.3) & late, 0.3,
+                                torch.where((mean_diff < 0.8) & late, 0.1, 0.0))
+    score = torch.clamp(score, 0.0, 1.0)
+    # first frame: no diff yet, score 0 (reference :358-360)
+    score = torch.where(state.has_prev & (n_diffs >= 5), score, 0.0)
+
+    new_state = ForensicState(
+        prev_gray=gray_f32, has_prev=torch.ones_like(state.has_prev),
+        diffs=new_diffs, n_diffs=n_diffs, diff_pos=diff_pos,
+        frame_count=frame_count_post)
+    return score, new_state
+
+
+def analyze_frame_batch(frames: torch.Tensor, states: ForensicState,
+                        fulls: torch.Tensor, cfg: ForensicConfig = ForensicConfig(),
+                        use_pallas_color: bool = False,
+                        fast_only: bool = False) -> Tuple[Dict[str, torch.Tensor], ForensicState]:
+    """One forensic step for a batch of streams: `fulls[i]` selects the six
+    signals with the full weights (frame_analysis.py:58-101) or the fast
+    trio with the fast weights (:103-126). Both weightings are computed and
+    selected per stream. `fast_only=True` skips the full-only signals
+    (noise, ELA and color report 0). `use_pallas_color` takes the color
+    signal from the unique-hue kernel (kernels/color_stats.py), whose std is
+    sqrt(mean((x-mean)^2)).
+
+    `frames` are (B, H, W, 3) BGR u8 analysis-size frames. Returns
+    (results, new_state); results hold (B,) tensors keyed by signal, plus
+    'fake_probability', 'full' and 'frame_number'."""
+    frame_count_post = states.frame_count + 1
+    gray_u8 = bgr_to_gray_u8(frames)
+    gray_f32 = gray_u8.to(torch.float32)
+
+    s_freq = frequency_score(gray_f32)
+    s_temporal, new_state = temporal_score(gray_f32, states, frame_count_post)
+    s_edge = edge_score(gray_u8)
+    if fast_only:
+        s_noise = s_ela = s_color = torch.zeros_like(s_freq)
+    else:
+        s_noise = noise_score(gray_f32)
+        s_ela = ela_score(frames)
+        if use_pallas_color:
+            s_color = color_scores_batch(frames)
+        else:
+            s_color = color_score(frames)
+
+    full_combined = (s_freq * cfg.w_frequency + s_noise * cfg.w_noise
+                     + s_ela * cfg.w_ela + s_edge * cfg.w_edge
+                     + s_color * cfg.w_color + s_temporal * cfg.w_temporal)
+    fast_combined = (s_freq * cfg.fast_w_frequency
+                     + s_temporal * cfg.fast_w_temporal
+                     + s_edge * cfg.fast_w_edge)
+    combined = torch.clamp(torch.where(fulls, full_combined, fast_combined), 0.0, 1.0)
+    results = {
+        "frequency": s_freq, "noise": s_noise, "ela": s_ela, "edge": s_edge,
+        "color": s_color, "temporal": s_temporal,
+        "fake_probability": combined, "full": fulls,
+        "frame_number": frame_count_post,
+    }
+    return results, new_state

@@ -1,0 +1,207 @@
+"""Batched multi-stream serving tick.
+
+Port of real_time_video_deepfake_detection_tpu/serving/batcher.py (the
+host-prep tick): one call serves every stream of the batch.
+
+  frames (N,256,256,3 u8 BGR) -> six forensic signals
+  faces  (N,160,160,3 f32|u8 RGB) -> resize 224 + normalize -> EfficientNet
+         -> sigmoid -> calibrator -> small-face boost
+  vote = face prob if face else forensic prob
+  tracker ring-buffer update + verdict
+
+Padded entries carry active=False: their state update is a no-op. The
+kernels of this tick are selected by DetectorConfig.use_pallas_preproc
+(kernels/preproc.py) and use_pallas_color (kernels/color_stats.py).
+The device-detect tick, device CLAHE and clip attention come with later
+slices of the port.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import weakref
+from typing import Dict, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..core.config import DetectorConfig
+from ..models.efficientnet import EfficientNet
+from ..ops import forensics
+from ..pipeline.classify import preprocess_aligned
+from ..state.forensic_state import ForensicState, forensic_state_init_batch
+from ..state.tracker import (
+    TrackerState, tracker_init_batch, tracker_stability,
+    tracker_temporal_average, tracker_update, tracker_verdict,
+)
+from ..state.tree import tree_map
+
+
+@dataclasses.dataclass
+class StreamStates:
+    forensic: ForensicState   # batched (leading stream axis)
+    tracker: TrackerState     # batched
+    frame_count: torch.Tensor  # i32[N] server-semantics per-stream frame count
+
+
+def init_stream_states(n_streams: int, cfg: DetectorConfig = DetectorConfig(),
+                       device: Union[str, torch.device] = "cpu") -> StreamStates:
+    return StreamStates(
+        forensic=forensic_state_init_batch(n_streams, cfg.forensic, device),
+        tracker=tracker_init_batch(n_streams, cfg.tracker, device),
+        frame_count=torch.zeros((n_streams,), dtype=torch.int32, device=device))
+
+
+def reset_streams(states: StreamStates, mask: torch.Tensor) -> StreamStates:
+    """Zero the streams selected by `mask` (bool[N]) — per-stream /reset."""
+    def sel(s):
+        m = mask.reshape((-1,) + (1,) * (s.ndim - 1))
+        return torch.where(m, torch.zeros_like(s), s)
+    return tree_map(sel, states)
+
+
+# jnp.interp treats an interval no wider than spacing(eps(f32)) as zero-width
+_INTERP_EPS = float(np.spacing(np.finfo(np.float32).eps))
+
+
+def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
+    """jnp.interp(x, xp, fp) with its edge handling: fp[0] left of xp[0],
+    fp[-1] right of xp[-1], and a zero-width interval takes its left value."""
+    i = torch.clamp(torch.searchsorted(xp, x, right=True), 1, xp.shape[0] - 1)
+    df = fp[i] - fp[i - 1]
+    dx = xp[i] - xp[i - 1]
+    delta = x - xp[i - 1]
+    dx0 = torch.abs(dx) <= _INTERP_EPS
+    f = torch.where(dx0, fp[i - 1],
+                    fp[i - 1] + (delta / torch.where(dx0, torch.ones_like(dx), dx)) * df)
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
+
+
+_bf16_models: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _bf16_model(model: EfficientNet) -> EfficientNet:
+    """A bfloat16 copy of `model` (every float parameter and statistic cast,
+    as the JAX tick casts the parameter tree), made once per model."""
+    m = _bf16_models.get(model)
+    if m is None:
+        m = copy.deepcopy(model).to(torch.bfloat16)
+        _bf16_models[model] = m
+    return m
+
+
+def _unported(cfg: DetectorConfig) -> None:
+    if cfg.clahe_device:
+        raise NotImplementedError(
+            "clahe_device: device CLAHE comes with the slice that ports the "
+            "CLAHE kernels (kernels/clahe.py)")
+    if cfg.clip_window > 0:
+        raise NotImplementedError(
+            "clip_window > 0: the clip-attention head comes with a later slice")
+
+
+@torch.no_grad()
+def _step_core(model: EfficientNet, cfg: DetectorConfig,
+               frames_u8: torch.Tensor, faces_raw: torch.Tensor,
+               has_face: torch.Tensor, face_hw: torch.Tensor,
+               active: torch.Tensor, states: StreamStates
+               ) -> Tuple[Dict[str, torch.Tensor], StreamStates]:
+    """One tick over all streams.
+
+    frames_u8: (N,256,256,3) u8 analysis-size BGR frames
+    faces_raw: (N,160,160,3) f32 or u8 aligned face crops, raw RGB 0-255
+        (zeros for streams without faces)
+    has_face:  bool[N]; face_hw: i32[N,2] original crop size (h, w)
+    active:    bool[N] padded-slot mask
+    """
+    _unported(cfg)
+    n = frames_u8.shape[0]
+    dev = frames_u8.device
+    # server off-by-one: forensics scheduled on the PRE-increment count
+    # (backend_server.py:148-156)
+    if cfg.forensic_schedule == "tick_fast":
+        full = torch.zeros((n,), dtype=torch.bool, device=dev)
+    elif cfg.forensic_schedule == "tick_full":
+        full = torch.ones((n,), dtype=torch.bool, device=dev)
+    elif cfg.forensic_schedule == "frame":
+        full = torch.remainder(states.frame_count, cfg.full_forensic_interval) == 0
+    else:
+        raise ValueError(
+            f"unknown forensic_schedule {cfg.forensic_schedule!r} "
+            "(expected 'frame', 'tick_full' or 'tick_fast')")
+
+    fres, new_forensic = forensics.analyze_frame_batch(
+        frames_u8, states.forensic, full, cfg.forensic,
+        use_pallas_color=cfg.use_pallas_color,
+        fast_only=cfg.forensic_schedule == "tick_fast")
+    # inactive slots keep their old forensic state
+    new_forensic = tree_map(
+        lambda new, old: torch.where(
+            active.reshape((-1,) + (1,) * (new.ndim - 1)), new, old),
+        new_forensic, states.forensic)
+    forensic_prob = fres["fake_probability"]
+
+    if cfg.use_pallas_preproc:
+        from ..kernels.preproc import preprocess_faces
+        x = preprocess_faces(faces_raw, cfg.model_input_size)
+    else:
+        x = preprocess_aligned(faces_raw, cfg.model_input_size)
+    if cfg.bf16_inference:
+        m = _bf16_model(model)
+        logits = m.apply_head(m.extract_features(x.to(torch.bfloat16)))
+        face_prob = torch.sigmoid(logits[:, 0].to(torch.float32))
+    else:
+        face_prob = torch.sigmoid(model.apply_head(model.extract_features(x))[:, 0])
+    if cfg.calibrator_knots is not None:
+        # isotonic calibration between sigmoid and the small-face heuristic
+        # (deepfake_detection.py:535-538)
+        cx = torch.tensor(cfg.calibrator_knots[0], dtype=torch.float32, device=dev)
+        cy = torch.tensor(cfg.calibrator_knots[1], dtype=torch.float32, device=dev)
+        face_prob = interp(face_prob, cx, cy)
+    small = (face_hw[:, 0] < cfg.small_face_px) | (face_hw[:, 1] < cfg.small_face_px)
+    face_prob = torch.clamp(
+        face_prob + torch.where(small, cfg.small_face_boost, 0.0), 0.0, 1.0)
+
+    if cfg.fuse_forensics:
+        fused = cfg.face_weight * face_prob + cfg.forensic_weight * forensic_prob
+    else:
+        fused = face_prob   # reference default (deepfake_detection.py:620-623)
+    vote_prob = torch.where(has_face, fused, forensic_prob)
+
+    new_tracker = tracker_update(states.tracker, vote_prob, active,
+                                 cfg.detection_threshold)
+    new_counts = states.frame_count + active.to(torch.int32)
+    out = {
+        "fake_probability": torch.where(has_face, face_prob, forensic_prob),
+        "face_probability": face_prob,
+        "frame_forensic_probability": forensic_prob,
+        "verdict": tracker_verdict(new_tracker),
+        "temporal_average": tracker_temporal_average(new_tracker),
+        "stability_score": tracker_stability(new_tracker),
+        "frame_count": new_counts,
+        "full_forensic": full,
+    }
+    return out, StreamStates(new_forensic, new_tracker, new_counts)
+
+
+@torch.no_grad()
+def device_step_compact(model: EfficientNet, cfg: DetectorConfig,
+                        frames_u8: torch.Tensor, faces_raw: torch.Tensor,
+                        has_face: torch.Tensor, face_hw: torch.Tensor,
+                        active: torch.Tensor, slot_idx: torch.Tensor,
+                        states: StreamStates
+                        ) -> Tuple[Dict[str, torch.Tensor], StreamStates]:
+    """Occupancy-bucketed tick: the inputs carry B <= N_slots entries and
+    `slot_idx` maps each to its row of the full state. Padded entries point
+    at the dummy row N with active=False; their update is a no-op, so the
+    duplicate scatters into row N write identical values.
+
+    `states` must have N_slots + 1 rows (the engine allocates the dummy)."""
+    idx = slot_idx.to(torch.int64)
+    sub = tree_map(lambda s: s[idx], states)
+    out, new_sub = _step_core(model, cfg, frames_u8, faces_raw, has_face,
+                              face_hw, active, sub)
+    new_full = tree_map(lambda full, ns: full.index_put((idx,), ns), states, new_sub)
+    return out, new_full

@@ -1,0 +1,458 @@
+"""Multi-stream serving engine: dynamic batching onto one tick.
+
+Port of real_time_video_deepfake_detection_tpu/serving/multi.py
+(MultiStreamEngine) in host-prep mode. N concurrent streams, each named by a
+stream id, park their requests in a queue; a batcher thread ticks when
+`max_batch` frames are pending or `batch_timeout_ms` elapses, runs ONE
+serving tick (serving/batcher.device_step_compact) for all of them on the
+engine's device, and a drainer thread completes the waiting requests with
+the reference's JSON response.
+
+Per-stream session state lives in the batched StreamStates on the device,
+with one extra dummy row for padded entries; /reset with a stream id resets
+only that slot. Not in this slice (each raises NotImplementedError, or
+returns None where the JAX engine hands the caller a fallback):
+device-detect ticks and wire ingest (the device-detect slice), device
+CLAHE (the CLAHE-kernel slice), MTCNN alignment and clip attention (later
+slices), and the native JPEG prep path of `analyze_jpeg` (the HTTP slice).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import queue
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..core.config import DetectorConfig, ServerConfig
+from ..core.device import resolve_device
+from ..models import backbones
+from ..pipeline.detector import _ResizeAligner, preprocess_face_quality
+from ..pipeline.faces import FaceDetector
+from ..state.tracker import (
+    VERDICT_NAMES, tracker_stability, tracker_temporal_average,
+    tracker_verdict, tracker_voting_stats,
+)
+from ..state.tree import tree_map
+from ..utils.host_resize import resize_analysis
+from .batcher import (
+    StreamStates, device_step_compact, init_stream_states, reset_streams,
+)
+
+
+@dataclass
+class _Pending:
+    stream_slot: int
+    frame_256: Optional[np.ndarray] = None   # (256,256,3) u8 analysis frame
+    face_raw: Optional[np.ndarray] = None    # (160,160,3) aligned RGB or None
+    face_hw: tuple = (0, 0)
+    faces_detected: int = 0
+    bbox: Optional[tuple] = None
+    # owning stream id, checked against the slot table at tick time: a
+    # request parked while its stream was LRU-evicted must not write into
+    # the slot's new owner's state
+    stream_id: Optional[str] = None
+    event: threading.Event = field(default_factory=threading.Event)
+    result: Optional[dict] = None
+    t_start: float = 0.0
+
+
+def _unported(cfg: DetectorConfig, server_cfg: ServerConfig) -> None:
+    if server_cfg.device_detect:
+        raise NotImplementedError(
+            "device_detect: the device-detect tick (SSD-Res10 in the tick) "
+            "comes with the next slices of the port")
+    if server_cfg.ingest_plane != "bgr":
+        raise NotImplementedError(
+            "ingest_plane wire formats come with the wire-ingest slice")
+    if cfg.mtcnn_device:
+        raise NotImplementedError("mtcnn_device comes with the MTCNN slice")
+
+
+class MultiStreamEngine:
+    """Owns the stream table, the batched device state and the batcher and
+    drainer threads.
+
+    `params`: a state dict for the backbone module (utils/convert.
+    params_from_jax makes one from JAX parameters); None draws parameters
+    from a torch.Generator seeded with `seed`. `device`: None means CUDA
+    (raising when it is absent); pass "cpu" to run on the CPU."""
+
+    def __init__(self, cfg: DetectorConfig = DetectorConfig(),
+                 server_cfg: ServerConfig = ServerConfig(),
+                 params: Optional[Dict[str, torch.Tensor]] = None, spec=None,
+                 device: Optional[Union[str, torch.device]] = None, seed: int = 0):
+        _unported(cfg, server_cfg)
+        self.device = resolve_device(device)
+        self.server_cfg = server_cfg
+        self.spec = spec if spec is not None else backbones.make("b0")
+        if cfg.calibrator_knots is None:
+            # the optional weights/calibrator.pkl, applied inside the tick
+            from ..train.calibration import load_default
+            cal = load_default()
+            if cal is not None and cal.x_ is not None:
+                cfg = dataclasses.replace(cfg, calibrator_knots=(
+                    tuple(float(v) for v in cal.x_), tuple(float(v) for v in cal.y_)))
+        self.cfg = cfg
+        model = backbones.build_model(
+            self.spec, generator=torch.Generator().manual_seed(seed))
+        if params is not None:
+            model.load_state_dict(params)
+        self.model = model.to(self.device).eval()
+        self.face_detector = FaceDetector(backend=cfg.face_backend)
+        self.aligner = _ResizeAligner()
+        # the resize aligner's crops are integer-valued, so they travel as u8
+        self._faces_dtype = np.uint8
+
+        # tick-schedule forensic variants: index 0 full tick, 1 fast tick
+        if server_cfg.forensic_tick_schedule:
+            self._tick_cfgs = (dataclasses.replace(cfg, forensic_schedule="tick_full"),
+                               dataclasses.replace(cfg, forensic_schedule="tick_fast"))
+        else:
+            self._tick_cfgs = (cfg, cfg)
+        self._tick_no = 0
+
+        self.n_slots = server_cfg.max_streams
+        # +1 dummy row for the padded entries of compact ticks
+        self.states: StreamStates = init_stream_states(self.n_slots + 1, cfg, self.device)
+        # bucket sizes: powers of two >= 8 up to max_batch
+        self.buckets = []
+        b = 8
+        while b < min(server_cfg.max_batch, self.n_slots):
+            self.buckets.append(b)
+            b *= 2
+        self.buckets.append(min(server_cfg.max_batch, self.n_slots))
+        self.slot_of: Dict[str, int] = {}
+        self.last_request: Dict[int, float] = {}
+        self.lock = threading.Lock()
+        # resets that land while a tick runs outside the lock; _run_tick
+        # re-applies them to the tick's output state
+        self._pending_reset: Optional[np.ndarray] = None
+        self.queue: List[_Pending] = []
+        self.queue_cv = threading.Condition(self.lock)
+        self.metrics = {
+            "ticks": 0, "frames_total": 0,
+            "ewma_tick_latency_ms": 0.0, "ewma_host_prep_ms": 0.0,
+            "ewma_batch_size": 0.0, "max_batch_seen": 0,
+        }
+        self._stop = False
+        self._warmup()
+        self._inflight: "queue.Queue" = queue.Queue(
+            maxsize=max(int(server_cfg.pipeline_depth), 1))
+        self._thread = threading.Thread(target=self._batcher_loop, daemon=True)
+        self._thread.start()
+        self._drainer = threading.Thread(target=self._drain_loop, daemon=True)
+        self._drainer.start()
+
+    def _ewma(self, key: str, value: float, alpha: float = 0.1):
+        cur = self.metrics[key]
+        self.metrics[key] = value if cur == 0.0 else (1 - alpha) * cur + alpha * value
+
+    def _tick_inputs(self, b: int):
+        h, w = self.cfg.forensic.analysis_size
+        m = self.cfg.mtcnn_image_size
+        return (np.zeros((b, h, w, 3), np.uint8),
+                np.zeros((b, m, m, 3), self._faces_dtype),
+                np.zeros(b, bool), np.zeros((b, 2), np.int32), np.zeros(b, bool),
+                np.full(b, self.n_slots, np.int32))
+
+    def _dispatch(self, cfg: DetectorConfig, arrays, states: StreamStates):
+        dev = [torch.from_numpy(a).to(self.device) for a in arrays]
+        return device_step_compact(self.model, cfg, *dev[:5], dev[5], states)
+
+    def _warmup(self):
+        """Run every bucket's tick once on all-inactive entries before
+        serving, so kernel builds and allocator growth are not paid by a
+        request."""
+        for cfg in dict.fromkeys(self._tick_cfgs):
+            for b in self.buckets:
+                out, _ = self._dispatch(cfg, self._tick_inputs(b), self.states)
+                out["verdict"].cpu()
+
+    # ------------------------------------------------------------- streams
+
+    def _reset_mask_locked(self, mask: np.ndarray) -> None:
+        self.states = reset_streams(self.states, torch.from_numpy(mask).to(self.device))
+        if self._pending_reset is None:
+            self._pending_reset = mask.copy()
+        else:
+            self._pending_reset |= mask
+
+    def slot_for(self, stream_id: str) -> int:
+        with self.lock:
+            return self._slot_for_locked(stream_id)
+
+    def _slot_for_locked(self, stream_id: str) -> int:
+        if stream_id in self.slot_of:
+            return self.slot_of[stream_id]
+        if len(self.slot_of) >= self.n_slots:
+            # evict the least-recently-used stream
+            lru = min(self.slot_of.items(),
+                      key=lambda kv: self.last_request.get(kv[1], 0.0))
+            slot = lru[1]
+            del self.slot_of[lru[0]]
+            self.last_request.pop(slot, None)
+            mask = np.zeros(self.n_slots + 1, bool)
+            mask[slot] = True
+            self._reset_mask_locked(mask)
+        else:
+            slot = len(self.slot_of)
+        self.slot_of[stream_id] = slot
+        return slot
+
+    def admit(self, stream_id: str) -> Tuple[int, Optional[int]]:
+        """Resolve/create the stream's slot AND check+stamp its rate window
+        under one lock. Returns (slot, retry_after_ms); admitted iff
+        retry_after_ms is None (reference backend_server.py:195-204)."""
+        now = time.time()
+        with self.lock:
+            existing = stream_id in self.slot_of
+            slot = self._slot_for_locked(stream_id)
+            last = self.last_request.get(slot, 0.0)
+            if existing and now - last < self.server_cfg.min_request_interval:
+                return slot, int((self.server_cfg.min_request_interval
+                                  - (now - last)) * 1000)
+            self.last_request[slot] = now
+            return slot, None
+
+    def reset(self, stream_id: Optional[str] = None) -> None:
+        with self.lock:
+            mask = np.zeros(self.n_slots + 1, bool)
+            if stream_id is None:
+                mask[:] = True
+                self.last_request.clear()
+            elif stream_id in self.slot_of:
+                mask[self.slot_of[stream_id]] = True
+                self.last_request.pop(self.slot_of[stream_id], None)
+            self._reset_mask_locked(mask)
+
+    def frame_count(self, stream_id: str = "default") -> int:
+        with self.lock:
+            slot = self.slot_of.get(stream_id)
+            states = self.states
+        if slot is None:
+            return 0
+        return int(states.frame_count[slot])
+
+    def stream_stats(self, slot: int) -> dict:
+        """/stats scalars for one slot."""
+        with self.lock:
+            states = self.states
+        t = tree_map(lambda x: x[slot:slot + 1], states.tracker)
+        fake, real, total = tracker_voting_stats(t)
+        vals = torch.stack([
+            states.frame_count[slot].to(torch.float64),
+            tracker_temporal_average(t)[0].to(torch.float64),
+            tracker_stability(t)[0].to(torch.float64),
+            tracker_verdict(t)[0].to(torch.float64),
+            t.n_scores[0].to(torch.float64), fake[0].to(torch.float64),
+            real[0].to(torch.float64), total[0].to(torch.float64)]).cpu().numpy()
+        fc, t_avg, stab, verdict, n_scores, nf, nr, nt = vals
+        return {
+            "frame_count": int(fc),
+            "temporal_average": float(np.float32(t_avg)),
+            "stability_score": float(np.float32(stab)),
+            "confidence_level": VERDICT_NAMES[int(verdict)],
+            "history_length": int(n_scores),
+            "voting": {"fake_count": int(nf), "real_count": int(nr),
+                       "total_frames": int(nt)},
+        }
+
+    # --------------------------------------------------------------- intake
+
+    def analyze_jpeg(self, data: bytes, stream_id: str = "default",
+                     timeout: float = 60.0) -> Optional[dict]:
+        """The JAX engine's native one-call JPEG prep. It is not ported (the
+        HTTP slice brings JPEG decode), so this returns None, which tells the
+        caller to decode and use analyze() — what the JAX engine returns
+        when its native prep is unavailable."""
+        return None
+
+    def analyze(self, frame_bgr: np.ndarray, stream_id: str = "default",
+                timeout: float = 60.0) -> dict:
+        """Host prep (resize to the analysis frame, face detection, CLAHE,
+        alignment), then enqueue for the next tick. Blocks until the tick
+        completes."""
+        t0 = time.time()
+        slot = self.slot_for(stream_id)
+        h, w = self.cfg.forensic.analysis_size
+        frame256 = resize_analysis(frame_bgr, h, w)
+
+        faces = self.face_detector(frame_bgr)
+        face_raw, face_hw, bbox = None, (0, 0), None
+        if faces:
+            x, y, fw, fh = faces[0]
+            region = frame_bgr[y:y + fh, x:x + fw]
+            try:
+                face_raw = self.aligner(preprocess_face_quality(region))
+            except Exception:   # reference: a failed face drops to forensic-only
+                logging.getLogger(__name__).exception("face prep failed")
+                face_raw = None
+            if face_raw is not None:
+                face_hw = (fh, fw)
+                bbox = (x, y, fw, fh)
+
+        p = _Pending(stream_slot=slot, stream_id=stream_id,
+                     frame_256=frame256, face_raw=face_raw, face_hw=face_hw,
+                     faces_detected=len(faces), bbox=bbox, t_start=t0)
+        with self.queue_cv:
+            self.queue.append(p)
+            self.queue_cv.notify()
+        if not p.event.wait(timeout):
+            raise TimeoutError("device tick timed out")
+        return p.result
+
+    # -------------------------------------------------------------- batcher
+
+    def _batcher_loop(self):
+        timeout_s = self.server_cfg.batch_timeout_ms / 1000.0
+        while not self._stop:
+            with self.queue_cv:
+                if not self.queue:
+                    self.queue_cv.wait(timeout=0.1)
+                    continue
+                deadline = time.time() + timeout_s
+                while (len(self.queue) < self.server_cfg.max_batch
+                       and time.time() < deadline):
+                    self.queue_cv.wait(timeout=max(deadline - time.time(), 0.001))
+                # at most one request per stream slot per tick, so per-stream
+                # state updates stay ordered
+                batch, taken, rest = [], set(), []
+                for p in self.queue:
+                    if (len(batch) < self.server_cfg.max_batch
+                            and p.stream_slot not in taken):
+                        batch.append(p)
+                        taken.add(p.stream_slot)
+                    else:
+                        rest.append(p)
+                self.queue = rest
+            try:
+                self._run_tick(batch)
+            except Exception as e:   # the loop must survive: fail the batch
+                logging.getLogger(__name__).exception("tick failed")
+                for p in batch:
+                    p.result = {"error": str(e)}
+                    p.event.set()
+
+    def _bucket_for(self, n_req: int) -> int:
+        for b in self.buckets:
+            if b >= n_req:
+                return b
+        return self.buckets[-1]
+
+    def _drop_stale(self, batch: List[_Pending]) -> List[_Pending]:
+        """Fail requests whose stream was LRU-evicted while queued."""
+        with self.lock:
+            stale = {id(p) for p in batch
+                     if p.stream_id is not None
+                     and self.slot_of.get(p.stream_id) != p.stream_slot}
+        kept = []
+        for p in batch:
+            if id(p) in stale:
+                p.result = {"error": "stream evicted while request queued "
+                                     "(max_streams exceeded)", "status": 409}
+                p.event.set()
+            else:
+                kept.append(p)
+        return kept
+
+    def _run_tick(self, batch: List[_Pending]):
+        """Assemble the compact bucketed batch and run one tick; the drainer
+        completes the requests."""
+        batch = self._drop_stale(batch)
+        if not batch:
+            return
+        b = self._bucket_for(len(batch))
+        frames, faces, has_face, face_hw, active, slot_idx = self._tick_inputs(b)
+        for i, p in enumerate(batch):
+            slot_idx[i] = p.stream_slot
+            frames[i] = p.frame_256
+            active[i] = True
+            if p.face_raw is not None:
+                faces[i] = p.face_raw
+                has_face[i] = True
+                face_hw[i] = p.face_hw
+
+        t_dev = time.time()
+        # snapshot the state under the lock, run outside it; resets landing
+        # meanwhile are re-applied to the new state below
+        with self.lock:
+            interval = self.cfg.full_forensic_interval
+            tick_cfg = self._tick_cfgs[0 if self._tick_no % interval == 0 else 1]
+            self._tick_no += 1
+            states = self.states
+            self._pending_reset = None
+        out, new_states = self._dispatch(
+            tick_cfg, (frames, faces, has_face, face_hw, active, slot_idx), states)
+        with self.lock:
+            if self._pending_reset is not None:
+                new_states = reset_streams(
+                    new_states, torch.from_numpy(self._pending_reset).to(self.device))
+                self._pending_reset = None
+            self.states = new_states
+        self._inflight.put((out, list(batch), has_face, t_dev))
+
+    def _drain_loop(self):
+        while not self._stop:
+            try:
+                out_dev, entries, has_face, t_dev = self._inflight.get(timeout=0.1)
+            except queue.Empty:
+                continue
+            try:
+                out = {k: v.cpu().numpy() for k, v in out_dev.items()}
+                self._complete(out, entries, has_face, t_dev)
+            except Exception as e:
+                # the drainer must survive any completion error, or the
+                # batcher blocks on the full in-flight queue
+                logging.getLogger(__name__).exception("tick completion failed")
+                for p in entries:
+                    if not p.event.is_set():
+                        p.result = {"error": str(e)}
+                        p.event.set()
+
+    def _complete(self, out: Dict[str, np.ndarray], entries: List[_Pending],
+                  has_face: np.ndarray, t_dev: float):
+        m = self.metrics
+        n_req = len(entries)
+        m["ticks"] += 1
+        m["frames_total"] += n_req
+        m["max_batch_seen"] = max(m["max_batch_seen"], n_req)
+        # dispatch -> completed latency, including in-flight queue wait
+        self._ewma("ewma_tick_latency_ms", (time.time() - t_dev) * 1000)
+        self._ewma("ewma_batch_size", float(n_req))
+        self._ewma("ewma_host_prep_ms",
+                   float(np.mean([(t_dev - p.t_start) * 1000 for p in entries])))
+
+        for i, p in enumerate(entries):
+            fake_prob = float(out["fake_probability"][i])
+            resp = {
+                "success": True,
+                "analysis_mode": "face+frame" if has_face[i] else "frame_only",
+                "faces_detected": p.faces_detected,
+                "fake_probability": fake_prob,
+                "frame_forensic_probability": float(out["frame_forensic_probability"][i]),
+                "real_probability": 1.0 - fake_prob,
+                "confidence_level": VERDICT_NAMES[int(out["verdict"][i])],
+                "temporal_average": float(out["temporal_average"][i]),
+                "stability_score": float(out["stability_score"][i]),
+                "frame_count": int(out["frame_count"][i]),
+                "processing_time_ms": round((time.time() - p.t_start) * 1000, 1),
+            }
+            if has_face[i]:
+                resp["face_probability"] = float(out["face_probability"][i])
+                x, y, fw, fh = p.bbox
+                resp["face_bbox"] = {"x": int(x), "y": int(y),
+                                     "width": int(fw), "height": int(fh)}
+            p.result = resp
+            p.event.set()
+
+    def shutdown(self):
+        self._stop = True
+        self._thread.join(timeout=2.0)
+        self._drainer.join(timeout=2.0)

@@ -1,0 +1,170 @@
+"""Temporal voting tracker as batched ring-buffer tensors.
+
+Port of real_time_video_deepfake_detection_tpu/state/tracker.py. Every
+field carries a leading stream axis (N, ...), and the reducers are pure
+functions over the whole batch, where the JAX package vmaps single-stream
+reducers. Reference semantics kept exactly (deepfake_detection.py:93-289):
+
+  - `valid=False` is a no-op (the reference's update(None), and the
+    padded-slot mask of the batched tick)
+  - a frame votes FAKE iff prob STRICTLY > detection_threshold; votes are
+    an int8 ring
+  - verdict is UNCERTAIN until `voting_window` votes are collected, then
+    the majority of the window, a tie giving REAL
+  - temporal_average = mean of the score history, 0.0 when empty
+  - stability = 0.0 below 10 scores, else 1 - min(4*var, 1)
+  - variance_history appends the population variance of the last 5 scores
+    once 5 or more are collected
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple, Union
+
+import torch
+
+from ..core.config import TrackerConfig
+from .tree import tree_map
+
+VERDICT_UNCERTAIN = -1
+VERDICT_REAL = 0
+VERDICT_FAKE = 1
+
+VERDICT_NAMES = {VERDICT_UNCERTAIN: "UNCERTAIN", VERDICT_REAL: "REAL",
+                 VERDICT_FAKE: "FAKE"}
+
+
+@dataclasses.dataclass
+class TrackerState:
+    scores: torch.Tensor     # f32[N, window_size] ring of fake probabilities
+    n_scores: torch.Tensor   # i32[N] valid count (saturates at window_size)
+    score_pos: torch.Tensor  # i32[N] next write index
+    votes: torch.Tensor      # i8[N, voting_window] ring (1=FAKE, 0=REAL)
+    n_votes: torch.Tensor    # i32[N]
+    vote_pos: torch.Tensor   # i32[N]
+    var_hist: torch.Tensor   # f32[N, variance_window] ring of 5-score variances
+    n_var: torch.Tensor      # i32[N]
+    var_pos: torch.Tensor    # i32[N]
+
+
+def tracker_init_batch(n_streams: int, cfg: TrackerConfig = TrackerConfig(),
+                       device: Union[str, torch.device] = "cpu") -> TrackerState:
+    def z(*shape, dtype=torch.int32):
+        return torch.zeros((n_streams,) + shape, dtype=dtype, device=device)
+    return TrackerState(
+        scores=z(cfg.window_size, dtype=torch.float32),
+        n_scores=z(), score_pos=z(),
+        votes=z(cfg.voting_window, dtype=torch.int8),
+        n_votes=z(), vote_pos=z(),
+        var_hist=z(cfg.variance_window, dtype=torch.float32),
+        n_var=z(), var_pos=z(),
+    )
+
+
+def tracker_reset(state: TrackerState) -> TrackerState:
+    return tree_map(torch.zeros_like, state)
+
+
+def _ordered_window(buf: torch.Tensor, n: torch.Tensor, pos: torch.Tensor,
+                    k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Last min(n, k) entries of each ring, oldest first, padded on the
+    left, plus the validity mask. (N, k) each."""
+    cap = buf.shape[1]
+    m = torch.clamp(n, max=k)
+    i = torch.arange(k, device=buf.device)
+    idx = torch.remainder(pos[:, None] - m[:, None] + i, cap)
+    return torch.gather(buf, 1, idx.long()), i < m[:, None]
+
+
+def _push(buf: torch.Tensor, n: torch.Tensor, pos: torch.Tensor,
+          value: torch.Tensor, do: torch.Tensor):
+    """Where `do`, write `value` at `pos` of each ring. Returns (buf, n, pos)."""
+    cap = buf.shape[1]
+    new_buf = buf.scatter(1, pos[:, None].long(), value.to(buf.dtype)[:, None])
+    buf = torch.where(do[:, None], new_buf, buf)
+    n = torch.where(do, torch.clamp(n + 1, max=cap), n)
+    pos = torch.where(do, torch.remainder(pos + 1, cap), pos)
+    return buf, n, pos
+
+
+def _seq_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis, left to right — the order XLA's CPU
+    reduction takes over windows this short, so ring statistics built from
+    it match the JAX reducers to the bit."""
+    acc = x[..., 0]
+    for j in range(1, x.shape[-1]):
+        acc = acc + x[..., j]
+    return acc
+
+
+def tracker_update(state: TrackerState, fake_probability: torch.Tensor,
+                   valid: torch.Tensor,
+                   detection_threshold: float = 0.5) -> TrackerState:
+    """One update of every stream; `valid` (bool[N]) masks the no-ops."""
+    prob = fake_probability.to(torch.float32)
+    scores, n_scores, score_pos = _push(
+        state.scores, state.n_scores, state.score_pos, prob, valid)
+
+    # variance of the most recent 5 scores, on the post-push history
+    recent, rmask = _ordered_window(scores, n_scores, score_pos, 5)
+    rcount = torch.clamp(rmask.sum(1, dtype=torch.int32), min=1)
+    zero = torch.zeros((), dtype=torch.float32, device=prob.device)
+    rmean = _seq_sum(torch.where(rmask, recent, zero)) / rcount
+    rvar = _seq_sum(torch.where(rmask, (recent - rmean[:, None]) ** 2, zero)) / rcount
+    push_var = valid & (n_scores >= 5)
+    var_hist, n_var, var_pos = _push(
+        state.var_hist, state.n_var, state.var_pos, rvar, push_var)
+
+    vote = (prob > detection_threshold).to(torch.int8)
+    votes, n_votes, vote_pos = _push(
+        state.votes, state.n_votes, state.vote_pos, vote, valid)
+    return TrackerState(
+        scores=scores, n_scores=n_scores, score_pos=score_pos,
+        votes=votes, n_votes=n_votes, vote_pos=vote_pos,
+        var_hist=var_hist, n_var=n_var, var_pos=var_pos)
+
+
+def tracker_verdict(state: TrackerState) -> torch.Tensor:
+    """int32[N]: -1 UNCERTAIN (window not yet full), 0 REAL (incl. tie),
+    1 FAKE."""
+    cap = state.votes.shape[1]
+    fake = state.votes.sum(1, dtype=torch.int32)
+    real = state.n_votes - fake
+    majority = (fake > real).to(torch.int32)        # FAKE=1, REAL=0
+    uncertain = torch.full_like(majority, VERDICT_UNCERTAIN)
+    return torch.where(state.n_votes < cap, uncertain, majority)
+
+
+def tracker_voting_stats(state: TrackerState):
+    """(fake_count, real_count, total), each int32[N]."""
+    fake = state.votes.sum(1, dtype=torch.int32)
+    total = state.n_votes
+    return fake, total - fake, total
+
+
+def _chron(state: TrackerState) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Score history oldest first, padded at the tail, and its mask."""
+    cap = state.scores.shape[1]
+    i = torch.arange(cap, device=state.scores.device)
+    idx = torch.remainder(state.score_pos[:, None] - state.n_scores[:, None] + i, cap)
+    return torch.gather(state.scores, 1, idx.long()), i < state.n_scores[:, None]
+
+
+def tracker_temporal_average(state: TrackerState) -> torch.Tensor:
+    n = state.n_scores
+    vals, mask = _chron(state)
+    s = torch.where(mask, vals, torch.zeros((), device=vals.device)).sum(1)
+    avg = s / torch.clamp(n, min=1)
+    return torch.where(n == 0, torch.zeros_like(avg), avg).to(torch.float32)
+
+
+def tracker_stability(state: TrackerState) -> torch.Tensor:
+    n = state.n_scores
+    vals, mask = _chron(state)
+    zero = torch.zeros((), device=vals.device)
+    nf = torch.clamp(n, min=1).to(torch.float32)
+    mean = torch.where(mask, vals, zero).sum(1) / nf
+    var = torch.where(mask, (vals - mean[:, None]) ** 2, zero).sum(1) / nf
+    stab = 1.0 - torch.clamp(var * 4.0, max=1.0)
+    return torch.where(n < 10, torch.zeros_like(stab), stab).to(torch.float32)

@@ -1,0 +1,75 @@
+"""The port stands alone: it imports neither jax nor the JAX package, and
+its entry points do not drop to the CPU when CUDA is absent."""
+
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import real_time_video_deepfake_detection_tpu_torch as port
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_DIR = os.path.dirname(port.__file__)
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages([PORT_DIR], port.__name__ + "."))
+
+
+def test_every_port_module_imports_without_jax():
+    mods = _port_modules()
+    assert len(mods) > 20
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        f"mods = {mods!r}\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'real_time_video_deepfake_detection_tpu'\n"
+        "       or m.startswith('real_time_video_deepfake_detection_tpu.')]\n"
+        "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=REPO))
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
+_JAX_PKG_IMPORT = re.compile(
+    r"^\s*(from|import)\s+(jax\b|real_time_video_deepfake_detection_tpu(?!_torch)\b)",
+    re.MULTILINE)
+
+
+def test_port_sources_and_chip_smoke_never_import_jax_package():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, names in os.walk(PORT_DIR):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    offenders = []
+    for f in files:
+        with open(f) as fh:
+            if _JAX_PKG_IMPORT.search(fh.read()):
+                offenders.append(os.path.relpath(f, REPO))
+    assert not offenders
+
+
+def test_engine_without_device_raises_when_cuda_absent(monkeypatch):
+    from real_time_video_deepfake_detection_tpu_torch.core.device import resolve_device
+    from real_time_video_deepfake_detection_tpu_torch.serving.multi import MultiStreamEngine
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MultiStreamEngine()
+    with pytest.raises(RuntimeError):
+        resolve_device()
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_chip_smoke_alone_fails_without_result(tmp_path):
+    with open(os.path.join(REPO, "chip_smoke.py")) as src:
+        (tmp_path / "chip_smoke.py").write_text(src.read())
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
