@@ -12,16 +12,26 @@ in phases, each printing one JSON line:
   3. kernels  each kernel against its plain torch version at main-path
               shapes, timed with CUDA events (and its device time from
               torch.profiler) beside its bound, the plain version and
-              (where one exists) a PyTorch library call
-  4. serve    MultiStreamEngine on cuda with full-size EfficientNet-B0
-              (random weights from a seed, batch-norm statistics set from
-              one batch), 16 streams x 12 synthetic 480x640 frames from 16
-              threads, with both kernels on; checks the responses and that
-              the kernels were launched; times host prep on one thread
+              (where one exists) a PyTorch library call; the CLAHE kernels
+              also against the numpy oracle clahe_u8_numpy
+  4. serve    MultiStreamEngine on cuda in host-prep mode with full-size
+              EfficientNet-B0 (random weights from a seed, batch-norm
+              statistics set from one batch), 16 streams x 12 synthetic
+              480x640 frames from 16 threads, with the preproc and hue
+              kernels on; checks the responses and that the kernels were
+              launched; times host prep on one thread
   5. parity   device_step_compact at bucket 64 on cuda against the same
               tick on the CPU (where the plain versions run); the tick's
               time, a profiler window over it (device busy and idle share,
               largest device entries) and its forensics/classifier split
+  6. detect-serve  MultiStreamEngine on cuda in device-detect mode with
+              clahe_device: the synthetic res10-class SSD at its default
+              channels (seeded, written to a temporary directory), the same
+              B0, 16 streams x 12 capture frames; checks the responses,
+              that all four kernels were launched and that faces were found
+  7. detect-parity  one bucket-64 detect tick on cuda against the same tick
+              on the CPU; the count of CLAHE'd face pixels that differ
+              between the two; the tick's time and a profiler window
 
 then a `{"kernels": [...]}` line and, last, `{"ok": true, "device": ...}`.
 Any failed phase makes it exit non-zero without the last line. It needs a
@@ -34,8 +44,10 @@ import functools
 import json
 import os
 import statistics
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import traceback
@@ -259,11 +271,74 @@ def phase_kernels(ctx):
         "device_ms": profile_device(kernel, 20)[1],
         "plain_device_ms": profile_device(plain, 20)[1],
     }
+    res.update(_clahe_kernels(peaks))
     ctx["kernels"] = res
     return {k: {kk: v.get(kk) for kk in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                          "library_ms", "device_ms", "plain_device_ms",
-                                         "library_device_ms")}
+                                         "library_device_ms", "max_diff_from_numpy_oracle")}
             for k, v in res.items()}
+
+
+def _face_planes(n: int, seed: int):
+    """(n, 160, 160) u8 L planes: half random, half smooth face-like (a lit
+    oval over a vertical gradient, with noise), as numpy."""
+    import numpy as np
+    r = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:160, :160]
+    oval = ((xx - 80) / 56.0) ** 2 + ((yy - 80) / 72.0) ** 2 <= 1
+    out = [r.integers(0, 256, (160, 160), dtype=np.uint8) for _ in range(n // 2)]
+    for _ in range(n - n // 2):
+        f = 60 + 0.4 * yy + 90 * oval + r.normal(0, 6, (160, 160)) + r.uniform(-30, 30)
+        out.append(np.clip(f, 0, 255).astype(np.uint8))
+    return np.stack(out)
+
+
+def _clahe_kernels(peaks):
+    """clahe_luts and clahe_apply at a full tick's faces, (64, 160, 160) u8:
+    LUTs and outputs exactly equal to the plain versions, and the output
+    equal to the numpy oracle on the CPU."""
+    import numpy as np
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.kernels import clahe
+    from real_time_video_deepfake_detection_tpu_torch.ops.clahe import (
+        clahe_apply_batch, clahe_luts_batch, clahe_u8_numpy)
+    planes = _face_planes(64, SEED + 3)
+    x = torch.from_numpy(planes).cuda()
+    luts = clahe.clahe_luts(x)
+    out = clahe.clahe_apply(x, luts)
+    torch.cuda.synchronize()
+    if not torch.equal(luts, clahe_luts_batch(x)):
+        raise AssertionError("clahe_luts differs from its plain version")
+    if not torch.equal(out, clahe_apply_batch(x, luts)):
+        raise AssertionError("clahe_apply differs from its plain version")
+    oracle = np.stack([clahe_u8_numpy(p) for p in planes])
+    oracle_diff = int(np.abs(out.cpu().numpy().astype(int) - oracle.astype(int)).max())
+    if oracle_diff != 0:
+        raise AssertionError(f"CLAHE differs from clahe_u8_numpy by {oracle_diff}")
+    n_px, n_lut = x.numel(), luts.numel()
+    res = {}
+    for name, kernel, plain, bytes_moved, ops in (
+            # histogram increments, the 8-step scan and LUT per bin
+            ("clahe_luts", lambda: clahe.clahe_luts(x), lambda: clahe_luts_batch(x),
+             n_px + 4 * n_lut, n_px + 10 * n_lut),
+            # per pixel: fractions, four lookups, the two-step lerp, rint
+            ("clahe_apply", lambda: clahe.clahe_apply(x, luts),
+             lambda: clahe_apply_batch(x, luts), 2 * n_px + 4 * n_lut, 16 * n_px)):
+        b_ms, b_by = bound_ms(bytes_moved, ops, peaks)
+        res[name] = {
+            "name": name, "route": "cuda",
+            "source": f"{PKG}/csrc/clahe.cu",
+            "replaces": ("real_time_video_deepfake_detection_tpu/kernels/clahe.py:68"
+                         if name == "clahe_luts" else
+                         "real_time_video_deepfake_detection_tpu/kernels/clahe.py:165"),
+            "shape": [64, 160, 160], "dtype": "uint8", "max_abs_err": 0.0,
+            "max_diff_from_numpy_oracle": oracle_diff,
+            "ms": time_cuda(kernel), "plain_ms": time_cuda(plain),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "device_ms": profile_device(kernel, 20)[1],
+            "plain_device_ms": profile_device(plain, 20)[1],
+        }
+    return res
 
 
 def _synthetic_frame(rng, face: bool, t: int):
@@ -316,7 +391,6 @@ def phase_serve(ctx):
     import torch
     from real_time_video_deepfake_detection_tpu_torch.core.config import (
         DetectorConfig, ServerConfig)
-    from real_time_video_deepfake_detection_tpu_torch.kernels import color_stats, preproc
     from real_time_video_deepfake_detection_tpu_torch.serving.multi import MultiStreamEngine
 
     cfg = DetectorConfig(use_pallas_preproc=True, use_pallas_color=True,
@@ -349,8 +423,7 @@ def phase_serve(ctx):
         except Exception as e:   # reported below; the phase fails on it
             errors.append(f"stream {s}: {type(e).__name__}: {e}")
 
-    preproc.launches = 0
-    color_stats.launches = 0
+    _reset_launches()
     t0 = time.time()
     threads = [threading.Thread(target=client, args=(s,)) for s in range(n_streams)]
     for th in threads:
@@ -358,10 +431,9 @@ def phase_serve(ctx):
     for th in threads:
         th.join(timeout=600)
     wall = time.time() - t0
-    launches = {"preprocess_faces": preproc.launches,
-                "unique_hue_count": color_stats.launches}
+    launches = {k: v for k, v in _read_launches().items()
+                if k in ("preprocess_faces", "unique_hue_count")}
     engine.shutdown()
-    ctx["launches"] = launches
     if errors or any(th.is_alive() for th in threads):
         raise AssertionError(f"clients failed: {errors[:3]}")
 
@@ -500,9 +572,242 @@ def phase_parity(ctx):
             "split_wall_and_device_ms": split_ms}
 
 
+def _ssd_files(ctx):
+    """The synthetic res10-class SSD at its default channels, decisive
+    (a trained detector's saturated confidences), from SEED, written once
+    into a temporary directory that main() removes."""
+    if "ssd_dir" not in ctx:
+        from real_time_video_deepfake_detection_tpu_torch.utils.ssd_synth import (
+            res10_class_ssd)
+        ctx["ssd_dir"] = tempfile.mkdtemp(prefix="chip_smoke_ssd_")
+        ctx["ssd_files"] = res10_class_ssd(ctx["ssd_dir"], seed=SEED, decisive=True)
+    return ctx["ssd_files"]
+
+
+def _detect_cfg():
+    from real_time_video_deepfake_detection_tpu_torch.core.config import DetectorConfig
+    return DetectorConfig(use_pallas_preproc=True, use_pallas_color=True,
+                          clahe_device=True)
+
+
+def _capture_frames(n_streams, n_frames, net):
+    """Synthetic capture frames for n_streams x n_frames, from the first
+    seed from SEED on whose frames the SSD finds at least one face."""
+    import numpy as np
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.models.ssd_res10 import (
+        make_detect_batch)
+    detect = make_detect_batch(net)
+    for seed in range(SEED, SEED + 24):
+        rng = np.random.default_rng(seed)
+        frames = {s: [_synthetic_frame(rng, s % 2 == 0, t) for t in range(n_frames)]
+                  for s in range(n_streams)}
+        probe = np.stack([frames[s][0] for s in range(n_streams)])
+        if bool(detect(torch.from_numpy(probe).cuda())["has_face"].any()):
+            return seed, frames
+    raise AssertionError("the synthetic SSD found no face in 24 seeds of frames")
+
+
+def _reset_launches():
+    from real_time_video_deepfake_detection_tpu_torch.kernels import (
+        clahe, color_stats, preproc)
+    preproc.launches = 0
+    color_stats.launches = 0
+    for k in clahe.launches:
+        clahe.launches[k] = 0
+
+
+def _read_launches():
+    from real_time_video_deepfake_detection_tpu_torch.kernels import (
+        clahe, color_stats, preproc)
+    return {"preprocess_faces": preproc.launches,
+            "unique_hue_count": color_stats.launches, **clahe.launches}
+
+
+def phase_detect_serve(ctx):
+    import numpy as np
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.core.config import ServerConfig
+    from real_time_video_deepfake_detection_tpu_torch.models.caffe_net import CaffeNet
+    from real_time_video_deepfake_detection_tpu_torch.serving.multi import MultiStreamEngine
+
+    proto, cm = _ssd_files(ctx)
+    net = CaffeNet(proto, cm)   # the engine moves it to the card
+    engine = MultiStreamEngine(
+        _detect_cfg(), ServerConfig(max_streams=64, max_batch=64, device_detect=True),
+        params=b0_state(ctx), device="cuda", ssd_net=net)
+    tick_ms, batch_sizes = [], []
+    dispatch = engine._dispatch
+
+    def timed_dispatch(tick_cfg, arrays, states):
+        t0 = time.perf_counter()
+        out = dispatch(tick_cfg, arrays, states)
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        batch_sizes.append(int(arrays[1].sum()))   # (frames, active, slot_idx)
+        return out
+
+    engine._dispatch = timed_dispatch
+    n_streams, n_frames = 16, 12
+    seed, frames = _capture_frames(n_streams, n_frames, net)
+    results = {s: [] for s in range(n_streams)}
+    errors = []
+
+    def client(s):
+        try:
+            for t in range(n_frames):
+                results[s].append(engine.analyze(frames[s][t], f"stream-{s}"))
+        except Exception as e:   # reported below; the phase fails on it
+            errors.append(f"stream {s}: {type(e).__name__}: {e}")
+
+    _reset_launches()
+    t0 = time.time()
+    threads = [threading.Thread(target=client, args=(s,)) for s in range(n_streams)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.time() - t0
+    launches = _read_launches()
+    engine.shutdown()
+    ctx["launches"] = launches
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"clients failed: {errors[:3]}")
+
+    problems = []
+    for s, rs in results.items():
+        if len(rs) != n_frames:
+            problems.append(f"stream {s}: {len(rs)} responses")
+            continue
+        for t, r in enumerate(rs):
+            missing = _SCHEMA - set(r)
+            if missing or not r.get("success"):
+                problems.append(f"stream {s} frame {t}: missing {missing} {r.get('error')}")
+                continue
+            if r["frame_count"] != t + 1:
+                problems.append(f"stream {s} frame {t}: frame_count {r['frame_count']}")
+            if r["frame_count"] >= 10 and r["confidence_level"] == "UNCERTAIN":
+                problems.append(f"stream {s} frame {t}: UNCERTAIN")
+            if not all(np.isfinite(r[k]) for k in ("fake_probability",
+                                                     "frame_forensic_probability")):
+                problems.append(f"stream {s} frame {t}: non-finite probability")
+            box = r.get("face_bbox")
+            if (r["analysis_mode"] == "face+frame") != (box is not None) or (
+                    box and not (0 <= box["x"] and box["x"] + box["width"] <= 640
+                                 and 0 <= box["y"] and box["y"] + box["height"] <= 480)):
+                problems.append(f"stream {s} frame {t}: face_bbox {box}")
+    for k, n in launches.items():
+        if n <= 0:
+            problems.append(f"kernel {k} was not launched on the main path")
+    faces = [r for rs in results.values() for r in rs if r.get("analysis_mode") == "face+frame"]
+    if not faces:
+        problems.append("no frame had a detected face")
+    face_probs = [r["face_probability"] for r in faces]
+    if faces and not max(face_probs) - min(face_probs) > 1e-3:
+        problems.append(f"the classifier gave every face the same probability {face_probs[0]}")
+    if problems:
+        raise AssertionError("; ".join(problems[:8]))
+    return {"streams": n_streams, "frames_per_stream": n_frames, "frame_seed": seed,
+            "ticks": len(tick_ms), "mean_batch": statistics.mean(batch_sizes),
+            "median_tick_ms": statistics.median(tick_ms), "wall_s": wall,
+            "frames_per_s": n_streams * n_frames / wall,
+            "frames_with_face": len(faces), "launches": launches,
+            "engine_metrics": engine.metrics,
+            "face_probability_range": [min(face_probs), max(face_probs)]}
+
+
+def phase_detect_parity(ctx):
+    import numpy as np
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.kernels.clahe import clahe_u8
+    from real_time_video_deepfake_detection_tpu_torch.models import backbones
+    from real_time_video_deepfake_detection_tpu_torch.models.caffe_net import CaffeNet
+    from real_time_video_deepfake_detection_tpu_torch.ops.color import (
+        lab_to_rgb_u8, rgb_to_lab_u8)
+    from real_time_video_deepfake_detection_tpu_torch.serving.batcher import (
+        _make_detect_prep, init_stream_states, make_device_step_detect)
+    from real_time_video_deepfake_detection_tpu_torch.state.tree import tree_leaves
+
+    cfg = _detect_cfg()
+    b = 64
+    proto, cm = _ssd_files(ctx)
+    nets, steps, preps = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        model = backbones.build_model(backbones.make("b0")).eval()
+        model.load_state_dict(b0_state(ctx))
+        nets[dev] = CaffeNet(proto, cm).to(dev).eval()
+        steps[dev] = make_device_step_detect(nets[dev], model.to(dev), cfg)
+        preps[dev] = _make_detect_prep(nets[dev], cfg)
+    rng = np.random.default_rng(SEED + 5)
+    frames = np.stack([_synthetic_frame(rng, i % 2 == 0, i % 12) for i in range(b)])
+    active = rng.random(b) < 0.9
+    slot_idx = np.where(active, np.arange(b), b).astype(np.int32)
+    xs = [torch.from_numpy(a) for a in (frames, active, slot_idx)]
+    xg = [x.cuda() for x in xs]
+
+    out_c, st_c = steps["cpu"](*xs, init_stream_states(b + 1, cfg, "cpu"))
+    out_g, st_g = steps["cuda"](*xg, init_stream_states(b + 1, cfg, "cuda"))
+    max_float_diff = 0.0
+    pairs = [(k, out_c[k], out_g[k].cpu()) for k in out_c]
+    pairs += [(f"state{i}", a, g.cpu()) for i, (a, g) in
+              enumerate(zip(tree_leaves(st_c), tree_leaves(st_g)))]
+    for k, a, g in pairs:
+        if a.dtype.is_floating_point:
+            d = float((a - g).abs().max()) if a.numel() else 0.0
+            max_float_diff = max(max_float_diff, d)
+            if not d <= 1e-4:
+                raise AssertionError(f"{k}: max abs diff {d} > 1e-4")
+        elif not torch.equal(a, g):
+            raise AssertionError(f"{k}: {int((a != g).sum())} integers differ")
+    n_face = int(out_c["has_face"].sum())
+    if n_face == 0:
+        raise AssertionError("no face detected in the bucket-64 tick")
+
+    # the CLAHE'd face crops of the tick on both devices (the GPU's float64
+    # pow in the Lab conversion is not the CPU's)
+    def clahe_faces(dev, xx):
+        faces = preps[dev](xx[0], xx[1])[1]
+        lab = rgb_to_lab_u8(faces)
+        L = clahe_u8(lab[..., 0].contiguous())
+        return lab, lab_to_rgb_u8(torch.stack([L, lab[..., 1], lab[..., 2]], dim=-1))
+
+    with torch.no_grad():
+        lab_c, fc = clahe_faces("cpu", xs)
+        lab_g, fg = clahe_faces("cuda", xg)
+    face_rows = out_c["has_face"]
+    lab_diff = int((lab_c[face_rows] != lab_g[face_rows].cpu()).any(-1).sum())
+    px_diff = int((fc[face_rows] != fg[face_rows].cpu()).any(-1).sum())
+
+    step, st = steps["cuda"], init_stream_states(b + 1, cfg, "cuda")
+
+    def tick():
+        step(*xg, st)
+
+    for _ in range(3):
+        tick()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        tick()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    wall, busy, activities, top = profile_device(tick, 5)
+    return {"bucket": b, "faces_detected_frames": n_face, "max_float_diff": max_float_diff,
+            "tolerance": 1e-4,
+            "clahe_face_pixels_differing_gpu_vs_cpu": px_diff,
+            "lab_face_pixels_differing_gpu_vs_cpu": lab_diff,
+            "face_pixels_compared": int(face_rows.sum()) * 160 * 160,
+            "median_tick_ms_bucket64": statistics.median(times),
+            "profiled_tick": {"wall_ms": wall, "device_busy_ms": busy,
+                              "device_idle_share": None if busy is None else 1 - busy / wall,
+                              "device_activities": activities, "top": top}}
+
+
 PHASES = (("device", phase_device), ("build", phase_build),
           ("kernels", phase_kernels), ("serve", phase_serve),
-          ("parity", phase_parity))
+          ("parity", phase_parity), ("detect-serve", phase_detect_serve),
+          ("detect-parity", phase_detect_parity))
 
 
 def main() -> int:
@@ -521,15 +826,19 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     ctx = {}
-    for name, fn in PHASES:
-        t0 = time.time()
-        try:
-            info = fn(ctx)
-        except Exception as e:   # report, then fail the run
-            emit({"phase": name, "ok": False, "error": f"{type(e).__name__}: {e}",
-                  "traceback": traceback.format_exc(limit=6)})
-            return 1
-        emit({"phase": name, "ok": True, "seconds": round(time.time() - t0, 3), **info})
+    try:
+        for name, fn in PHASES:
+            t0 = time.time()
+            try:
+                info = fn(ctx)
+            except Exception as e:   # report, then fail the run
+                emit({"phase": name, "ok": False, "error": f"{type(e).__name__}: {e}",
+                      "traceback": traceback.format_exc(limit=6)})
+                return 1
+            emit({"phase": name, "ok": True, "seconds": round(time.time() - t0, 3), **info})
+    finally:
+        if "ssd_dir" in ctx:
+            shutil.rmtree(ctx["ssd_dir"], ignore_errors=True)
 
     kernels = []
     for k, v in ctx["kernels"].items():

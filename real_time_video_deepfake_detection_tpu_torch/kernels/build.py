@@ -33,8 +33,11 @@ build_seconds: Optional[float] = None   # wall time of the build this process ra
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 # C entry points: name -> argument types (every one returns cudaError_t)
 _SIGNATURES = {
+    "clahe_luts": [_P, _P, _I, _I, _I, _I, _I, _D, _P],
+    "clahe_apply": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     "preprocess_faces_f32": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                              _P, _P, _F, _F, _F, _F, _F, _F, _P],
     "preprocess_faces_u8": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,

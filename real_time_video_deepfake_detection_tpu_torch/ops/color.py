@@ -7,6 +7,7 @@ integer paths run in int32 and are bit-exact with the JAX functions.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # OpenCV BGR2GRAY fixed-point coefficients, scaled by 2^15
@@ -60,70 +61,124 @@ def bgr_to_hsv_u8(bgr: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------- CIELAB (u8)
 # The float math of the JAX package's jnp Lab rung (D65, sRGB gamma), used
-# by host CLAHE on face crops. RGB channel order.
+# by CLAHE on face crops, RGB channel order, written out as the JITTED JAX
+# function computes it on an x86-64 CPU (the form the serving tick runs):
+#   - XLA turns each division by a constant into a product with the f32
+#     reciprocal and folds chains of constant products into one f32
+#     constant (`_k`);
+#   - LLVM contracts a*b + c into a fused multiply-add, the left product
+#     first (`_fma`: the f32 product is exact in float64, so a*b + c there
+#     rounds once before the f32 rounding);
+#   - powf and the cube root (powf(|t|, f32(1/3)) with t's sign) are taken
+#     in float64 and rounded to f32.
+# Over all 2^24 inputs: lab_to_rgb_u8 equals the jitted function exactly;
+# rgb_to_lab_u8 differs by one step on 2 triples, where glibc's powf (not
+# correctly rounded) gives the other f32 cube root.
 
+_f32 = np.float32
 _LAB_XN = 0.950456
 _LAB_ZN = 1.088754
+_LAB_EPS = float(_f32(0.008856))
+_LAB_K = float(_f32(16.0 / 116.0))
 
 
-def _srgb_to_linear(c: torch.Tensor) -> torch.Tensor:
-    return torch.where(c <= 0.04045, c / 12.92,
-                       torch.pow((c + 0.055) / 1.055, 2.4))
+def _k(*factors: float) -> float:
+    """The product of `factors`, each rounded to f32 and multiplied in f32
+    from the left (XLA's constant folding)."""
+    p = _f32(factors[0])
+    for f in factors[1:]:
+        p = _f32(p * _f32(f))
+    return float(p)
 
 
-def _linear_to_srgb(c: torch.Tensor) -> torch.Tensor:
-    c = torch.clamp(c, 0.0, 1.0)
-    return torch.where(c <= 0.0031308, 12.92 * c,
-                       1.055 * torch.pow(c, 1.0 / 2.4) - 0.055)
+def _inv(c: float) -> float:
+    return float(_f32(1.0) / _f32(c))
+
+
+def _fma(a: torch.Tensor, b: float, c) -> torch.Tensor:
+    """f32 a*b + c rounded once, as a fused multiply-add."""
+    return (a.to(torch.float64) * b + c).to(torch.float32)
+
+
+def _powf(x: torch.Tensor, e: float) -> torch.Tensor:
+    return torch.pow(x.to(torch.float64), float(_f32(e))).to(torch.float32)
 
 
 def _cbrt(t: torch.Tensor) -> torch.Tensor:
-    return torch.sign(t) * torch.pow(torch.abs(t), 1.0 / 3.0)
+    return torch.copysign(_powf(t.abs(), 1.0 / 3.0), t)
 
 
-def _lab_f(t: torch.Tensor) -> torch.Tensor:
-    return torch.where(t > 0.008856, _cbrt(t), 7.787 * t + 16.0 / 116.0)
+def _srgb_to_linear_table() -> torch.Tensor:
+    """_srgb_to_linear(u8 / 255) for the 256 u8 values (f32)."""
+    c = torch.arange(256, dtype=torch.float32)
+    v = c * _inv(255.0)
+    return torch.where(v <= _k(0.04045), c * _k(_inv(255.0), _inv(12.92)),
+                       _powf((v + _k(0.055)) * _inv(1.055), 2.4))
+
+
+_SRGB_TO_LINEAR = _srgb_to_linear_table()
+
+
+def _lab_f(t_scaled: torch.Tensor, t_sum: torch.Tensor, slope: float) -> torch.Tensor:
+    """f(t) of CIELAB for t = t_sum * (1/white): the cube root above the
+    knee, else 7.787*t + 16/116 with 7.787/white folded into `slope`."""
+    return torch.where(t_scaled > _LAB_EPS, _cbrt(t_scaled), _fma(t_sum, slope, _LAB_K))
 
 
 def _q_u8(v: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(v), 0, 255).to(torch.uint8)
 
 
+def _mix3(a, ka, b, kb, c, kc):
+    """a*ka + b*kb + c*kc as LLVM contracts it: fma(c, kc, fma(a, ka, b*kb))."""
+    return _fma(c, kc, _fma(a, ka, b * kb))
+
+
 def rgb_to_lab_u8(rgb_u8: torch.Tensor) -> torch.Tensor:
     """(..., 3) u8 RGB -> (..., 3) u8 Lab (L scaled *255/100, a/b +128)."""
-    lin = _srgb_to_linear(rgb_u8.to(torch.float32) / 255.0)
+    lin = _SRGB_TO_LINEAR.to(rgb_u8.device)[rgb_u8.to(torch.int64)]
     r, g, b = lin[..., 0], lin[..., 1], lin[..., 2]
-    x = (0.412453 * r + 0.357580 * g + 0.180423 * b) / _LAB_XN
-    y = 0.212671 * r + 0.715160 * g + 0.072169 * b
-    z = (0.019334 * r + 0.119193 * g + 0.950227 * b) / _LAB_ZN
-    fy = _lab_f(y)
-    L = torch.where(y > 0.008856, 116.0 * _cbrt(y) - 16.0, 903.3 * y)
-    a = 500.0 * (_lab_f(x) - fy) + 128.0
-    bb = 200.0 * (fy - _lab_f(z)) + 128.0
-    return torch.stack([_q_u8(L * 255.0 / 100.0), _q_u8(a), _q_u8(bb)], dim=-1)
+    xs = _mix3(r, _k(0.412453), g, _k(0.357580), b, _k(0.180423))
+    y = _mix3(r, _k(0.212671), g, _k(0.715160), b, _k(0.072169))
+    zs = _mix3(r, _k(0.019334), g, _k(0.119193), b, _k(0.950227))
+    cy = _cbrt(y)
+    above = y > _LAB_EPS
+    L = torch.where(above, _fma(cy, 116.0, -16.0), y * _k(903.3))
+    fy = torch.where(above, cy, _fma(y, _k(7.787), _LAB_K))
+    fx = _lab_f(xs * _inv(_LAB_XN), xs, _k(7.787, _inv(_LAB_XN)))
+    fz = _lab_f(zs * _inv(_LAB_ZN), zs, _k(7.787, _inv(_LAB_ZN)))
+    a = _fma(fx - fy, 500.0, 128.0)
+    bb = _fma(fy - fz, 200.0, 128.0)
+    return torch.stack([_q_u8(L * _k(255.0, _inv(100.0))), _q_u8(a), _q_u8(bb)], dim=-1)
+
+
+def _linear_to_srgb_u8(c: torch.Tensor) -> torch.Tensor:
+    c = torch.clamp(c, 0.0, 1.0)
+    s = torch.where(c <= _k(0.0031308), c * _k(12.92),
+                    _fma(_powf(c, 1.0 / 2.4), _k(1.055), -_k(0.055)))
+    return _q_u8(s * 255.0)
 
 
 def lab_to_rgb_u8(lab_u8: torch.Tensor) -> torch.Tensor:
     """(..., 3) u8 Lab -> (..., 3) u8 RGB."""
     lab = lab_u8.to(torch.float32)
-    L = lab[..., 0] * 100.0 / 255.0
-    a = lab[..., 1] - 128.0
-    bb = lab[..., 2] - 128.0
-    fy = (L + 16.0) / 116.0
-    fx = fy + a / 500.0
-    fz = fy - bb / 200.0
+    l8 = lab[..., 0]
+    L = l8 * _k(100.0, _inv(255.0))
+    fy = (L + 16.0) * _inv(116.0)
+    fx = _fma(lab[..., 1] - 128.0, _inv(500.0), fy)
+    fz = _fma(-(lab[..., 2] - 128.0), _inv(200.0), fy)
 
     def finv(t):
         t3 = t * t * t
-        return torch.where(t3 > 0.008856, t3, (t - 16.0 / 116.0) / 7.787)
+        return torch.where(t3 > _LAB_EPS, t3, (t - _LAB_K) * _inv(7.787))
 
-    y = torch.where(L > 8.0, fy * fy * fy, L / 903.3)
-    x = finv(fx) * _LAB_XN
-    z = finv(fz) * _LAB_ZN
-    r = 3.240479 * x - 1.537150 * y - 0.498535 * z
-    g = -0.969256 * x + 1.875991 * y + 0.041556 * z
-    b = 0.055648 * x - 0.204043 * y + 1.057311 * z
-
-    def to8(c):
-        return _q_u8(_linear_to_srgb(c) * 255.0)
-    return torch.stack([to8(r), to8(g), to8(b)], dim=-1)
+    # X and Z stay unscaled: the white point folds into their coefficients
+    x, z = finv(fx), finv(fz)
+    y = torch.where(L > 8.0, fy * fy * fy, l8 * _k(100.0, _inv(255.0), _inv(903.3)))
+    ky = (_k(1.537150), _k(1.875991), _k(0.204043))
+    r = _fma(-z, _k(0.498535, _LAB_ZN), _fma(x, _k(3.240479, _LAB_XN), -(y * ky[0])))
+    # a negative leading constant makes LLVM contract the other product
+    g = _fma(z, _k(0.041556, _LAB_ZN), _fma(y, ky[1], x * _k(-0.969256, _LAB_XN)))
+    b = _fma(z, _k(1.057311, _LAB_ZN), _fma(x, _k(0.055648, _LAB_XN), -(y * ky[2])))
+    return torch.stack([_linear_to_srgb_u8(r), _linear_to_srgb_u8(g),
+                        _linear_to_srgb_u8(b)], dim=-1)

@@ -129,3 +129,81 @@ def resize_bilinear_f32(img: torch.Tensor, dst_h: int, dst_w: int,
     h = P * along(ax0, ax_ax) + Q * along(ax1, ax_ax)
     return (h.index_select(ay_ax, _t(sy, dev)) * along(ay0, ay_ax)
             + h.index_select(ay_ax, _t(sy1, dev)) * along(ay1, ay_ax))
+
+
+@functools.lru_cache(maxsize=None)
+def _dyn_f32_tables(dst: int, src_max: int):
+    """Stacked per-source-extent tables for a crop whose extent is only
+    known on the device: row `src` holds _linear_tables(src, dst), cv2's
+    exact f32-residual indices and coefficients for that extent. Row 0
+    mirrors row 1 (crop extents are floored at 1)."""
+    shape = (src_max + 1, dst)
+    sx_t = np.zeros(shape, np.int32)
+    sx1_t = np.zeros(shape, np.int32)
+    a0_t = np.zeros(shape, np.int32)
+    a1_t = np.zeros(shape, np.int32)
+    for src in range(1, src_max + 1):
+        sx, sx1, a0, a1 = _linear_tables(src, dst)
+        sx_t[src], sx1_t[src], a0_t[src], a1_t[src] = sx, sx1, a0, a1
+    sx_t[0], sx1_t[0], a0_t[0], a1_t[0] = sx_t[1], sx1_t[1], a0_t[1], a1_t[1]
+    return sx_t, sx1_t, a0_t, a1_t
+
+
+_dyn_device_tables = {}
+
+
+def _dyn_linear_tables(src_size: torch.Tensor, dst: int, src_max: int):
+    """cv2 INTER_LINEAR indices and coefficients for device-side source
+    extents (B,): one row of the _dyn_f32_tables per extent, (B, dst) each.
+    Extents beyond src_max clamp to it (callers pass the enclosing image
+    dimension, which bounds any crop)."""
+    key = (dst, src_max, str(src_size.device))
+    if key not in _dyn_device_tables:
+        _dyn_device_tables[key] = tuple(
+            _t(t, src_size.device) for t in _dyn_f32_tables(dst, src_max))
+    i = torch.clamp(src_size.to(torch.int64), 0, src_max)
+    return tuple(t[i] for t in _dyn_device_tables[key])
+
+
+def crop_resize_u8_cv2(imgs: torch.Tensor, box_xywh: torch.Tensor,
+                       dst_h: int, dst_w: int) -> torch.Tensor:
+    """cv2.resize(img[y:y+h, x:x+w], (dst_w, dst_h), INTER_LINEAR) for each
+    frame of a batch with its own (x, y, w, h) box, all on the device:
+    imgs (B, H, W, C) u8, box_xywh (B, 4) i32 -> (B, dst_h, dst_w, C) u8,
+    bit-exact with the static path above, the exact-2x area path included.
+
+    The crop is an index gather of the two source rows and columns of each
+    output pixel, then OpenCV's fixed-point arithmetic. The box is assumed
+    clamped to the frame (the SSD postprocess guarantees it); w and h are
+    floored at 1."""
+    b, H, W, C = imgs.shape
+    box = box_xywh.to(torch.int64)
+    x0, y0 = box[:, 0], box[:, 1]
+    w = torch.clamp(box[:, 2], min=1)
+    h = torch.clamp(box[:, 3], min=1)
+    sx, sx1, ax0, ax1 = _dyn_linear_tables(w, dst_w, W)
+    sy, sy1, ay0, ay1 = _dyn_linear_tables(h, dst_h, H)
+    gx = torch.clamp(x0[:, None] + sx, 0, W - 1)
+    gx1 = torch.clamp(x0[:, None] + sx1, 0, W - 1)
+    gy = torch.clamp(y0[:, None] + sy, 0, H - 1)
+    gy1 = torch.clamp(y0[:, None] + sy1, 0, H - 1)
+
+    flat = imgs.reshape(b, H * W, C)
+
+    def taps(rows, cols):   # (B, dst_h, dst_w, C) int32
+        idx = (rows[:, :, None] * W + cols[:, None, :]).reshape(b, -1, 1)
+        return torch.gather(flat, 1, idx.expand(-1, -1, C)).reshape(
+            b, dst_h, dst_w, C).to(torch.int32)
+
+    p00, p01 = taps(gy, gx), taps(gy, gx1)
+    p10, p11 = taps(gy1, gx), taps(gy1, gx1)
+    a0, a1 = ax0[:, None, :, None], ax1[:, None, :, None]
+    h0 = (a0 * p00 + a1 * p01) >> 4
+    h1 = (a0 * p10 + a1 * p11) >> 4
+    lin = (((ay0[:, :, None, None] * h0) >> 16)
+           + ((ay1[:, :, None, None] * h1) >> 16) + 2) >> 2
+    # exact-2x downscale: OpenCV's 2x2 area mean; for src == 2*dst the
+    # tables select exactly the four area taps
+    area = (p00 + p01 + p10 + p11 + 2) >> 2
+    is_2x = ((h == 2 * dst_h) & (w == 2 * dst_w))[:, None, None, None]
+    return torch.clamp(torch.where(is_2x, area, lin), 0, 255).to(torch.uint8)

@@ -11,9 +11,14 @@ host-prep tick): one call serves every stream of the batch.
 
 Padded entries carry active=False: their state update is a no-op. The
 kernels of this tick are selected by DetectorConfig.use_pallas_preproc
-(kernels/preproc.py) and use_pallas_color (kernels/color_stats.py).
-The device-detect tick, device CLAHE and clip attention come with later
-slices of the port.
+(kernels/preproc.py), use_pallas_color (kernels/color_stats.py) and
+clahe_device (Lab, then CLAHE on L through kernels/clahe.py, then RGB).
+
+make_device_step_detect builds the capture-to-verdict tick of device-detect
+serving: capture-size BGR frames -> the 300x300 and 256x256 cv2-exact
+resizes -> the SSD Caffe graph, decode and NMS -> the reference's box
+selection -> per-stream crop and align to 160x160 RGB -> the tick above.
+Clip attention, in-tick MTCNN and the SSD in bf16 come with later slices.
 """
 
 from __future__ import annotations
@@ -27,8 +32,12 @@ import numpy as np
 import torch
 
 from ..core.config import DetectorConfig
+from ..models.caffe_net import CaffeNet
 from ..models.efficientnet import EfficientNet
+from ..models.ssd_res10 import detect_postprocess_batch, ssd_input
 from ..ops import forensics
+from ..ops.color import lab_to_rgb_u8, rgb_to_lab_u8
+from ..ops.resize import crop_resize_u8_cv2, resize_bilinear_u8_cv2
 from ..pipeline.classify import preprocess_aligned
 from ..state.forensic_state import ForensicState, forensic_state_init_batch
 from ..state.tracker import (
@@ -93,10 +102,6 @@ def _bf16_model(model: EfficientNet) -> EfficientNet:
 
 
 def _unported(cfg: DetectorConfig) -> None:
-    if cfg.clahe_device:
-        raise NotImplementedError(
-            "clahe_device: device CLAHE comes with the slice that ports the "
-            "CLAHE kernels (kernels/clahe.py)")
     if cfg.clip_window > 0:
         raise NotImplementedError(
             "clip_window > 0: the clip-attention head comes with a later slice")
@@ -142,6 +147,17 @@ def _step_core(model: EfficientNet, cfg: DetectorConfig,
             active.reshape((-1,) + (1,) * (new.ndim - 1)), new, old),
         new_forensic, states.forensic)
     forensic_prob = fres["fake_probability"]
+
+    if cfg.clahe_device:
+        # CLAHE on the L channel of the aligned crop, on the device (the
+        # host path applies it to the crop before alignment); the engine
+        # ships u8 crops from the resize aligner
+        from ..kernels.clahe import clahe_u8
+        if faces_raw.dtype != torch.uint8:
+            raise TypeError(f"clahe_device needs u8 face crops, got {faces_raw.dtype}")
+        lab = rgb_to_lab_u8(faces_raw)
+        L = clahe_u8(lab[..., 0].contiguous())
+        faces_raw = lab_to_rgb_u8(torch.stack([L, lab[..., 1], lab[..., 2]], dim=-1))
 
     if cfg.use_pallas_preproc:
         from ..kernels.preproc import preprocess_faces
@@ -205,3 +221,66 @@ def device_step_compact(model: EfficientNet, cfg: DetectorConfig,
                               face_hw, active, sub)
     new_full = tree_map(lambda full, ns: full.index_put((idx,), ns), states, new_sub)
     return out, new_full
+
+
+def _make_detect_prep(net: CaffeNet, cfg: DetectorConfig):
+    """The capture -> (frames_256, faces, has_face, face_hw, box, n_faces)
+    stage of the detect tick."""
+    if cfg.mtcnn_device:
+        raise NotImplementedError("mtcnn_device: in-tick MTCNN comes with the MTCNN slice")
+    if cfg.ssd_bf16:
+        raise NotImplementedError("ssd_bf16: the SSD in bf16 comes with a later slice")
+    h256, w256 = cfg.forensic.analysis_size
+    m = cfg.mtcnn_image_size
+
+    def detect_prep(frames_capture_u8: torch.Tensor, active: torch.Tensor):
+        hc, wc = frames_capture_u8.shape[1], frames_capture_u8.shape[2]
+        frames_256 = resize_bilinear_u8_cv2(frames_capture_u8, h256, w256)
+        det = net(ssd_input(frames_capture_u8))["detection_out"]
+        d = detect_postprocess_batch(det, hc, wc, cfg.ssd_confidence_threshold,
+                                     cfg.min_face_px)
+        box = d["box_xywh"]
+        # BGR -> RGB (the host aligner's channel order) on the crop, where
+        # it moves the fewest bytes; the crop treats channels alike
+        faces_raw = crop_resize_u8_cv2(frames_capture_u8, box, m, m).flip(-1)
+        face_hw = torch.stack([box[:, 3], box[:, 2]], dim=1)   # (fh, fw)
+        return frames_256, faces_raw, d["has_face"] & active, face_hw, box, d["n_faces"]
+
+    return detect_prep
+
+
+@torch.no_grad()
+def _detect_tick(detect_prep, model: EfficientNet, cfg: DetectorConfig,
+                 frames_capture_u8: torch.Tensor, active: torch.Tensor,
+                 slot_idx: torch.Tensor, states: StreamStates
+                 ) -> Tuple[Dict[str, torch.Tensor], StreamStates]:
+    """Compact-layout detect tick: detection, forensics, crop/align (and
+    CLAHE), classification and the tracker; slot-indexed state gather and
+    scatter with a dummy row for padding, as device_step_compact."""
+    (frames_256, faces_raw, has_face, face_hw, box,
+     n_faces) = detect_prep(frames_capture_u8, active)
+    out, new_full = device_step_compact(model, cfg, frames_256, faces_raw, has_face,
+                                        face_hw, active, slot_idx, states)
+    out["face_bbox"] = box
+    out["has_face"] = has_face
+    out["faces_detected"] = n_faces
+    return out, new_full
+
+
+def make_device_step_detect(net: CaffeNet, model: EfficientNet, cfg: DetectorConfig):
+    """The capture-to-verdict tick of device-detect serving, one call per
+    tick on the device of `net` and `model`:
+
+      step(frames_capture_u8 (B, Hc, Wc, 3) u8 BGR, active bool (B,),
+           slot_idx i32 (B,), states) -> (out, new_states)
+
+    `out` holds the keys of device_step_compact plus face_bbox (i32 (B, 4),
+    x y w h in capture coordinates), has_face and faces_detected. `net` is
+    the SSD's Caffe graph (models/caffe_net.CaffeNet)."""
+    detect_prep = _make_detect_prep(net, cfg)
+
+    def step(frames_capture_u8, active, slot_idx, states):
+        return _detect_tick(detect_prep, model, cfg, frames_capture_u8, active,
+                            slot_idx, states)
+
+    return step

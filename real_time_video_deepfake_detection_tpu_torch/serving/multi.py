@@ -1,20 +1,27 @@
 """Multi-stream serving engine: dynamic batching onto one tick.
 
 Port of real_time_video_deepfake_detection_tpu/serving/multi.py
-(MultiStreamEngine) in host-prep mode. N concurrent streams, each named by a
-stream id, park their requests in a queue; a batcher thread ticks when
-`max_batch` frames are pending or `batch_timeout_ms` elapses, runs ONE
-serving tick (serving/batcher.device_step_compact) for all of them on the
-engine's device, and a drainer thread completes the waiting requests with
-the reference's JSON response.
+(MultiStreamEngine). N concurrent streams, each named by a stream id, park
+their requests in a queue; a batcher thread ticks when `max_batch` frames
+are pending or `batch_timeout_ms` elapses, runs ONE serving tick for all of
+them on the engine's device, and a drainer thread completes the waiting
+requests with the reference's JSON response. Two modes:
+
+  - host prep (default): each request thread resizes the frame, detects
+    and aligns the face on the host; the tick is
+    serving/batcher.device_step_compact.
+  - device detect (ServerConfig.device_detect): the request thread only
+    conforms the frame to detect_capture_hw; the tick is
+    serving/batcher.make_device_step_detect (SSD detection, resizes,
+    crop/align, CLAHE with clahe_device, classification, tracker), and
+    face_bbox comes back in the client frame's coordinates.
 
 Per-stream session state lives in the batched StreamStates on the device,
 with one extra dummy row for padded entries; /reset with a stream id resets
 only that slot. Not in this slice (each raises NotImplementedError, or
-returns None where the JAX engine hands the caller a fallback):
-device-detect ticks and wire ingest (the device-detect slice), device
-CLAHE (the CLAHE-kernel slice), MTCNN alignment and clip attention (later
-slices), and the native JPEG prep path of `analyze_jpeg` (the HTTP slice).
+returns None where the JAX engine hands the caller a fallback): wire
+ingest, MTCNN alignment and clip attention (later slices), and the native
+JPEG prep path of `analyze_jpeg` (the HTTP slice).
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch
 from ..core.config import DetectorConfig, ServerConfig
 from ..core.device import resolve_device
 from ..models import backbones
+from ..models.caffe_net import CaffeNet
 from ..pipeline.detector import _ResizeAligner, preprocess_face_quality
 from ..pipeline.faces import FaceDetector
 from ..state.tracker import (
@@ -42,7 +50,8 @@ from ..state.tracker import (
 from ..state.tree import tree_map
 from ..utils.host_resize import resize_analysis
 from .batcher import (
-    StreamStates, device_step_compact, init_stream_states, reset_streams,
+    StreamStates, device_step_compact, init_stream_states, make_device_step_detect,
+    reset_streams,
 )
 
 
@@ -54,6 +63,11 @@ class _Pending:
     face_hw: tuple = (0, 0)
     faces_detected: int = 0
     bbox: Optional[tuple] = None
+    # device-detect mode: the capture-size frame, and the client frame's
+    # (h, w) when it was conformed to detect_capture_hw (face_bbox is then
+    # scaled back to the client's coordinates)
+    frame_capture: Optional[np.ndarray] = None
+    orig_hw: Optional[tuple] = None
     # owning stream id, checked against the slot table at tick time: a
     # request parked while its stream was LRU-evicted must not write into
     # the slot's new owner's state
@@ -64,15 +78,13 @@ class _Pending:
 
 
 def _unported(cfg: DetectorConfig, server_cfg: ServerConfig) -> None:
-    if server_cfg.device_detect:
-        raise NotImplementedError(
-            "device_detect: the device-detect tick (SSD-Res10 in the tick) "
-            "comes with the next slices of the port")
     if server_cfg.ingest_plane != "bgr":
         raise NotImplementedError(
             "ingest_plane wire formats come with the wire-ingest slice")
     if cfg.mtcnn_device:
         raise NotImplementedError("mtcnn_device comes with the MTCNN slice")
+    if server_cfg.device_detect and cfg.ssd_bf16:
+        raise NotImplementedError("ssd_bf16: the SSD in bf16 comes with a later slice")
 
 
 class MultiStreamEngine:
@@ -82,12 +94,17 @@ class MultiStreamEngine:
     `params`: a state dict for the backbone module (utils/convert.
     params_from_jax makes one from JAX parameters); None draws parameters
     from a torch.Generator seeded with `seed`. `device`: None means CUDA
-    (raising when it is absent); pass "cpu" to run on the CPU."""
+    (raising when it is absent); pass "cpu" to run on the CPU.
+    Device-detect mode needs the SSD: `ssd_net` (a models/caffe_net.CaffeNet,
+    moved to the engine's device) or a `face_detector` built with a
+    caffemodel."""
 
     def __init__(self, cfg: DetectorConfig = DetectorConfig(),
                  server_cfg: ServerConfig = ServerConfig(),
                  params: Optional[Dict[str, torch.Tensor]] = None, spec=None,
-                 device: Optional[Union[str, torch.device]] = None, seed: int = 0):
+                 device: Optional[Union[str, torch.device]] = None, seed: int = 0,
+                 face_detector: Optional[FaceDetector] = None,
+                 ssd_net: Optional[CaffeNet] = None):
         _unported(cfg, server_cfg)
         self.device = resolve_device(device)
         self.server_cfg = server_cfg
@@ -105,9 +122,12 @@ class MultiStreamEngine:
         if params is not None:
             model.load_state_dict(params)
         self.model = model.to(self.device).eval()
-        self.face_detector = FaceDetector(backend=cfg.face_backend)
+        self.face_detector = face_detector or FaceDetector(
+            confidence_threshold=cfg.ssd_confidence_threshold,
+            min_face_px=cfg.min_face_px, backend=cfg.face_backend)
         self.aligner = _ResizeAligner()
         # the resize aligner's crops are integer-valued, so they travel as u8
+        # (clahe_device needs u8 crops; the tick checks it)
         self._faces_dtype = np.uint8
 
         # tick-schedule forensic variants: index 0 full tick, 1 fast tick
@@ -117,6 +137,20 @@ class MultiStreamEngine:
         else:
             self._tick_cfgs = (cfg, cfg)
         self._tick_no = 0
+
+        # device-detect mode: one detect step per tick variant
+        self._detect_steps = None
+        if server_cfg.device_detect:
+            net = ssd_net
+            if net is None and self.face_detector._ssd is not None:
+                net = self.face_detector._ssd.net
+            if net is None:
+                raise ValueError(
+                    "device_detect requires SSD weights: pass ssd_net= or "
+                    "construct the FaceDetector with a caffemodel")
+            net = net.to(self.device).eval()
+            self._detect_steps = {c: make_device_step_detect(net, self.model, c)
+                                  for c in dict.fromkeys(self._tick_cfgs)}
 
         self.n_slots = server_cfg.max_streams
         # +1 dummy row for the padded entries of compact ticks
@@ -164,15 +198,23 @@ class MultiStreamEngine:
 
     def _dispatch(self, cfg: DetectorConfig, arrays, states: StreamStates):
         dev = [torch.from_numpy(a).to(self.device) for a in arrays]
+        if self._detect_steps is not None:   # (frames_capture, active, slot_idx)
+            return self._detect_steps[cfg](*dev, states)
         return device_step_compact(self.model, cfg, *dev[:5], dev[5], states)
+
+    def _detect_inputs(self, b: int):
+        ch, cw = self.server_cfg.detect_capture_hw
+        return (np.zeros((b, ch, cw, 3), np.uint8), np.zeros(b, bool),
+                np.full(b, self.n_slots, np.int32))
 
     def _warmup(self):
         """Run every bucket's tick once on all-inactive entries before
         serving, so kernel builds and allocator growth are not paid by a
         request."""
+        inputs = self._tick_inputs if self._detect_steps is None else self._detect_inputs
         for cfg in dict.fromkeys(self._tick_cfgs):
             for b in self.buckets:
-                out, _ = self._dispatch(cfg, self._tick_inputs(b), self.states)
+                out, _ = self._dispatch(cfg, inputs(b), self.states)
                 out["verdict"].cpu()
 
     # ------------------------------------------------------------- streams
@@ -278,9 +320,24 @@ class MultiStreamEngine:
                 timeout: float = 60.0) -> dict:
         """Host prep (resize to the analysis frame, face detection, CLAHE,
         alignment), then enqueue for the next tick. Blocks until the tick
-        completes."""
+        completes.
+
+        In device-detect mode the only host prep is conforming the frame to
+        the capture shape; everything else runs in the tick."""
         t0 = time.time()
         slot = self.slot_for(stream_id)
+        if self._detect_steps is not None:
+            ch, cw = self.server_cfg.detect_capture_hw
+            orig_hw = None
+            if frame_bgr.shape[:2] != (ch, cw):
+                # off-size capture: conform on the host (cv2-exact resize);
+                # the tick's box is scaled back at response assembly
+                orig_hw = frame_bgr.shape[:2]
+                frame_bgr = resize_analysis(frame_bgr, ch, cw)
+            return self._enqueue(_Pending(stream_slot=slot, stream_id=stream_id,
+                                          frame_capture=frame_bgr, orig_hw=orig_hw,
+                                          t_start=t0), timeout)
+
         h, w = self.cfg.forensic.analysis_size
         frame256 = resize_analysis(frame_bgr, h, w)
 
@@ -290,7 +347,10 @@ class MultiStreamEngine:
             x, y, fw, fh = faces[0]
             region = frame_bgr[y:y + fh, x:x + fw]
             try:
-                face_raw = self.aligner(preprocess_face_quality(region))
+                # clahe_device: ship the raw aligned crop; the tick applies
+                # CLAHE (serving/batcher.py _step_core)
+                pre = region if self.cfg.clahe_device else preprocess_face_quality(region)
+                face_raw = self.aligner(pre)
             except Exception:   # reference: a failed face drops to forensic-only
                 logging.getLogger(__name__).exception("face prep failed")
                 face_raw = None
@@ -298,9 +358,12 @@ class MultiStreamEngine:
                 face_hw = (fh, fw)
                 bbox = (x, y, fw, fh)
 
-        p = _Pending(stream_slot=slot, stream_id=stream_id,
-                     frame_256=frame256, face_raw=face_raw, face_hw=face_hw,
-                     faces_detected=len(faces), bbox=bbox, t_start=t0)
+        return self._enqueue(_Pending(stream_slot=slot, stream_id=stream_id,
+                                      frame_256=frame256, face_raw=face_raw,
+                                      face_hw=face_hw, faces_detected=len(faces),
+                                      bbox=bbox, t_start=t0), timeout)
+
+    def _enqueue(self, p: _Pending, timeout: float) -> dict:
         with self.queue_cv:
             self.queue.append(p)
             self.queue_cv.notify()
@@ -369,15 +432,25 @@ class MultiStreamEngine:
         if not batch:
             return
         b = self._bucket_for(len(batch))
-        frames, faces, has_face, face_hw, active, slot_idx = self._tick_inputs(b)
-        for i, p in enumerate(batch):
-            slot_idx[i] = p.stream_slot
-            frames[i] = p.frame_256
-            active[i] = True
-            if p.face_raw is not None:
-                faces[i] = p.face_raw
-                has_face[i] = True
-                face_hw[i] = p.face_hw
+        if self._detect_steps is not None:
+            # has_face comes from the tick's output
+            frames, active, slot_idx = arrays = self._detect_inputs(b)
+            has_face = None
+            for i, p in enumerate(batch):
+                slot_idx[i] = p.stream_slot
+                frames[i] = p.frame_capture
+                active[i] = True
+        else:
+            arrays = self._tick_inputs(b)
+            frames, faces, has_face, face_hw, active, slot_idx = arrays
+            for i, p in enumerate(batch):
+                slot_idx[i] = p.stream_slot
+                frames[i] = p.frame_256
+                active[i] = True
+                if p.face_raw is not None:
+                    faces[i] = p.face_raw
+                    has_face[i] = True
+                    face_hw[i] = p.face_hw
 
         t_dev = time.time()
         # snapshot the state under the lock, run outside it; resets landing
@@ -388,8 +461,7 @@ class MultiStreamEngine:
             self._tick_no += 1
             states = self.states
             self._pending_reset = None
-        out, new_states = self._dispatch(
-            tick_cfg, (frames, faces, has_face, face_hw, active, slot_idx), states)
+        out, new_states = self._dispatch(tick_cfg, arrays, states)
         with self.lock:
             if self._pending_reset is not None:
                 new_states = reset_streams(
@@ -417,7 +489,9 @@ class MultiStreamEngine:
                         p.event.set()
 
     def _complete(self, out: Dict[str, np.ndarray], entries: List[_Pending],
-                  has_face: np.ndarray, t_dev: float):
+                  has_face: Optional[np.ndarray], t_dev: float):
+        if has_face is None:   # device-detect mode: detection ran in the tick
+            has_face = out["has_face"]
         m = self.metrics
         n_req = len(entries)
         m["ticks"] += 1
@@ -426,15 +500,17 @@ class MultiStreamEngine:
         # dispatch -> completed latency, including in-flight queue wait
         self._ewma("ewma_tick_latency_ms", (time.time() - t_dev) * 1000)
         self._ewma("ewma_batch_size", float(n_req))
-        self._ewma("ewma_host_prep_ms",
-                   float(np.mean([(t_dev - p.t_start) * 1000 for p in entries])))
+        if self._detect_steps is None:   # host prep ran in the request threads
+            self._ewma("ewma_host_prep_ms",
+                       float(np.mean([(t_dev - p.t_start) * 1000 for p in entries])))
 
         for i, p in enumerate(entries):
             fake_prob = float(out["fake_probability"][i])
             resp = {
                 "success": True,
                 "analysis_mode": "face+frame" if has_face[i] else "frame_only",
-                "faces_detected": p.faces_detected,
+                "faces_detected": (int(out["faces_detected"][i])
+                                   if "faces_detected" in out else p.faces_detected),
                 "fake_probability": fake_prob,
                 "frame_forensic_probability": float(out["frame_forensic_probability"][i]),
                 "real_probability": 1.0 - fake_prob,
@@ -446,7 +522,17 @@ class MultiStreamEngine:
             }
             if has_face[i]:
                 resp["face_probability"] = float(out["face_probability"][i])
-                x, y, fw, fh = p.bbox
+                x, y, fw, fh = (p.bbox if p.bbox is not None
+                                else (int(v) for v in out["face_bbox"][i]))
+                if p.bbox is None and p.orig_hw is not None:
+                    # the tick's box is in detect_capture_hw space: scale it
+                    # back to the client's frame
+                    oh, ow = p.orig_hw
+                    ch, cw = self.server_cfg.detect_capture_hw
+                    x = max(0, min(int(round(x * ow / cw)), ow - 1))
+                    y = max(0, min(int(round(y * oh / ch)), oh - 1))
+                    fw = max(1, min(int(round(fw * ow / cw)), ow - x))
+                    fh = max(1, min(int(round(fh * oh / ch)), oh - y))
                 resp["face_bbox"] = {"x": int(x), "y": int(y),
                                      "width": int(fw), "height": int(fh)}
             p.result = resp

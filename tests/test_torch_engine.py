@@ -128,8 +128,8 @@ def test_engine_admit_rate_limits_a_stream(engine):
 
 
 @pytest.mark.parametrize("server_kw,cfg_kw", [
-    ({"device_detect": True}, {}), ({"ingest_plane": "coef"}, {}),
-    ({}, {"clahe_device": True}), ({}, {"mtcnn_device": True}),
+    ({"device_detect": True}, {"ssd_bf16": True}), ({"ingest_plane": "coef"}, {}),
+    ({"device_detect": True}, {"mtcnn_device": True}), ({}, {"mtcnn_device": True}),
     ({}, {"clip_window": 8})])
 def test_engine_unported_modes_raise(server_kw, cfg_kw):
     with pytest.raises(NotImplementedError):

@@ -84,9 +84,14 @@ def test_reset_streams_zeroes_only_masked_rows():
     assert out.tracker.n_votes.tolist() == [0, 2, 0]
 
 
-@pytest.mark.parametrize("field,value", [("clahe_device", True), ("clip_window", 4)])
+@pytest.mark.parametrize("field,value", [("clip_window", 4), ("ssd_bf16", True),
+                                         ("mtcnn_device", True)])
 def test_unported_tick_options_raise(field, value):
     cfg = dataclasses.replace(TDC(forensic=TFC(analysis_size=(32, 32))), **{field: value})
+    if field != "clip_window":   # options of the detect tick
+        with pytest.raises(NotImplementedError):
+            TB.make_device_step_detect(None, None, cfg)
+        return
     st = TB.init_stream_states(2, cfg)
     z = torch.zeros
     with pytest.raises(NotImplementedError):
