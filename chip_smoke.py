@@ -10,10 +10,12 @@ in phases, each printing one JSON line:
               and matmuls
   2. build    nvcc builds the package's CUDA kernels (csrc/*.cu, sm_90a)
   3. kernels  each kernel against its plain torch version at main-path
-              shapes, timed with CUDA events (and its device time from
-              torch.profiler) beside its bound, the plain version and
-              (where one exists) a PyTorch library call; the CLAHE kernels
-              also against the numpy oracle clahe_u8_numpy
+              shapes and at the edge inputs of the redesigned two (odd
+              widths, constant planes), timed with CUDA events (and its
+              device time from torch.profiler, and the host time of its
+              wrapper) beside its bound, the plain version and (where one
+              exists) a PyTorch library call; the CLAHE kernels also
+              against the numpy oracle clahe_u8_numpy
   4. serve    MultiStreamEngine on cuda in host-prep mode with full-size
               EfficientNet-B0 (random weights from a seed, batch-norm
               statistics set from one batch), 16 streams x 12 synthetic
@@ -30,16 +32,22 @@ in phases, each printing one JSON line:
               B0, 16 streams x 12 capture frames; checks the responses,
               that all four kernels were launched and that faces were found
   7. detect-parity  one bucket-64 detect tick on cuda against the same tick
-              on the CPU; the count of CLAHE'd face pixels that differ
-              between the two; the tick's time and a profiler window
+              on the CPU; the count of Lab and CLAHE'd face pixels that
+              differ between the two; the Lab pair's time; the tick's time
+              and a profiler window
 
 then a `{"kernels": [...]}` line and, last, `{"ok": true, "device": ...}`.
 Any failed phase makes it exit non-zero without the last line. It needs a
 CUDA device and the repository checkout around it.
+
+    python3 chip_smoke.py --phases device,build,kernels   # a short run
+
+runs only the named phases and prints no contract lines.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -97,6 +105,45 @@ def time_cuda(fn, n: int = 60, warmup: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_us(fn, n: int = 200, reps: int = 5) -> float:
+    """Median over `reps` runs of the host microseconds one call of `fn`
+    takes to return (n calls back to back, the device drained before each
+    run): a wrapper's host path, its checks and its launch."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e6 / n)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+@contextlib.contextmanager
+def exact_powf_only():
+    """ops/color with ops/powf.py's exact chain on every lane in place of
+    the two-pass powf (no fast pass, no gather, no device sync): the other
+    design of the emulation, timed here against the committed one."""
+    import numpy as np
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.ops import color, powf as P
+
+    def exact(x, y):
+        yd, xf = float(np.float32(y)), x.reshape(-1)
+        ylogx, _, v = P._chain(P._bits(xf), yd, True, P._tables(x.device))
+        out = torch.where(xf == 0, 0.0 if yd > 0 else float("inf"), P._round_f32(ylogx, v))
+        return out.view(x.shape)
+
+    saved, color.powf = color.powf, exact
+    try:
+        yield
+    finally:
+        color.powf = saved
 
 
 def profile_device(fn, n: int):
@@ -200,15 +247,21 @@ def phase_kernels(ctx):
     res = {}
 
     # preprocess_faces: (64,160,160,3) u8 is the main path's input at a full
-    # bucket; f32 and (2,96,128,3) are the other shapes the wrapper takes
+    # bucket; f32 and the edge shapes are the others the wrapper takes:
+    # source rows staged with 16-byte copies (96x128) or element by element
+    # (50x70, 40x56), and an output row of 675 floats, not a float4 multiple
     faces_u8 = torch.randint(0, 256, (64, 160, 160, 3), generator=g, device=dev,
                              dtype=torch.uint8)
     faces_f32 = torch.rand((64, 160, 160, 3), generator=g, device=dev) * 255
-    odd = torch.rand((2, 96, 128, 3), generator=g, device=dev) * 255
+    cases = [(faces_u8, 224), (faces_f32, 224)]
+    for shape, out_size in (((2, 96, 128, 3), 224), ((3, 50, 70, 3), 224),
+                            ((2, 40, 56, 3), 225)):
+        x = torch.rand(shape, generator=g, device=dev) * 256
+        cases += [(x, out_size), (x.to(torch.uint8), out_size)]
     err = 0.0
-    for x in (faces_u8, faces_f32, odd):
-        got = preproc.preprocess_faces(x, 224)
-        want = preproc.preprocess_faces_plain(x, 224)
+    for x, out_size in cases:
+        got = preproc.preprocess_faces(x, out_size)
+        want = preproc.preprocess_faces_plain(x, out_size)
         torch.cuda.synchronize()
         err = max(err, float((got - want).abs().max()))
     if not err <= 1e-4:
@@ -233,7 +286,8 @@ def phase_kernels(ctx):
         "source": f"{PKG}/csrc/preproc.cu",
         "replaces": "real_time_video_deepfake_detection_tpu/kernels/preproc.py:60",
         "shape": [64, 160, 160, 3], "dtype": "uint8", "max_abs_err": err,
-        "ms": time_cuda(kernel),
+        "inputs_checked": [list(x.shape) + [str(x.dtype)[6:], o] for x, o in cases],
+        "ms": time_cuda(kernel), "host_us": host_us(kernel),
         "ms_f32_input": time_cuda(lambda: preproc.preprocess_faces(faces_f32, 224)),
         "plain_ms": time_cuda(plain),
         "bound_ms": b_ms, "bound_by": b_by,
@@ -266,16 +320,18 @@ def phase_kernels(ctx):
         "source": f"{PKG}/csrc/color_stats.cu",
         "replaces": "real_time_video_deepfake_detection_tpu/kernels/color_stats.py:45",
         "shape": [64, 256, 256], "dtype": "uint8", "max_abs_err": 0.0,
-        "ms": time_cuda(kernel), "plain_ms": time_cuda(plain),
+        "ms": time_cuda(kernel), "host_us": host_us(kernel), "plain_ms": time_cuda(plain),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "device_ms": profile_device(kernel, 20)[1],
         "plain_device_ms": profile_device(plain, 20)[1],
     }
     res.update(_clahe_kernels(peaks))
     ctx["kernels"] = res
-    return {k: {kk: v.get(kk) for kk in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                         "library_ms", "device_ms", "plain_device_ms",
-                                         "library_device_ms", "max_diff_from_numpy_oracle")}
+    return {k: {kk: v.get(kk) for kk in ("max_abs_err", "ms", "host_us", "plain_ms",
+                                         "bound_ms", "library_ms", "device_ms",
+                                         "plain_device_ms", "library_device_ms",
+                                         "max_diff_from_numpy_oracle", "inputs_checked",
+                                         "edge_planes_checked")}
             for k, v in res.items()}
 
 
@@ -293,28 +349,59 @@ def _face_planes(n: int, seed: int):
     return np.stack(out)
 
 
+def _edge_planes():
+    """The planes the LUT kernel is sensitive to, as numpy: constant 160x160
+    planes (one bin holds the whole tile: every atomic on one bin, the largest clip
+    excess and residual) and (40, 56) planes, whose 7-pixel tile rows are
+    read byte by byte."""
+    import numpy as np
+    r = np.random.default_rng(SEED + 4)
+    const = np.stack([np.full((160, 160), v, np.uint8) for v in (0, 77, 128, 255)])
+    yy, xx = np.mgrid[:40, :56]
+    smooth = np.clip(60 + 2 * yy + 40 * (((xx - 28) / 20.0) ** 2 + ((yy - 20) / 16.0) ** 2 <= 1)
+                     + r.normal(0, 4, (40, 56)), 0, 255).astype(np.uint8)
+    narrow = np.stack([r.integers(0, 256, (40, 56), dtype=np.uint8), smooth,
+                       np.full((40, 56), 200, np.uint8)])
+    return const, narrow
+
+
 def _clahe_kernels(peaks):
-    """clahe_luts and clahe_apply at a full tick's faces, (64, 160, 160) u8:
-    LUTs and outputs exactly equal to the plain versions, and the output
-    equal to the numpy oracle on the CPU."""
+    """clahe_luts and clahe_apply at a full tick's faces, (64, 160, 160) u8,
+    and clahe_luts on the edge planes: LUTs and outputs exactly equal to the
+    plain versions, LUTs equal to the oracle's per-tile _lut_for_tile on the
+    edge planes, and every output equal to the numpy oracle on the CPU."""
     import numpy as np
     import torch
     from real_time_video_deepfake_detection_tpu_torch.kernels import clahe
     from real_time_video_deepfake_detection_tpu_torch.ops.clahe import (
-        clahe_apply_batch, clahe_luts_batch, clahe_u8_numpy)
-    planes = _face_planes(64, SEED + 3)
-    x = torch.from_numpy(planes).cuda()
-    luts = clahe.clahe_luts(x)
-    out = clahe.clahe_apply(x, luts)
-    torch.cuda.synchronize()
-    if not torch.equal(luts, clahe_luts_batch(x)):
-        raise AssertionError("clahe_luts differs from its plain version")
-    if not torch.equal(out, clahe_apply_batch(x, luts)):
-        raise AssertionError("clahe_apply differs from its plain version")
-    oracle = np.stack([clahe_u8_numpy(p) for p in planes])
-    oracle_diff = int(np.abs(out.cpu().numpy().astype(int) - oracle.astype(int)).max())
+        _lut_for_tile, clahe_apply_batch, clahe_luts_batch, clahe_u8_numpy, clip_count)
+    oracle_diff = 0
+    for k, planes in enumerate((_face_planes(64, SEED + 3),) + _edge_planes()):
+        x = torch.from_numpy(planes).cuda()
+        luts = clahe.clahe_luts(x)
+        out = clahe.clahe_apply(x, luts)
+        torch.cuda.synchronize()
+        if not torch.equal(luts, clahe_luts_batch(x)):
+            raise AssertionError(f"clahe_luts differs from its plain version on set {k}")
+        if not torch.equal(out, clahe_apply_batch(x, luts)):
+            raise AssertionError(f"clahe_apply differs from its plain version on set {k}")
+        if k > 0:
+            th, tw = planes.shape[1] // 8, planes.shape[2] // 8
+            got = luts.cpu().numpy()
+            for i, p in enumerate(planes):
+                for t in range(64):
+                    tile = p[(t // 8) * th:(t // 8 + 1) * th, (t % 8) * tw:(t % 8 + 1) * tw]
+                    want = _lut_for_tile(np.bincount(tile.ravel(), minlength=256),
+                                         clip_count(2.0, th * tw), th * tw)
+                    if not np.array_equal(got[i, t], want):
+                        raise AssertionError(f"clahe_luts differs from _lut_for_tile: set {k}")
+        oracle = np.stack([clahe_u8_numpy(p) for p in planes])
+        oracle_diff = max(oracle_diff, int(np.abs(out.cpu().numpy().astype(int)
+                                                  - oracle.astype(int)).max()))
     if oracle_diff != 0:
         raise AssertionError(f"CLAHE differs from clahe_u8_numpy by {oracle_diff}")
+    x = torch.from_numpy(_face_planes(64, SEED + 3)).cuda()
+    luts = clahe.clahe_luts(x)
     n_px, n_lut = x.numel(), luts.numel()
     res = {}
     for name, kernel, plain, bytes_moved, ops in (
@@ -333,7 +420,8 @@ def _clahe_kernels(peaks):
                          "real_time_video_deepfake_detection_tpu/kernels/clahe.py:165"),
             "shape": [64, 160, 160], "dtype": "uint8", "max_abs_err": 0.0,
             "max_diff_from_numpy_oracle": oracle_diff,
-            "ms": time_cuda(kernel), "plain_ms": time_cuda(plain),
+            "edge_planes_checked": [[4, 160, 160], [3, 40, 56]],
+            "ms": time_cuda(kernel), "host_us": host_us(kernel), "plain_ms": time_cuda(plain),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "device_ms": profile_device(kernel, 20)[1],
             "plain_device_ms": profile_device(plain, 20)[1],
@@ -370,7 +458,8 @@ def _host_prep_ms(engine, frames):
         preprocess_face_quality)
     from real_time_video_deepfake_detection_tpu_torch.utils.host_resize import (
         resize_analysis)
-    steps = {"resize_analysis": [], "detect": [], "clahe_lab": [], "align": []}
+    steps = {"resize_analysis": [], "detect": [], "clahe_lab": [], "align": [],
+             "clahe_lab_exact_powf_only": []}
     for f in frames:
         t0 = time.perf_counter()
         resize_analysis(f, 256, 256)
@@ -381,7 +470,12 @@ def _host_prep_ms(engine, frames):
         t3 = time.perf_counter()
         engine.aligner(crop)
         t4 = time.perf_counter()
-        for k, a, b in zip(steps, (t0, t1, t2, t3), (t1, t2, t3, t4)):
+        with exact_powf_only():
+            same = preprocess_face_quality(f[y:y + fh, x:x + fw])
+        t5 = time.perf_counter()
+        if not (same == crop).all():
+            raise AssertionError("the exact powf chain alone changed a CLAHE'd crop")
+        for k, a, b in zip(steps, (t0, t1, t2, t3, t4), (t1, t2, t3, t4, t5)):
             steps[k].append((b - a) * 1e3)
     return {k: statistics.median(v) for k, v in steps.items()}
 
@@ -777,6 +871,23 @@ def phase_detect_parity(ctx):
     face_rows = out_c["has_face"]
     lab_diff = int((lab_c[face_rows] != lab_g[face_rows].cpu()).any(-1).sum())
     px_diff = int((fc[face_rows] != fg[face_rows].cpu()).any(-1).sum())
+    # the Lab conversion pair at the tick's faces (glibc's powf, emulated in
+    # float64 torch: a fast pass, then an exact one on the few lanes near an
+    # f32 rounding midpoint, after a device sync for their count), and the
+    # same with the exact chain alone on every lane, in turns
+    faces_g = preps["cuda"](xg[0], xg[1])[1]
+    lab_pair = {"rgb_to_lab_u8": lambda: rgb_to_lab_u8(faces_g),
+                "lab_to_rgb_u8": lambda: lab_to_rgb_u8(lab_g)}
+    want = [fn() for fn in lab_pair.values()]
+    lab_ms = {}
+    for design in ("two_pass", "exact_only", "exact_only", "two_pass"):
+        with exact_powf_only() if design == "exact_only" else contextlib.nullcontext():
+            if not all(torch.equal(fn(), w) for fn, w in zip(lab_pair.values(), want)):
+                raise AssertionError(f"the Lab pair changed with the {design} powf")
+            for k, fn in lab_pair.items():
+                _, busy, acts, _ = profile_device(fn, 5)
+                lab_ms.setdefault(design, {}).setdefault(k, []).append(
+                    {"event_ms": time_cuda(fn, n=20), "device_ms": busy, "device_activities": acts})
 
     step, st = steps["cuda"], init_stream_states(b + 1, cfg, "cuda")
 
@@ -797,6 +908,7 @@ def phase_detect_parity(ctx):
             "tolerance": 1e-4,
             "clahe_face_pixels_differing_gpu_vs_cpu": px_diff,
             "lab_face_pixels_differing_gpu_vs_cpu": lab_diff,
+            "lab_ms_bucket64": lab_ms,
             "face_pixels_compared": int(face_rows.sum()) * 160 * 160,
             "median_tick_ms_bucket64": statistics.median(times),
             "profiled_tick": {"wall_ms": wall, "device_busy_ms": busy,
@@ -811,6 +923,12 @@ PHASES = (("device", phase_device), ("build", phase_build),
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(name for name, _ in PHASES),
+                    help="comma-separated subset of the phases, for a short run "
+                         "(the contract's last lines need all of them)")
+    args = ap.parse_args()
     try:
         import torch
     except ImportError:
@@ -825,9 +943,12 @@ def main() -> int:
               "a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    wanted = set(args.phases.split(","))
     ctx = {}
     try:
         for name, fn in PHASES:
+            if name not in wanted:
+                continue
             t0 = time.time()
             try:
                 info = fn(ctx)
@@ -839,6 +960,8 @@ def main() -> int:
     finally:
         if "ssd_dir" in ctx:
             shutil.rmtree(ctx["ssd_dir"], ignore_errors=True)
+    if wanted != {name for name, _ in PHASES}:
+        return 0   # a partial run prints no contract lines
 
     kernels = []
     for k, v in ctx["kernels"].items():

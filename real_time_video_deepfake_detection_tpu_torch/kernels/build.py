@@ -20,6 +20,8 @@ import threading
 import time
 from typing import Optional
 
+import torch
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), ".build", "torch_kernels")
@@ -38,10 +40,8 @@ _D = ctypes.c_double
 _SIGNATURES = {
     "clahe_luts": [_P, _P, _I, _I, _I, _I, _I, _D, _P],
     "clahe_apply": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
-    "preprocess_faces_f32": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                             _P, _P, _F, _F, _F, _F, _F, _F, _P],
-    "preprocess_faces_u8": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                            _P, _P, _F, _F, _F, _F, _F, _F, _P],
+    "preprocess_faces_f32": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "preprocess_faces_u8": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     "unique_hue_count": [_P, _P, _I, _I, _P],
 }
 
@@ -116,6 +116,19 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def launch(name: str, device, *args) -> None:
+    """Call C entry point `name` with `args` and the current stream of CUDA
+    `device` (switching the current device only when it differs), and raise
+    on a launch error. The host path of a wrapper's launch, kept short."""
+    fn = getattr(_lib if _lib is not None else library(), name)
+    if device.index is None or device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(err, name)
 
 
 def check(err: int, name: str) -> None:

@@ -44,13 +44,9 @@ def clahe_luts(imgs: torch.Tensor, clip_limit: float = 2.0) -> torch.Tensor:
         return clahe_luts_batch(imgs, clip_limit, TILES)
     b, h, w = imgs.shape
     area = (h // TILES) * (w // TILES)
-    lib = build.library()
     out = torch.empty((b, TILES * TILES, 256), dtype=torch.float32, device=imgs.device)
-    with torch.cuda.device(imgs.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.clahe_luts(imgs.data_ptr(), out.data_ptr(), b, h, w, TILES,
-                             clip_count(clip_limit, area), 255.0 / area, stream)
-    build.check(err, "clahe_luts")
+    build.launch("clahe_luts", imgs.device, imgs.data_ptr(), out.data_ptr(), b, h, w, TILES,
+                 clip_count(clip_limit, area), 255.0 / area)
     launches["clahe_luts"] += 1
     return out
 
@@ -68,14 +64,10 @@ def clahe_apply(imgs: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
         return clahe_apply_batch(imgs, luts, TILES)
     if not luts.is_contiguous():
         raise ValueError("LUTs must be contiguous")
-    lib = build.library()
     out = torch.empty_like(imgs)
-    with torch.cuda.device(imgs.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.clahe_apply(imgs.data_ptr(), luts.data_ptr(), out.data_ptr(), b, h, w,
-                              TILES, float(np.float32(1.0 / (h // TILES))),
-                              float(np.float32(1.0 / (w // TILES))), stream)
-    build.check(err, "clahe_apply")
+    build.launch("clahe_apply", imgs.device, imgs.data_ptr(), luts.data_ptr(), out.data_ptr(),
+                 b, h, w, TILES, float(np.float32(1.0 / (h // TILES))),
+                 float(np.float32(1.0 / (w // TILES))))
     launches["clahe_apply"] += 1
     return out
 

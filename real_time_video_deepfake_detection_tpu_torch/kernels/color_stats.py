@@ -45,12 +45,8 @@ def unique_hue_count(hue_u8: torch.Tensor) -> torch.Tensor:
     if not hue_u8.is_contiguous():
         raise ValueError("hue planes must be contiguous")
     b, h, w = hue_u8.shape
-    lib = build.library()
     out = torch.empty((b,), dtype=torch.float32, device=hue_u8.device)
-    with torch.cuda.device(hue_u8.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.unique_hue_count(hue_u8.data_ptr(), out.data_ptr(), b, h * w, stream)
-    build.check(err, "unique_hue_count")
+    build.launch("unique_hue_count", hue_u8.device, hue_u8.data_ptr(), out.data_ptr(), b, h * w)
     launches += 1
     return out
 

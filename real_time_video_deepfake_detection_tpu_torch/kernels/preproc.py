@@ -23,7 +23,7 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 # Kernel launches since the last reset (the CPU path never counts).
 launches = 0
 
-_tables: Dict[Tuple[int, int, str], Tuple[torch.Tensor, ...]] = {}
+_tables: Dict[Tuple[int, int, int, str], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def preprocess_faces_plain(faces_raw: torch.Tensor, out_size: int = 224) -> torch.Tensor:
@@ -36,14 +36,19 @@ def preprocess_faces_plain(faces_raw: torch.Tensor, out_size: int = 224) -> torc
     return (x * (1.0 / 255.0) - mean) / std
 
 
-def _axis_tables(src: int, dst: int, device) -> Tuple[torch.Tensor, ...]:
-    key = (src, dst, str(device))
+def _launch_tables(h: int, w: int, out_size: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's two tables for (h, w) -> out_size on `device`, built
+    once: int32 [sy | sy1 | sx | sx1] and float32 [wy0 | wy1 | wx0 | wx1 |
+    mean | std], from _linear_tables_f32."""
+    key = (h, w, out_size, str(device))
     if key not in _tables:
-        s, s1, w0, w1 = _linear_tables_f32(src, dst)
-        _tables[key] = (
-            torch.as_tensor(s.astype(np.int32), device=device),
-            torch.as_tensor(s1.astype(np.int32), device=device),
-            torch.as_tensor(w0, device=device), torch.as_tensor(w1, device=device))
+        sy, sy1, wy0, wy1 = _linear_tables_f32(h, out_size)
+        sx, sx1, wx0, wx1 = _linear_tables_f32(w, out_size)
+        itab = np.concatenate([sy, sy1, sx, sx1]).astype(np.int32)
+        ftab = np.concatenate([wy0, wy1, wx0, wx1, np.float32(IMAGENET_MEAN),
+                               np.float32(IMAGENET_STD)]).astype(np.float32)
+        _tables[key] = (torch.as_tensor(itab, device=device),
+                        torch.as_tensor(ftab, device=device))
     return _tables[key]
 
 
@@ -62,19 +67,11 @@ def preprocess_faces(faces_raw: torch.Tensor, out_size: int = 224) -> torch.Tens
     if not faces_raw.is_contiguous():
         raise ValueError("faces must be contiguous (NHWC)")
     b, h, w, _ = faces_raw.shape
-    lib = build.library()
-    sy, sy1, wy0, wy1 = _axis_tables(h, out_size, faces_raw.device)
-    sx, sx1, wx0, wx1 = _axis_tables(w, out_size, faces_raw.device)
+    itab, ftab = _launch_tables(h, w, out_size, faces_raw.device)
     out = torch.empty((b, out_size, out_size, 3), dtype=torch.float32,
                       device=faces_raw.device)
-    fn = (lib.preprocess_faces_f32 if faces_raw.dtype == torch.float32
-          else lib.preprocess_faces_u8)
-    with torch.cuda.device(faces_raw.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(faces_raw.data_ptr(), out.data_ptr(), b, h, w, out_size,
-                 sy.data_ptr(), sy1.data_ptr(), wy0.data_ptr(), wy1.data_ptr(),
-                 sx.data_ptr(), sx1.data_ptr(), wx0.data_ptr(), wx1.data_ptr(),
-                 *IMAGENET_MEAN, *IMAGENET_STD, stream)
-    build.check(err, "preprocess_faces")
+    name = "preprocess_faces_f32" if faces_raw.dtype == torch.float32 else "preprocess_faces_u8"
+    build.launch(name, faces_raw.device, faces_raw.data_ptr(), out.data_ptr(), b, h, w,
+                 out_size, itab.data_ptr(), ftab.data_ptr())
     launches += 1
     return out

@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .powf import powf
+
 # OpenCV BGR2GRAY fixed-point coefficients, scaled by 2^15
 _GRAY_SHIFT = 15
 _R_COEF, _G_COEF, _B_COEF = 9798, 19235, 3735
@@ -69,11 +71,9 @@ def bgr_to_hsv_u8(bgr: torch.Tensor) -> torch.Tensor:
 #   - LLVM contracts a*b + c into a fused multiply-add, the left product
 #     first (`_fma`: the f32 product is exact in float64, so a*b + c there
 #     rounds once before the f32 rounding);
-#   - powf and the cube root (powf(|t|, f32(1/3)) with t's sign) are taken
-#     in float64 and rounded to f32.
-# Over all 2^24 inputs: lab_to_rgb_u8 equals the jitted function exactly;
-# rgb_to_lab_u8 differs by one step on 2 triples, where glibc's powf (not
-# correctly rounded) gives the other f32 cube root.
+#   - the powers and the cube root (powf(|t|, f32(1/3)) with t's sign) are
+#     calls of glibc's powf, which ops/powf.py computes bit for bit.
+# Over all 2^24 inputs both conversions equal the jitted function exactly.
 
 _f32 = np.float32
 _LAB_XN = 0.950456
@@ -100,12 +100,8 @@ def _fma(a: torch.Tensor, b: float, c) -> torch.Tensor:
     return (a.to(torch.float64) * b + c).to(torch.float32)
 
 
-def _powf(x: torch.Tensor, e: float) -> torch.Tensor:
-    return torch.pow(x.to(torch.float64), float(_f32(e))).to(torch.float32)
-
-
 def _cbrt(t: torch.Tensor) -> torch.Tensor:
-    return torch.copysign(_powf(t.abs(), 1.0 / 3.0), t)
+    return torch.copysign(powf(t.abs(), 1.0 / 3.0), t)
 
 
 def _srgb_to_linear_table() -> torch.Tensor:
@@ -113,16 +109,10 @@ def _srgb_to_linear_table() -> torch.Tensor:
     c = torch.arange(256, dtype=torch.float32)
     v = c * _inv(255.0)
     return torch.where(v <= _k(0.04045), c * _k(_inv(255.0), _inv(12.92)),
-                       _powf((v + _k(0.055)) * _inv(1.055), 2.4))
+                       powf((v + _k(0.055)) * _inv(1.055), 2.4))
 
 
 _SRGB_TO_LINEAR = _srgb_to_linear_table()
-
-
-def _lab_f(t_scaled: torch.Tensor, t_sum: torch.Tensor, slope: float) -> torch.Tensor:
-    """f(t) of CIELAB for t = t_sum * (1/white): the cube root above the
-    knee, else 7.787*t + 16/116 with 7.787/white folded into `slope`."""
-    return torch.where(t_scaled > _LAB_EPS, _cbrt(t_scaled), _fma(t_sum, slope, _LAB_K))
 
 
 def _q_u8(v: torch.Tensor) -> torch.Tensor:
@@ -141,12 +131,16 @@ def rgb_to_lab_u8(rgb_u8: torch.Tensor) -> torch.Tensor:
     xs = _mix3(r, _k(0.412453), g, _k(0.357580), b, _k(0.180423))
     y = _mix3(r, _k(0.212671), g, _k(0.715160), b, _k(0.072169))
     zs = _mix3(r, _k(0.019334), g, _k(0.119193), b, _k(0.950227))
-    cy = _cbrt(y)
-    above = y > _LAB_EPS
-    L = torch.where(above, _fma(cy, 116.0, -16.0), y * _k(903.3))
-    fy = torch.where(above, cy, _fma(y, _k(7.787), _LAB_K))
-    fx = _lab_f(xs * _inv(_LAB_XN), xs, _k(7.787, _inv(_LAB_XN)))
-    fz = _lab_f(zs * _inv(_LAB_ZN), zs, _k(7.787, _inv(_LAB_ZN)))
+    # one cube root over the three channels: f(t) of CIELAB for t = X/Xn, Y,
+    # Z/Zn, the cube root above the knee, else 7.787*t + 16/116 (7.787/white
+    # folded into the slope of X and Z, which enter unscaled)
+    t = torch.stack([xs * _inv(_LAB_XN), y, zs * _inv(_LAB_ZN)])
+    above = t > _LAB_EPS
+    cb = _cbrt(t)
+    fx = torch.where(above[0], cb[0], _fma(xs, _k(7.787, _inv(_LAB_XN)), _LAB_K))
+    fy = torch.where(above[1], cb[1], _fma(y, _k(7.787), _LAB_K))
+    fz = torch.where(above[2], cb[2], _fma(zs, _k(7.787, _inv(_LAB_ZN)), _LAB_K))
+    L = torch.where(above[1], _fma(cb[1], 116.0, -16.0), y * _k(903.3))
     a = _fma(fx - fy, 500.0, 128.0)
     bb = _fma(fy - fz, 200.0, 128.0)
     return torch.stack([_q_u8(L * _k(255.0, _inv(100.0))), _q_u8(a), _q_u8(bb)], dim=-1)
@@ -155,7 +149,7 @@ def rgb_to_lab_u8(rgb_u8: torch.Tensor) -> torch.Tensor:
 def _linear_to_srgb_u8(c: torch.Tensor) -> torch.Tensor:
     c = torch.clamp(c, 0.0, 1.0)
     s = torch.where(c <= _k(0.0031308), c * _k(12.92),
-                    _fma(_powf(c, 1.0 / 2.4), _k(1.055), -_k(0.055)))
+                    _fma(powf(c, 1.0 / 2.4), _k(1.055), -_k(0.055)))
     return _q_u8(s * 255.0)
 
 
@@ -180,5 +174,4 @@ def lab_to_rgb_u8(lab_u8: torch.Tensor) -> torch.Tensor:
     # a negative leading constant makes LLVM contract the other product
     g = _fma(z, _k(0.041556, _LAB_ZN), _fma(y, ky[1], x * _k(-0.969256, _LAB_XN)))
     b = _fma(z, _k(1.057311, _LAB_ZN), _fma(x, _k(0.055648, _LAB_XN), -(y * ky[2])))
-    return torch.stack([_linear_to_srgb_u8(r), _linear_to_srgb_u8(g),
-                        _linear_to_srgb_u8(b)], dim=-1)
+    return _linear_to_srgb_u8(torch.stack([r, g, b], dim=-1))

@@ -60,6 +60,26 @@ def test_plain_clahe_equals_numpy_oracle(shape):
         np.testing.assert_array_equal(got[i], JC.clahe_u8_numpy(img))
 
 
+def _edge_planes():
+    """The planes the Hopper LUT kernel is sensitive to: constant ones (one
+    bin holds the whole tile: every atomic on one bin, the largest clip excess and
+    residual) at 160x160, and (40, 56) planes whose 7-pixel tile rows cannot
+    be read as 32-bit words."""
+    const = np.stack([np.full((160, 160), v, np.uint8) for v in (0, 77, 128, 255)])
+    narrow = np.concatenate([_faces(2, 40, 56, seed=8), np.full((1, 40, 56), 200, np.uint8)])
+    return const, narrow
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_plain_luts_and_clahe_on_edge_planes(which):
+    imgs = _edge_planes()[which]
+    luts = TC.clahe_luts_batch(torch.from_numpy(imgs)).numpy()
+    out = TC.clahe_u8_batch(torch.from_numpy(imgs)).numpy()
+    for i, img in enumerate(imgs):
+        np.testing.assert_array_equal(luts[i], _tile_luts(img))
+        np.testing.assert_array_equal(out[i], JC.clahe_u8_numpy(img))
+
+
 def test_axis_fracs_are_the_jax_quadrant_fracs():
     ya, xa = JC._quadrant_fracs(160, 128, 8)
     fy, fx = TC.axis_fracs(160, 20), TC.axis_fracs(128, 16)
@@ -134,3 +154,15 @@ def test_cuda_kernels_equal_plain_versions():
     assert torch.equal(out, TC.clahe_apply_batch(imgs, luts))
     want = np.stack([JC.clahe_u8_numpy(i) for i in imgs.cpu().numpy()])
     np.testing.assert_array_equal(out.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", [0, 1])
+def test_cuda_luts_on_edge_planes(which):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (chip_smoke.py runs these checks on the card)")
+    imgs = torch.from_numpy(_edge_planes()[which]).cuda()
+    luts = KC.clahe_luts(imgs)
+    assert torch.equal(luts, TC.clahe_luts_batch(imgs))
+    want = np.stack([JC.clahe_u8_numpy(i) for i in imgs.cpu().numpy()])
+    np.testing.assert_array_equal(KC.clahe_apply(imgs, luts).cpu().numpy(), want)

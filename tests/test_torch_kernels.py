@@ -50,6 +50,24 @@ def test_preprocess_plain_matches_pallas_and_aligned(shape):
                                ref, rtol=0, atol=1e-5)
 
 
+# The shapes the Hopper kernel's layout is sensitive to: source rows of 384
+# B (u8) and 1,536 B (f32) staged with 16-byte copies, rows of 210 and 840 B
+# staged element by element, and an output row of 675 floats (no float4)
+_EDGE_FACES = [((2, 96, 128, 3), 224), ((3, 50, 70, 3), 224), ((2, 40, 56, 3), 225)]
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+@pytest.mark.parametrize("shape,out_size", _EDGE_FACES)
+def test_preprocess_plain_edge_shapes_match_pallas(shape, out_size, dtype):
+    faces = (rng.random(shape, dtype=np.float32) * 256).astype(dtype)
+    pallas = np.asarray(preprocess_faces_pallas(jnp.asarray(faces), out_size, interpret=True))
+    ref = np.stack([np.asarray(j_preprocess_aligned(jnp.asarray(f), out_size)) for f in faces])
+    got = preproc.preprocess_faces_plain(torch.from_numpy(faces), out_size).numpy()
+    assert got.shape == (shape[0], out_size, out_size, 3)
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
+
+
 def test_preprocess_u8_input_same_values():
     faces = rng.integers(0, 256, (2, 160, 160, 3), dtype=np.uint8)
     a = preproc.preprocess_faces(torch.from_numpy(faces)).numpy()
@@ -126,3 +144,15 @@ def test_cuda_kernels_match_plain_versions():
     hues = torch.from_numpy(_hue_frames()).cuda()
     assert torch.equal(color_stats.unique_hue_count(hues),
                        color_stats.unique_hue_count_plain(hues))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+@pytest.mark.parametrize("shape,out_size", _EDGE_FACES)
+def test_cuda_preprocess_edge_shapes(shape, out_size, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (chip_smoke.py runs these checks on the card)")
+    faces = torch.from_numpy((rng.random(shape, dtype=np.float32) * 256).astype(dtype)).cuda()
+    got = preproc.preprocess_faces(faces, out_size)
+    want = preproc.preprocess_faces_plain(faces, out_size)
+    assert float((got - want).abs().max()) <= 1e-4

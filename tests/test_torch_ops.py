@@ -1,8 +1,7 @@
 """Port parity: the cv2-exact image ops of
 real_time_video_deepfake_detection_tpu_torch.ops against the JAX package's,
-bit for bit, on the same numpy inputs. The Lab pair is held to the JAX jnp
-rung within one u8 step on a small share of pixels: its pow/cbrt come from
-another math library than XLA's (ROADMAP.md Queue 3)."""
+bit for bit, on the same numpy inputs, the Lab pair included (its powers
+and cube root are glibc's powf, emulated in ops/powf.py)."""
 
 import numpy as np
 import jax
@@ -43,31 +42,26 @@ def test_color_conversions_bit_exact(fn):
     np.testing.assert_array_equal(got, want)
 
 
-# The only triples where rgb_to_lab_u8 differs from the jitted JAX function:
-# glibc's powf (which XLA calls for the cube root) is not correctly rounded,
-# and the port's float64 cube root rounds to the other f32 there.
-_LAB_POWF_TRIPLES = {(2, 145, 95), (184, 44, 194)}
-
-
 def test_lab_round_trip_close_to_jnp_rung():
     """Both conversions over the whole RGB cube (every u8 triple, also read
     as a Lab triple) against the JITTED JAX functions, the form the serving
-    tick runs: lab_to_rgb_u8 exactly, rgb_to_lab_u8 exactly but for the two
-    powf triples, where one channel is one step off."""
+    tick runs: no triple differs in either direction. Torch runs on one
+    thread (as in test_torch_powf's full-range test)."""
     fwd, inv = jax.jit(JCol.rgb_to_lab_u8), jax.jit(JCol.lab_to_rgb_u8)
     chunk = 1 << 20
-    off = []
-    for s in range(0, 1 << 24, chunk):
-        i = np.arange(s, s + chunk)
-        x = np.stack([i >> 16, (i >> 8) & 255, i & 255], -1).astype(np.uint8)
-        np.testing.assert_array_equal(TCol.lab_to_rgb_u8(torch.from_numpy(x)).numpy(),
-                                      np.asarray(inv(x)))
-        want = np.asarray(fwd(x))
-        got = TCol.rgb_to_lab_u8(torch.from_numpy(x)).numpy()
-        bad = (got != want).any(-1)
-        assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
-        off += [tuple(t) for t in x[bad].tolist()]
-    assert set(off) == _LAB_POWF_TRIPLES and len(off) == 2
+    off_fwd = off_inv = 0
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for s in range(0, 1 << 24, chunk):
+            i = np.arange(s, s + chunk)
+            x = np.stack([i >> 16, (i >> 8) & 255, i & 255], -1).astype(np.uint8)
+            t = torch.from_numpy(x)
+            off_inv += int((TCol.lab_to_rgb_u8(t).numpy() != np.asarray(inv(x))).any(-1).sum())
+            off_fwd += int((TCol.rgb_to_lab_u8(t).numpy() != np.asarray(fwd(x))).any(-1).sum())
+    finally:
+        torch.set_num_threads(threads)
+    assert (off_fwd, off_inv) == (0, 0)
 
 
 def test_srgb_linear_table_is_the_jitted_jax_function():
