@@ -10,8 +10,10 @@ in phases, each printing one JSON line:
               and matmuls
   2. build    nvcc builds the package's CUDA kernels (csrc/*.cu, sm_90a)
   3. kernels  each kernel against its plain torch version at main-path
-              shapes and at the edge inputs of the redesigned two (odd
-              widths, constant planes), timed with CUDA events (and its
+              shapes and at the edge inputs its layout is sensitive to
+              (odd widths and tile sizes, constant planes, bases at odd
+              byte offsets, B = 1 and 200, random CLAHE LUTs), each call
+              one launch, timed with CUDA events (and its
               device time from torch.profiler, and the host time of its
               wrapper) beside its bound, the plain version and (where one
               exists) a PyTorch library call; the CLAHE kernels also
@@ -237,7 +239,16 @@ def phase_build(ctx):
             "library": os.path.relpath(lib._name, REPO)}
 
 
+def odd_offset(x):
+    """A copy of `x` whose data starts one element into its buffer: for u8,
+    a base at an odd byte offset."""
+    import torch
+    buf = torch.empty(1 + x.numel(), dtype=x.dtype, device=x.device)
+    return buf[1:].view(x.shape).copy_(x)
+
+
 def phase_kernels(ctx):
+    import numpy as np
     import torch
     import torch.nn.functional as F
     from real_time_video_deepfake_detection_tpu_torch.kernels import color_stats, preproc
@@ -297,21 +308,41 @@ def phase_kernels(ctx):
         "library_device_ms": profile_device(library, 20)[1],
     }
 
-    # unique_hue_count: random hues plus the edge frames
+    # unique_hue_count: random hues at a full tick, then the inputs the
+    # cluster layout is sensitive to: B = 1; hw not a multiple of 16; hw
+    # below one block's share; a base at an odd byte offset (head, body and
+    # tail of each frame at other offsets); values 180..255 (count 1); and
+    # more clusters than SMs
     hues = torch.randint(0, 180, (64, 256, 256), generator=g, device=dev,
                          dtype=torch.uint8)
     every = torch.arange(256 * 256, device=dev).remainder(180).to(torch.uint8)
     edge = torch.stack([torch.full((256, 256), 77, dtype=torch.uint8, device=dev),
                         every.view(256, 256),
                         torch.zeros((256, 256), dtype=torch.uint8, device=dev)])
-    for x, expect in ((hues, None), (edge, [1.0, 180.0, 1.0])):
+    high = (torch.arange(2 * 128 * 152, device=dev).remainder(76) + 180).to(torch.uint8)
+
+    def rand_hues(shape, hi=256):
+        return torch.randint(0, hi, shape, generator=g, device=dev, dtype=torch.uint8)
+
+    hue_cases = [("main", hues, None), ("edge", edge, [1.0, 180.0, 1.0]),
+                 ("b1", hues[:1].clone(), None), ("hw3500", rand_hues((3, 50, 70)), None),
+                 ("hw20", rand_hues((2, 4, 5)), None),
+                 ("odd_offset", odd_offset(rand_hues((3, 50, 70))), None),
+                 ("odd_offset", odd_offset(rand_hues((2, 256, 256), 180)), None),
+                 ("180_255", high.view(2, 128, 152), [1.0, 1.0]),
+                 ("b200", rand_hues((200, 256, 256), 200), None)]
+    for label, x, expect in hue_cases:
+        n0 = color_stats.launches
         got = color_stats.unique_hue_count(x)
+        if color_stats.launches != n0 + 1:
+            raise AssertionError(f"unique_hue_count counted {color_stats.launches - n0} launches")
         want = color_stats.unique_hue_count_plain(x)
-        host = [float(len(torch.unique(f))) for f in x.cpu()[:4]]
+        host = [float((np.unique(f) < 181).sum()) for f in x[:4].cpu().numpy()]
         if not torch.equal(got, want) or got[:4].cpu().tolist() != host:
-            raise AssertionError(f"unique_hue_count mismatch: {got[:4]} {want[:4]} {host}")
+            raise AssertionError(f"unique_hue_count mismatch on {label} {tuple(x.shape)}: "
+                                 f"{got[:4]} {want[:4]} {host}")
         if expect is not None and got.cpu().tolist() != expect:
-            raise AssertionError(f"edge frames counted {got.tolist()}, want {expect}")
+            raise AssertionError(f"{label} frames counted {got.tolist()}, want {expect}")
     b_ms, b_by = bound_ms(hues.numel() + 4 * 64, 10 * hues.numel(), peaks)
     kernel = functools.partial(color_stats.unique_hue_count, hues)
     plain = functools.partial(color_stats.unique_hue_count_plain, hues)
@@ -320,6 +351,7 @@ def phase_kernels(ctx):
         "source": f"{PKG}/csrc/color_stats.cu",
         "replaces": "real_time_video_deepfake_detection_tpu/kernels/color_stats.py:45",
         "shape": [64, 256, 256], "dtype": "uint8", "max_abs_err": 0.0,
+        "inputs_checked": [[label] + list(x.shape) for label, x, _ in hue_cases],
         "ms": time_cuda(kernel), "host_us": host_us(kernel), "plain_ms": time_cuda(plain),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "device_ms": profile_device(kernel, 20)[1],
@@ -331,7 +363,7 @@ def phase_kernels(ctx):
                                          "bound_ms", "library_ms", "device_ms",
                                          "plain_device_ms", "library_device_ms",
                                          "max_diff_from_numpy_oracle", "inputs_checked",
-                                         "edge_planes_checked")}
+                                         "edge_planes_checked", "random_luts_checked")}
             for k, v in res.items()}
 
 
@@ -350,10 +382,13 @@ def _face_planes(n: int, seed: int):
 
 
 def _edge_planes():
-    """The planes the LUT kernel is sensitive to, as numpy: constant 160x160
-    planes (one bin holds the whole tile: every atomic on one bin, the largest clip
-    excess and residual) and (40, 56) planes, whose 7-pixel tile rows are
-    read byte by byte."""
+    """The planes the two kernels are sensitive to, as numpy: constant
+    160x160 planes (one bin holds the whole tile: every atomic on one bin,
+    the largest clip excess and residual); (40, 56) planes, whose 7-pixel
+    tile rows are read byte by byte and whose tiles are 5 rows high; (24,
+    200) planes, tiles 3 rows high and 25 wide; one 160x160 face (B = 1);
+    and (16, 2056) planes, rows of more 4-pixel columns than a block of
+    clahe_apply has threads."""
     import numpy as np
     r = np.random.default_rng(SEED + 4)
     const = np.stack([np.full((160, 160), v, np.uint8) for v in (0, 77, 128, 255)])
@@ -362,29 +397,61 @@ def _edge_planes():
                      + r.normal(0, 4, (40, 56)), 0, 255).astype(np.uint8)
     narrow = np.stack([r.integers(0, 256, (40, 56), dtype=np.uint8), smooth,
                        np.full((40, 56), 200, np.uint8)])
-    return const, narrow
+    yy, xx = np.mgrid[:24, :200]
+    wide = np.stack([r.integers(0, 256, (24, 200), dtype=np.uint8),
+                     np.clip(50 + 4 * yy + xx // 2 + r.normal(0, 5, (24, 200)), 0,
+                             255).astype(np.uint8)])
+    long_rows = r.integers(0, 256, (2, 16, 2056), dtype=np.uint8)
+    return const, narrow, wide, _face_planes(2, SEED + 6)[1:], long_rows
 
 
 def _clahe_kernels(peaks):
     """clahe_luts and clahe_apply at a full tick's faces, (64, 160, 160) u8,
-    and clahe_luts on the edge planes: LUTs and outputs exactly equal to the
-    plain versions, LUTs equal to the oracle's per-tile _lut_for_tile on the
-    edge planes, and every output equal to the numpy oracle on the CPU."""
+    and on the edge planes, each set also at a base at an odd byte offset:
+    LUTs and outputs exactly equal to the plain versions, LUTs equal to the
+    oracle's per-tile _lut_for_tile on the edge planes, and every output
+    equal to the numpy oracle on the CPU. clahe_apply also takes random f32
+    LUTs that do not come from clahe_luts (integer-valued and fractional,
+    some outside 0..255; beside odd-offset planes, LUTs whose base is not
+    16-byte aligned), exactly equal to its plain version."""
     import numpy as np
     import torch
     from real_time_video_deepfake_detection_tpu_torch.kernels import clahe
     from real_time_video_deepfake_detection_tpu_torch.ops.clahe import (
         _lut_for_tile, clahe_apply_batch, clahe_luts_batch, clahe_u8_numpy, clip_count)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
     oracle_diff = 0
+    checked, random_luts = [], []
     for k, planes in enumerate((_face_planes(64, SEED + 3),) + _edge_planes()):
-        x = torch.from_numpy(planes).cuda()
-        luts = clahe.clahe_luts(x)
-        out = clahe.clahe_apply(x, luts)
-        torch.cuda.synchronize()
-        if not torch.equal(luts, clahe_luts_batch(x)):
-            raise AssertionError(f"clahe_luts differs from its plain version on set {k}")
-        if not torch.equal(out, clahe_apply_batch(x, luts)):
-            raise AssertionError(f"clahe_apply differs from its plain version on set {k}")
+        oracle = np.stack([clahe_u8_numpy(p) for p in planes])
+        for base in ("aligned", "odd_offset"):
+            x = torch.from_numpy(planes).cuda()
+            if base == "odd_offset":
+                x = odd_offset(x)
+            n0 = dict(clahe.launches)
+            luts = clahe.clahe_luts(x)
+            out = clahe.clahe_apply(x, luts)
+            if clahe.launches != {kk: v + 1 for kk, v in n0.items()}:
+                raise AssertionError(f"CLAHE launches {n0} -> {clahe.launches}")
+            torch.cuda.synchronize()
+            if not torch.equal(luts, clahe_luts_batch(x)):
+                raise AssertionError(f"clahe_luts differs from its plain version on set {k} {base}")
+            if not torch.equal(out, clahe_apply_batch(x, luts)):
+                raise AssertionError(f"clahe_apply differs from its plain version on set {k} {base}")
+            oracle_diff = max(oracle_diff, int(np.abs(out.cpu().numpy().astype(int)
+                                                      - oracle.astype(int)).max()))
+            checked.append(list(planes.shape) + [base])
+            if k in (0, 3):   # LUTs that do not come from clahe_luts
+                for frac in (False, True):
+                    r = torch.rand(luts.shape, generator=g, device="cuda") * 288 - 16
+                    r = r if frac else r.round()
+                    if base == "odd_offset":
+                        r = odd_offset(r)
+                    if not torch.equal(clahe.clahe_apply(x, r), clahe_apply_batch(x, r)):
+                        raise AssertionError(f"clahe_apply differs from its plain version on "
+                                             f"random LUTs, set {k} {base} fractional={frac}")
+                    random_luts.append(list(planes.shape) + [base, "fractional" if frac
+                                                             else "integer"])
         if k > 0:
             th, tw = planes.shape[1] // 8, planes.shape[2] // 8
             got = luts.cpu().numpy()
@@ -395,9 +462,6 @@ def _clahe_kernels(peaks):
                                          clip_count(2.0, th * tw), th * tw)
                     if not np.array_equal(got[i, t], want):
                         raise AssertionError(f"clahe_luts differs from _lut_for_tile: set {k}")
-        oracle = np.stack([clahe_u8_numpy(p) for p in planes])
-        oracle_diff = max(oracle_diff, int(np.abs(out.cpu().numpy().astype(int)
-                                                  - oracle.astype(int)).max()))
     if oracle_diff != 0:
         raise AssertionError(f"CLAHE differs from clahe_u8_numpy by {oracle_diff}")
     x = torch.from_numpy(_face_planes(64, SEED + 3)).cuda()
@@ -420,7 +484,8 @@ def _clahe_kernels(peaks):
                          "real_time_video_deepfake_detection_tpu/kernels/clahe.py:165"),
             "shape": [64, 160, 160], "dtype": "uint8", "max_abs_err": 0.0,
             "max_diff_from_numpy_oracle": oracle_diff,
-            "edge_planes_checked": [[4, 160, 160], [3, 40, 56]],
+            "edge_planes_checked": checked,
+            "random_luts_checked": random_luts if name == "clahe_apply" else None,
             "ms": time_cuda(kernel), "host_us": host_us(kernel), "plain_ms": time_cuda(plain),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "device_ms": profile_device(kernel, 20)[1],

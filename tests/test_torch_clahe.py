@@ -80,6 +80,51 @@ def test_plain_luts_and_clahe_on_edge_planes(which):
         np.testing.assert_array_equal(out[i], JC.clahe_u8_numpy(img))
 
 
+def test_plain_clahe_short_wide_tiles_equals_numpy_oracle():
+    """(2, 24, 200): tiles 3 rows high and 25 wide, the odd tile sizes at
+    which the Hopper apply kernel's band of rows spans its tile rows."""
+    imgs = torch.from_numpy(_faces(2, 24, 200, seed=9))
+    got = TC.clahe_apply_batch(imgs, TC.clahe_luts_batch(imgs)).numpy()
+    for i, img in enumerate(imgs.numpy()):
+        np.testing.assert_array_equal(got[i], JC.clahe_u8_numpy(img))
+
+
+def _apply_numpy(img, lut, tiles=8):
+    """clahe_u8_numpy's blend of (tiles², 256) LUTs, in numpy f32 with every
+    operation rounded on its own, for any f32 LUT."""
+    def axis(n, t):
+        f = (np.arange(n, dtype=np.float32) * np.float32(1.0 / t)
+             - np.float32(0.5)).astype(np.float32)
+        lo = np.floor(f)
+        return (np.clip(lo, 0, tiles - 1).astype(int), np.clip(lo + 1, 0, tiles - 1).astype(int),
+                (f - lo).astype(np.float32))
+    (y1, y2, ya), (x1, x2, xa) = axis(img.shape[0], img.shape[0] // tiles), axis(
+        img.shape[1], img.shape[1] // tiles)
+    cell = lut.reshape(tiles, tiles, 256)
+    v = img.astype(int)
+    ixa, iya = np.float32(1) - xa, (np.float32(1) - ya)[:, None]
+    top = cell[y1[:, None], x1[None], v] * ixa + cell[y1[:, None], x2[None], v] * xa
+    bot = cell[y2[:, None], x1[None], v] * ixa + cell[y2[:, None], x2[None], v] * xa
+    return np.clip(np.rint(top * iya + bot * ya[:, None]), 0, 255).astype(np.uint8)
+
+
+def _random_luts(n, fractional, seed):
+    """(n, 64, 256) f32 LUTs that do not come from clahe_luts, some entries
+    outside 0..255."""
+    luts = np.random.default_rng(seed).uniform(-16, 272, (n, 64, 256)).astype(np.float32)
+    return luts if fractional else np.round(luts)
+
+
+@pytest.mark.parametrize("fractional", [False, True])
+@pytest.mark.parametrize("shape", [(160, 160), (24, 200)])
+def test_plain_apply_takes_any_f32_lut(shape, fractional):
+    imgs = _faces(3, *shape, seed=10)
+    luts = _random_luts(len(imgs), fractional, seed=12)
+    got = TC.clahe_apply_batch(torch.from_numpy(imgs), torch.from_numpy(luts)).numpy()
+    for i, img in enumerate(imgs):
+        np.testing.assert_array_equal(got[i], _apply_numpy(img, luts[i]))
+
+
 def test_axis_fracs_are_the_jax_quadrant_fracs():
     ya, xa = JC._quadrant_fracs(160, 128, 8)
     fy, fx = TC.axis_fracs(160, 20), TC.axis_fracs(128, 16)
@@ -154,6 +199,44 @@ def test_cuda_kernels_equal_plain_versions():
     assert torch.equal(out, TC.clahe_apply_batch(imgs, luts))
     want = np.stack([JC.clahe_u8_numpy(i) for i in imgs.cpu().numpy()])
     np.testing.assert_array_equal(out.cpu().numpy(), want)
+
+
+def _odd_base(x):
+    """A copy of CUDA u8 planes whose base lies at an odd byte offset."""
+    return torch.empty(1 + x.numel(), dtype=x.dtype, device=x.device)[1:].view(x.shape).copy_(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("odd_base", [False, True])
+@pytest.mark.parametrize("shape", [(2, 24, 200), (1, 160, 160), (3, 40, 56), (2, 16, 2056)])
+def test_cuda_clahe_on_edge_shapes(shape, odd_base):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (chip_smoke.py runs these checks on the card)")
+    imgs = torch.from_numpy(_faces(*shape, seed=13)).cuda()
+    if odd_base:
+        imgs = _odd_base(imgs)
+    n0 = dict(KC.launches)
+    luts = KC.clahe_luts(imgs)
+    out = KC.clahe_apply(imgs, luts)
+    assert KC.launches == {k: v + 1 for k, v in n0.items()}
+    assert torch.equal(luts, TC.clahe_luts_batch(imgs))
+    assert torch.equal(out, TC.clahe_apply_batch(imgs, luts))
+    want = np.stack([JC.clahe_u8_numpy(i) for i in imgs.cpu().numpy()])
+    np.testing.assert_array_equal(out.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fractional", [False, True])
+@pytest.mark.parametrize("shape", [(160, 160), (24, 200)])
+def test_cuda_apply_takes_any_f32_lut(shape, fractional):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (chip_smoke.py runs these checks on the card)")
+    imgs = torch.from_numpy(_faces(3, *shape, seed=10)).cuda()
+    luts = torch.from_numpy(_random_luts(3, fractional, seed=12)).cuda()
+    assert torch.equal(KC.clahe_apply(imgs, luts), TC.clahe_apply_batch(imgs, luts))
+    # a LUT base that is not 16-byte aligned
+    odd = torch.empty(1 + luts.numel(), device="cuda")[1:].view(luts.shape).copy_(luts)
+    assert torch.equal(KC.clahe_apply(imgs, odd), TC.clahe_apply_batch(imgs, odd))
 
 
 @pytest.mark.cuda

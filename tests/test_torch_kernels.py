@@ -85,6 +85,31 @@ def test_unique_hue_plain_matches_pallas_and_numpy():
     assert got[-4:].tolist() == [7.0, 1.0, 180.0, 1.0]
 
 
+# The inputs the Hopper kernel's cluster layout is sensitive to: hw not a
+# multiple of 16, hw below one block's share, one frame, and values
+# 180..255 (only 180 counts)
+_HUE_EDGE = {"3x50x70": (3, 50, 70), "2x4x5": (2, 4, 5), "1x256x256": (1, 256, 256),
+             "180_255": (2, 76, 76)}
+
+
+def _hue_edge_frames(case):
+    shape = _HUE_EDGE[case]
+    if case == "180_255":
+        return (np.arange(np.prod(shape)) % 76 + 180).astype(np.uint8).reshape(shape)
+    return rng.integers(0, 256, shape, dtype=np.uint8)
+
+
+@pytest.mark.parametrize("case", list(_HUE_EDGE))
+def test_unique_hue_plain_edge_shapes_match_pallas_and_numpy(case):
+    hues = _hue_edge_frames(case)
+    pallas = np.asarray(unique_hue_count_pallas(jnp.asarray(hues), interpret=True))
+    got = color_stats.unique_hue_count_plain(torch.from_numpy(hues)).numpy()
+    np.testing.assert_array_equal(got, pallas)
+    np.testing.assert_array_equal(got, [(np.unique(h) < 181).sum() for h in hues])
+    if case == "180_255":
+        assert got.tolist() == [1.0, 1.0]
+
+
 def test_color_scores_batch_matches_jax():
     frames = np.concatenate([
         rng.integers(0, 256, (2, 256, 256, 3), dtype=np.uint8),
@@ -144,6 +169,24 @@ def test_cuda_kernels_match_plain_versions():
     hues = torch.from_numpy(_hue_frames()).cuda()
     assert torch.equal(color_stats.unique_hue_count(hues),
                        color_stats.unique_hue_count_plain(hues))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("odd_base", [False, True])
+@pytest.mark.parametrize("case", list(_HUE_EDGE))
+def test_cuda_unique_hue_edge_shapes(case, odd_base):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (chip_smoke.py runs these checks on the card)")
+    hues = torch.from_numpy(_hue_edge_frames(case)).cuda()
+    if odd_base:   # a base at an odd byte offset
+        hues = torch.empty(1 + hues.numel(), dtype=torch.uint8,
+                           device="cuda")[1:].view(hues.shape).copy_(hues)
+    n0 = color_stats.launches
+    got = color_stats.unique_hue_count(hues)
+    assert color_stats.launches == n0 + 1
+    assert torch.equal(got, color_stats.unique_hue_count_plain(hues))
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  [(np.unique(h) < 181).sum() for h in hues.cpu().numpy()])
 
 
 @pytest.mark.cuda
