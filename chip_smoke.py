@@ -37,8 +37,26 @@ in phases, each printing one JSON line:
               on the CPU; the count of Lab and CLAHE'd face pixels that
               differ between the two; the Lab pair's time; the tick's time
               and a profiler window
+  8. decode   every JPEG fixture of tests/data/torch_jpeg through the
+              port's decoder (entropy decode on the host, reconstruction on
+              the host CPU) against the sha256 of cv2.imdecode's output, the
+              reconstruction on the card byte for byte against the CPU's,
+              progressive and truncated streams refused; the entropy and
+              reconstruction times of the extension's 720x405 frame and the
+              pooled decode of 16
+  9. http     two servers on 127.0.0.1, driven with multipart POSTs of the
+              720x405 fixtures: (a) the single-stream app over
+              DeepfakeDetector (full-size B0): /health, 12 /analyze 150 ms
+              apart, a 429 probe, /stats, /reset, 400s for refused images,
+              then its steps' times on one thread, in a new thread each,
+              and the app's /analyze without the socket;
+              (b) the batched app over the device-detect engine (as in
+              detect-serve): 16 client threads with X-Stream-Id, 12 frames
+              each; every kernel launched in every tick, and stream 0's
+              responses equal to a second engine's fed the decoded frames
+              through analyze (floats within 1e-6)
 
-then a `{"kernels": [...]}` line and, last, `{"ok": true, "device": ...}`.
+then a `{"kernels": [...]}` line (launches: the http phase's batched run) and, last, `{"ok": true, "device": ...}`.
 Any failed phase makes it exit non-zero without the last line. It needs a
 CUDA device and the repository checkout around it.
 
@@ -981,10 +999,417 @@ def phase_detect_parity(ctx):
                               "device_activities": activities, "top": top}}
 
 
+# ------------------------------------------------------------ decode, http
+
+JPEG_DIR = os.path.join(REPO, "tests", "data", "torch_jpeg")
+FRAME_JPEG = "frame_720x405_q85_420.jpg"   # the extension's 16:9 capture
+# the fixtures that hold the extension's 720x405 frame, the HTTP phase's traffic
+HTTP_JPEGS = (FRAME_JPEG, "q50_720x405_420.jpg", "q95_720x405_420.jpg")
+
+
+def _jpegs():
+    """{name: bytes} of the committed fixtures and their digests.json entries."""
+    with open(os.path.join(JPEG_DIR, "digests.json")) as fh:
+        digests = json.load(fh)["files"]
+    data = {}
+    for name in digests:
+        with open(os.path.join(JPEG_DIR, name), "rb") as fh:
+            data[name] = fh.read()
+    return data, digests
+
+
+def phase_decode(ctx):
+    """Every fixture through the entropy decoder and the reconstruction on
+    the host CPU, against the committed sha256 of cv2.imdecode's output;
+    the same reconstruction on the card, byte for byte; and the decode's
+    times for the 720x405 frame."""
+    import hashlib
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.ops.resize import resize_bilinear_u8_cv2
+    from real_time_video_deepfake_detection_tpu_torch.utils import jpeg_ingest as J
+    data, digests = _jpegs()
+    t0 = time.perf_counter()
+    J.library()
+    build_s = time.perf_counter() - t0
+    problems, checked = [], 0
+    for name, entry in sorted(digests.items()):
+        cpu = J.decode_jpeg(data[name])
+        if not entry["port_decodes"]:
+            if cpu is not None:
+                problems.append(f"{name}: decoded, must be refused")
+            continue
+        if cpu is None or hashlib.sha256(cpu.tobytes()).hexdigest() != entry["sha256"]:
+            problems.append(f"{name}: differs from cv2.imdecode's digest")
+            continue
+        gpu = J.reconstruct([J.decode_coefs(data[name])], "cuda")[0].cpu().numpy()
+        if not (gpu == cpu).all():
+            problems.append(f"{name}: {int((gpu != cpu).sum())} bytes differ on the card")
+        checked += 1
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+    frame = data[FRAME_JPEG]
+    jc = J.decode_coefs(frame)
+
+    def host_ms(fn, n=30):
+        fn()
+        ts = []
+        for _ in range(n):
+            t = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(ts)
+
+    batch16 = [frame] * 16
+    group16 = J.decode_coefs_batch(batch16)
+    rec1 = functools.partial(J.reconstruct, [jc], "cuda")
+    rec16 = functools.partial(J.reconstruct, group16, "cuda")
+
+    def rec16_conform():
+        resize_bilinear_u8_cv2(J.reconstruct(group16, "cuda"), 480, 640)
+
+    dev = {}
+    for k, fn in (("reconstruct_1", rec1), ("reconstruct_16", rec16),
+                  ("reconstruct_16_conform_480x640", rec16_conform)):
+        _, busy, acts, top = profile_device(fn, 10)
+        dev[k] = {"event_ms": time_cuda(fn, n=20), "device_ms": busy,
+                  "device_activities": acts, "top": top[:4]}
+    return {"fixtures_checked_cpu_and_card": checked,
+            "refused_as_required": sorted(n for n, e in digests.items() if not e["port_decodes"]),
+            "g++_build_and_load_s": build_s, "cpu_threads": torch.get_num_threads(),
+            "frame": FRAME_JPEG,
+            "entropy_ms_one_frame": host_ms(lambda: J.decode_coefs(frame)),
+            "reconstruct_cpu_ms_one_frame": host_ms(lambda: J.reconstruct([jc], "cpu"), n=10),
+            "decode_jpeg_cpu_ms_one_frame": host_ms(lambda: J.decode_jpeg(frame), n=10),
+            "pooled_entropy_ms_16_frames": host_ms(lambda: J.decode_coefs_batch(batch16)),
+            "pooled_entropy_ms_16_frames_one_thread":
+                host_ms(lambda: J.decode_coefs_batch(batch16, n_threads=1), n=10),
+            "on_card": dev}
+
+
+def _client():
+    """urllib with proxies off: every request of this script goes to
+    127.0.0.1."""
+    import urllib.request
+    return urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+
+def _http(opener, url, jpeg=None, sid=None, post=False):
+    """(status, JSON body, seconds) of one request; a JPEG goes as the
+    multipart field `frame`, `sid` as the X-Stream-Id header."""
+    import urllib.error
+    import urllib.request
+    headers, body = {}, None
+    if jpeg is not None or post:
+        b = "chipsmoke0417"
+        body = b""
+        if jpeg is not None:
+            body += (f'--{b}\r\nContent-Disposition: form-data; name="frame"; '
+                     f'filename="frame.jpg"\r\nContent-Type: image/jpeg\r\n\r\n').encode()
+            body += jpeg + b"\r\n"
+        body += f"--{b}--\r\n".encode()
+        headers["Content-Type"] = f"multipart/form-data; boundary={b}"
+    if sid is not None:
+        headers["X-Stream-Id"] = sid
+    req = urllib.request.Request(url, data=body, headers=headers,
+                                 method="POST" if body is not None else "GET")
+    t0 = time.perf_counter()
+    try:
+        with opener.open(req, timeout=120) as r:
+            status, raw = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, raw = e.code, e.read()
+    return status, json.loads(raw), time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _serving(app):
+    """`app` in the port's ThreadingWSGIServer on 127.0.0.1, a free port;
+    yields the base URL and stops the server after."""
+    from wsgiref.simple_server import WSGIRequestHandler
+    from real_time_video_deepfake_detection_tpu_torch.serving.server import make_server
+
+    class Quiet(WSGIRequestHandler):
+        def log_message(self, *args):
+            pass
+
+    httpd = make_server("127.0.0.1", 0, app, handler_class=Quiet)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    try:
+        yield f"http://127.0.0.1:{httpd.server_port}"
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=30)
+
+
+def _single_stream_http(ctx, data):
+    """(a) create_app over DeepfakeDetector on the card, full-size B0."""
+    from real_time_video_deepfake_detection_tpu_torch.core.config import (
+        DetectorConfig, ServerConfig)
+    from real_time_video_deepfake_detection_tpu_torch.pipeline.detector import DeepfakeDetector
+    from real_time_video_deepfake_detection_tpu_torch.serving.server import create_app
+    det = DeepfakeDetector(DetectorConfig().with_threshold(0.55), params=b0_state(ctx),
+                           device="cuda")
+    app = create_app(det, ServerConfig(min_request_interval=0.1))
+    op, problems, lat, responses = _client(), [], [], []
+    interval = 0.15   # over the 100 ms limit with room for the server's accept
+    with _serving(app) as url:
+        st, health, _ = _http(op, url + "/health")
+        if st != 200 or health.get("gpu_name") != ctx["name"] or health["device"] != "cuda:0":
+            problems.append(f"/health {st} {health}")
+        last = 0.0
+        for t in range(12):
+            time.sleep(max(0.0, last + interval - time.time()))
+            last = time.time()
+            st, r, sec = _http(op, url + "/analyze", data[HTTP_JPEGS[t % 3]])
+            lat.append(sec * 1e3)
+            responses.append(r)
+            if st != 200 or _SCHEMA - set(r) or r.get("frame_count") != t + 1:
+                problems.append(f"/analyze {t}: {st} {r}")
+        if responses and responses[-1].get("confidence_level") == "UNCERTAIN":
+            problems.append("UNCERTAIN after 12 frames")
+        # two requests at once: one is analyzed, the other rate limited
+        time.sleep(interval)
+        pair, barrier = [], threading.Barrier(2)
+
+        def shoot():
+            barrier.wait(timeout=60)
+            pair.append(_http(op, url + "/analyze", data[FRAME_JPEG])[:2])
+
+        shots = [threading.Thread(target=shoot) for _ in range(2)]
+        for th in shots:
+            th.start()
+        for th in shots:
+            th.join(timeout=120)
+        probe = max(pair, key=lambda sr: sr[0])[1] if len(pair) == 2 else {}
+        if sorted(st for st, _ in pair) != [200, 429] or probe.get("error") != "Rate limited" or (
+                not 0 <= probe.get("retry_after_ms", -1) <= 100):
+            problems.append(f"429 probe: {pair}")
+        st, stats, _ = _http(op, url + "/stats")
+        if st != 200 or stats.get("frame_count") != 13 or stats["voting"]["total_frames"] != 10:
+            problems.append(f"/stats {st} {stats}")
+        st, reset, _ = _http(op, url + "/reset", post=True)
+        after = _http(op, url + "/stats")[1]
+        if reset != {"success": True, "message": "Detector reset successfully"} or (
+                after.get("frame_count") != 0 or after.get("history_length") != 0):
+            problems.append(f"/reset {reset} then /stats {after}")
+        refused = {}
+        for name, body in (("progressive", data["progressive_720x405_q85.jpg"]),
+                           ("truncated", data["truncated_720x405_q85.jpg"]),
+                           ("garbage", b"not an image")):
+            time.sleep(interval)
+            st, r, _ = _http(op, url + "/analyze", body)
+            refused[name] = st
+            if st != 400 or r != {"error": "Invalid image format"}:
+                problems.append(f"{name}: {st} {r}")
+    if problems:
+        raise AssertionError("single-stream: " + "; ".join(problems[:6]))
+    return {"requests_200": len(lat), "latency_ms_p50": statistics.median(lat),
+            "latency_ms_max": max(lat), "modes": sorted({r["analysis_mode"] for r in responses}),
+            "verdict_last": responses[-1]["confidence_level"], "rate_limit_probe": 429,
+            "refused_400": refused, "stats_before_reset": stats,
+            # where the latency goes: the steps on this thread, the same in
+            # a new thread each time (as the server runs a request), and the
+            # app's whole /analyze without the socket, in new threads too
+            "steps_ms_one_thread": _single_stream_steps(det, data[FRAME_JPEG]),
+            "steps_ms_new_thread_each": _single_stream_steps(det, data[FRAME_JPEG],
+                                                             fresh_threads=True),
+            "app_dispatch_ms_new_thread_each": _dispatch_ms(app, data[FRAME_JPEG])}
+
+
+def _in_new_thread(fn):
+    th = threading.Thread(target=fn)
+    th.start()
+    th.join(timeout=120)
+
+
+def _dispatch_ms(app, jpeg, n=8):
+    """Median ms of the app's /analyze (test client, no socket), each call
+    in a new thread, 150 ms apart for the rate limit."""
+    client, times = app.test_client(), []
+
+    def one():
+        t0 = time.perf_counter()
+        r = client.post("/analyze", data={"frame": (jpeg, "frame.jpg")})
+        times.append((time.perf_counter() - t0) * 1e3 if r.status_code == 200 else None)
+
+    for _ in range(n):
+        time.sleep(0.15)
+        _in_new_thread(one)
+    if None in times:
+        raise AssertionError(f"in-process /analyze failed: {times}")
+    return statistics.median(times)
+
+
+def _single_stream_steps(det, jpeg, n=8, fresh_threads=False):
+    """Median ms of each step of a single-stream /analyze, each ending in a
+    device sync, on this thread or in a new thread per frame."""
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.pipeline.detector import (
+        preprocess_face_quality)
+    from real_time_video_deepfake_detection_tpu_torch.utils.jpeg_ingest import decode_jpeg
+    names = ("decode_jpeg", "forensics", "face_detect", "lab_clahe_host",
+             "align_classify", "tracker")
+    steps = {k: [] for k in names}
+
+    def one():
+        t = [time.perf_counter()]
+        frame = decode_jpeg(jpeg)
+        t.append(time.perf_counter())
+        det.analyze_frame_forensics(frame)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        x, y, w, h = det.face_detector(frame)[0]
+        t.append(time.perf_counter())
+        pre = preprocess_face_quality(frame[y:y + h, x:x + w])
+        t.append(time.perf_counter())
+        det._single_prediction(pre)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        det.temporal_tracker.update(0.5)
+        det.temporal_tracker.get_confidence_level()
+        det.temporal_tracker.get_temporal_average()
+        det.temporal_tracker.get_stability_score()
+        t.append(time.perf_counter())
+        for k, a, b in zip(names, t, t[1:]):
+            steps[k].append((b - a) * 1e3)
+
+    for _ in range(n):
+        if fresh_threads:
+            _in_new_thread(one)
+        else:
+            one()
+    if any(len(v) != n for v in steps.values()):
+        raise AssertionError("a step timing run failed")
+    out = {k: statistics.median(v) for k, v in steps.items()}
+    return {**out, "sum": sum(out.values())}
+
+
+def _batched_http(ctx, data, n_streams, n_frames):
+    """(b) create_batched_app over MultiStreamEngine(device_detect) on the
+    card, 16 client threads; then one stream's responses against a second
+    engine fed the decoded frames through analyze."""
+    import numpy as np
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.core.config import ServerConfig
+    from real_time_video_deepfake_detection_tpu_torch.models.caffe_net import CaffeNet
+    from real_time_video_deepfake_detection_tpu_torch.serving.multi import (
+        MultiStreamEngine, create_batched_app)
+    from real_time_video_deepfake_detection_tpu_torch.utils.jpeg_ingest import decode_jpeg
+    proto, cm = _ssd_files(ctx)
+    scfg = ServerConfig(max_streams=64, max_batch=64, device_detect=True)
+
+    def make_engine():
+        return MultiStreamEngine(_detect_cfg(), scfg, params=b0_state(ctx), device="cuda",
+                                 ssd_net=CaffeNet(proto, cm))
+
+    engine = make_engine()
+    tick_launches = []
+    dispatch = engine._dispatch
+
+    def counted_dispatch(tick_cfg, arrays, states):
+        before = _read_launches()
+        out = dispatch(tick_cfg, arrays, states)
+        torch.cuda.synchronize()
+        after = _read_launches()
+        tick_launches.append({k: after[k] - before[k] for k in after})
+        return out
+
+    engine._dispatch = counted_dispatch
+    app = create_batched_app(engine, scfg)
+    frames = [HTTP_JPEGS[t % 3] for t in range(n_frames)]
+    results = {s: [] for s in range(n_streams)}
+    lat, errors = [], []
+    op = _client()
+
+    with _serving(app) as url:
+        def client(s):
+            try:
+                last = 0.0
+                for name in frames:
+                    time.sleep(max(0.0, last + 0.15 - time.time()))
+                    last = time.time()
+                    st, r, sec = _http(op, url + "/analyze", data[name], sid=f"stream-{s}")
+                    results[s].append((st, r))
+                    lat.append(sec * 1e3)
+            except Exception as e:   # reported below; the phase fails on it
+                errors.append(f"stream {s}: {type(e).__name__}: {e}")
+
+        _reset_launches()
+        t0 = time.time()
+        threads = [threading.Thread(target=client, args=(s,)) for s in range(n_streams)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.time() - t0
+        launches = _read_launches()
+        metrics = _http(op, url + "/metrics")[1]
+    engine.shutdown()
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"clients failed: {errors[:3]}")
+    statuses = {}
+    problems = []
+    for s, rs in results.items():
+        for t, (st, r) in enumerate(rs):
+            statuses[st] = statuses.get(st, 0) + 1
+            if st != 200 or _SCHEMA - set(r) or r.get("frame_count") != t + 1:
+                problems.append(f"stream {s} frame {t}: {st} {r}")
+    for i, tl in enumerate(tick_launches):
+        if min(tl.values()) <= 0:
+            problems.append(f"tick {i}: a kernel was not launched: {tl}")
+    if problems:
+        raise AssertionError("batched: " + "; ".join(problems[:6]))
+
+    # stream-0's responses against an engine fed the same frames, decoded,
+    # through analyze (host conform instead of the tick's device conform)
+    ref_engine = make_engine()
+    try:
+        ref = [ref_engine.analyze(decode_jpeg(data[name]), "stream-0") for name in frames]
+    finally:
+        ref_engine.shutdown()
+    max_diff = 0.0
+    for t, ((_, got), want) in enumerate(zip(results[0], ref)):
+        if set(got) != set(want):
+            problems.append(f"frame {t}: keys {set(got) ^ set(want)}")
+            continue
+        for k in set(want) - {"processing_time_ms"}:
+            if isinstance(want[k], float):
+                max_diff = max(max_diff, abs(got[k] - want[k]))
+                if not abs(got[k] - want[k]) <= 1e-6:
+                    problems.append(f"frame {t} {k}: {got[k]} vs {want[k]}")
+            elif got[k] != want[k]:
+                problems.append(f"frame {t} {k}: {got[k]} vs {want[k]}")
+    if problems:
+        raise AssertionError("HTTP stream-0 against analyze: " + "; ".join(problems[:6]))
+    faces = sum("face_bbox" in r for rs in results.values() for _, r in rs)
+    return {"streams": n_streams, "frames_per_stream": n_frames, "statuses": statuses,
+            "frames_per_s": n_streams * n_frames / wall, "wall_s": wall,
+            "latency_ms_p50": float(np.percentile(lat, 50)),
+            "latency_ms_p99": float(np.percentile(lat, 99)),
+            "ticks": len(tick_launches), "launches": launches,
+            "launches_per_tick_min": {k: min(t[k] for t in tick_launches) for k in launches},
+            "frames_with_face": faces, "engine_metrics": metrics,
+            "stream0_vs_analyze_max_float_diff": max_diff, "tolerance": 1e-6}
+
+
+def phase_http(ctx):
+    """Two servers on 127.0.0.1 driven with urllib multipart POSTs of the
+    fixture JPEGs: (a) single-stream, (b) batched device-detect."""
+    data, _ = _jpegs()
+    single = _single_stream_http(ctx, data)
+    batched = _batched_http(ctx, data, n_streams=16, n_frames=12)
+    ctx["launches"] = batched["launches"]
+    return {"single_stream": single, "batched_device_detect": batched}
+
+
 PHASES = (("device", phase_device), ("build", phase_build),
           ("kernels", phase_kernels), ("serve", phase_serve),
           ("parity", phase_parity), ("detect-serve", phase_detect_serve),
-          ("detect-parity", phase_detect_parity))
+          ("detect-parity", phase_detect_parity), ("decode", phase_decode),
+          ("http", phase_http))
 
 
 def main() -> int:

@@ -225,3 +225,16 @@ def analyze_frame_batch(frames: torch.Tensor, states: ForensicState,
         "frame_number": frame_count_post,
     }
     return results, new_state
+
+
+def analyze_frame(frame: torch.Tensor, state: ForensicState, full: bool,
+                  cfg: ForensicConfig = ForensicConfig(),
+                  fast_only: bool = False) -> Tuple[Dict[str, torch.Tensor], ForensicState]:
+    """One forensic step of one stream, the single-stream detector's step:
+    `frame` (H, W, 3) BGR u8 at the analysis size, `state` a one-stream
+    ForensicState. `full` selects the six signals with the full weights or
+    the fast trio with the fast weights. Returns (results as 0-d tensors,
+    new state)."""
+    fulls = torch.full((1,), bool(full), dtype=torch.bool, device=frame.device)
+    res, new_state = analyze_frame_batch(frame[None], state, fulls, cfg, fast_only=fast_only)
+    return {k: v[0] for k, v in res.items()}, new_state

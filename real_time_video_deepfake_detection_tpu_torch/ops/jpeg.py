@@ -238,6 +238,41 @@ def h2v2_fancy_upsample(c: torch.Tensor) -> torch.Tensor:
         c.shape[:-2] + (2 * h, 2 * w))
 
 
+def _neighbours(c: torch.Tensor, dim: int):
+    """The previous and next sample along `dim`, the edge sample repeated."""
+    n = c.shape[dim]
+    first, last = c.narrow(dim, 0, 1), c.narrow(dim, n - 1, 1)
+    prev = torch.cat([first, c.narrow(dim, 0, n - 1)], dim=dim)
+    nxt = torch.cat([c.narrow(dim, 1, n - 1), last], dim=dim)
+    return prev, nxt
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor, dim: int) -> torch.Tensor:
+    shape = list(even.shape)
+    shape[dim] *= 2
+    return torch.stack([even, odd], dim=dim + 1 if dim >= 0 else dim).reshape(shape)
+
+
+def h2v1_fancy_upsample(c: torch.Tensor) -> torch.Tensor:
+    """libjpeg h2v1_fancy_upsample (jdsample.c) over (..., h, w): each
+    sample gives 3/4 of itself and 1/4 of its left (+1) or right (+2)
+    neighbour; the edge outputs equal the edge samples, which repeating the
+    edge sample gives. Output (..., h, 2w)."""
+    ci = c.to(torch.int32)
+    left, right = _neighbours(ci, -1)
+    return _interleave((ci * 3 + left + 1) >> 2, (ci * 3 + right + 2) >> 2, -1)
+
+
+def h1v2_fancy_upsample(c: torch.Tensor) -> torch.Tensor:
+    """libjpeg-turbo h1v2_fancy_upsample (jdsample.c) over (..., h, w): the
+    same triangle filter down the columns, rows above (+1) and below (+2),
+    the edge rows repeated as jdmainct.c's context rows are. Output
+    (..., 2h, w)."""
+    ci = c.to(torch.int32)
+    up, down = _neighbours(ci, -2)
+    return _interleave((ci * 3 + up + 1) >> 2, (ci * 3 + down + 2) >> 2, -2)
+
+
 def _to_blocks(plane: torch.Tensor) -> torch.Tensor:
     """(..., h, w) -> (..., h/8, w/8, 8, 8)."""
     h, w = plane.shape[-2], plane.shape[-1]

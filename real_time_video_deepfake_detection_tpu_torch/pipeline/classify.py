@@ -1,9 +1,15 @@
-"""Face-classification preprocessing. Port of
-real_time_video_deepfake_detection_tpu/pipeline/classify.py: aligned raw-RGB
-faces -> bilinear resize (half-pixel, as F.interpolate) -> /255 -> ImageNet
-normalize (deepfake_detection.py:383-389)."""
+"""Face classification: preprocessing + EfficientNet + sigmoid.
+
+Port of real_time_video_deepfake_detection_tpu/pipeline/classify.py: the
+reference's `_single_prediction` tensor chain (deepfake_detection.py:
+372-398), aligned 160x160 RGB (raw 0-255) -> bilinear resize 224
+(half-pixel, as F.interpolate) -> /255 -> ImageNet normalize -> model ->
+sigmoid, batched over faces."""
 
 from __future__ import annotations
+
+import copy
+import weakref
 
 import torch
 
@@ -22,3 +28,45 @@ def preprocess_aligned(faces_rgb_raw: torch.Tensor, size: int = 224) -> torch.Te
     mean = torch.tensor(_IMAGENET_MEAN, dtype=torch.float32, device=x.device)
     std = torch.tensor(_IMAGENET_STD, dtype=torch.float32, device=x.device)
     return (x - mean) / std
+
+
+_bf16_models: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _bf16_model(model):
+    """A bfloat16 copy of `model` (every float parameter and statistic cast,
+    as the JAX package casts the parameter tree), made once per model."""
+    m = _bf16_models.get(model)
+    if m is None:
+        m = copy.deepcopy(model).to(torch.bfloat16)
+        _bf16_models[model] = m
+    return m
+
+
+@torch.no_grad()
+def classify_batch(model, faces_rgb_raw: torch.Tensor, size: int = 224,
+                   bf16: bool = False, pallas_preproc: bool = False) -> torch.Tensor:
+    """(B, H, W, 3) raw-RGB aligned faces -> (B,) fake probabilities.
+    `model` is the backbone module (models/backbones.build_model).
+    bf16=True runs the backbone in bfloat16 (the sigmoid in f32).
+    pallas_preproc=True takes the resize + normalize from the preprocess
+    kernel (kernels/preproc.py, csrc/preproc.cu on a CUDA tensor)."""
+    if pallas_preproc:
+        from ..kernels.preproc import preprocess_faces
+        x = preprocess_faces(faces_rgb_raw, size)
+    else:
+        x = preprocess_aligned(faces_rgb_raw, size)
+    if bf16:
+        m = _bf16_model(model)
+        logits = m.apply_head(m.extract_features(x.to(torch.bfloat16)))
+        return torch.sigmoid(logits[:, 0].to(torch.float32))
+    return torch.sigmoid(model.apply_head(model.extract_features(x))[:, 0])
+
+
+def apply_small_face_heuristic(prob, face_h: int, face_w: int,
+                               small_px: int = 80, boost: float = 0.10) -> float:
+    """+0.10 when the detected crop is small, clipped to [0, 1]
+    (deepfake_detection.py:489-502); host scalar math on the host-known box."""
+    if face_h < small_px or face_w < small_px:
+        prob = prob + boost
+    return float(min(max(prob, 0.0), 1.0))

@@ -23,9 +23,7 @@ Clip attention, in-tick MTCNN and the SSD in bf16 come with later slices.
 
 from __future__ import annotations
 
-import copy
 import dataclasses
-import weakref
 from typing import Dict, Tuple, Union
 
 import numpy as np
@@ -38,7 +36,7 @@ from ..models.ssd_res10 import detect_postprocess_batch, ssd_input
 from ..ops import forensics
 from ..ops.color import lab_to_rgb_u8, rgb_to_lab_u8
 from ..ops.resize import crop_resize_u8_cv2, resize_bilinear_u8_cv2
-from ..pipeline.classify import preprocess_aligned
+from ..pipeline.classify import classify_batch
 from ..state.forensic_state import ForensicState, forensic_state_init_batch
 from ..state.tracker import (
     TrackerState, tracker_init_batch, tracker_stability,
@@ -86,19 +84,6 @@ def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
                     fp[i - 1] + (delta / torch.where(dx0, torch.ones_like(dx), dx)) * df)
     f = torch.where(x < xp[0], fp[0], f)
     return torch.where(x > xp[-1], fp[-1], f)
-
-
-_bf16_models: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-
-
-def _bf16_model(model: EfficientNet) -> EfficientNet:
-    """A bfloat16 copy of `model` (every float parameter and statistic cast,
-    as the JAX tick casts the parameter tree), made once per model."""
-    m = _bf16_models.get(model)
-    if m is None:
-        m = copy.deepcopy(model).to(torch.bfloat16)
-        _bf16_models[model] = m
-    return m
 
 
 def _unported(cfg: DetectorConfig) -> None:
@@ -159,17 +144,8 @@ def _step_core(model: EfficientNet, cfg: DetectorConfig,
         L = clahe_u8(lab[..., 0].contiguous())
         faces_raw = lab_to_rgb_u8(torch.stack([L, lab[..., 1], lab[..., 2]], dim=-1))
 
-    if cfg.use_pallas_preproc:
-        from ..kernels.preproc import preprocess_faces
-        x = preprocess_faces(faces_raw, cfg.model_input_size)
-    else:
-        x = preprocess_aligned(faces_raw, cfg.model_input_size)
-    if cfg.bf16_inference:
-        m = _bf16_model(model)
-        logits = m.apply_head(m.extract_features(x.to(torch.bfloat16)))
-        face_prob = torch.sigmoid(logits[:, 0].to(torch.float32))
-    else:
-        face_prob = torch.sigmoid(model.apply_head(model.extract_features(x))[:, 0])
+    face_prob = classify_batch(model, faces_raw, cfg.model_input_size,
+                               cfg.bf16_inference, cfg.use_pallas_preproc)
     if cfg.calibrator_knots is not None:
         # isotonic calibration between sigmoid and the small-face heuristic
         # (deepfake_detection.py:535-538)

@@ -11,24 +11,29 @@ requests with the reference's JSON response. Two modes:
     and aligns the face on the host; the tick is
     serving/batcher.device_step_compact.
   - device detect (ServerConfig.device_detect): the request thread only
-    conforms the frame to detect_capture_hw; the tick is
-    serving/batcher.make_device_step_detect (SSD detection, resizes,
-    crop/align, CLAHE with clahe_device, classification, tracker), and
+    enqueues the JPEG bytes (or conforms a decoded frame to
+    detect_capture_hw); the batcher entropy-decodes the tick's JPEGs in one
+    pooled host call, reconstructs and conforms them on the engine's device,
+    and runs serving/batcher.make_device_step_detect (SSD detection,
+    resizes, crop/align, CLAHE with clahe_device, classification, tracker);
     face_bbox comes back in the client frame's coordinates.
 
+`create_batched_app` puts the reference's HTTP surface in front of it.
 Per-stream session state lives in the batched StreamStates on the device,
 with one extra dummy row for padded entries; /reset with a stream id resets
-only that slot. Not in this slice (each raises NotImplementedError, or
-returns None where the JAX engine hands the caller a fallback): wire
-ingest, MTCNN alignment and clip attention (later slices), and the native
-JPEG prep path of `analyze_jpeg` (the HTTP slice).
+only that slot. Not in this slice (each raises NotImplementedError): wire
+ingest, scaled decode, MTCNN alignment and clip attention. The JAX engine's
+one-call native prep of host-prep mode (libjpeg plus host C) is not ported:
+`analyze_jpeg` decodes with the port's decoder and calls `analyze`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import queue
+import tempfile
 import threading
 import time
 from dataclasses import dataclass, field
@@ -41,6 +46,7 @@ from ..core.config import DetectorConfig, ServerConfig
 from ..core.device import resolve_device
 from ..models import backbones
 from ..models.caffe_net import CaffeNet
+from ..ops.resize import resize_bilinear_u8_cv2
 from ..pipeline.detector import _ResizeAligner, preprocess_face_quality
 from ..pipeline.faces import FaceDetector
 from ..state.tracker import (
@@ -49,10 +55,60 @@ from ..state.tracker import (
 )
 from ..state.tree import tree_map
 from ..utils.host_resize import resize_analysis
+from ..utils.jpeg_ingest import (
+    JpegError, decode_coefs_batch, decode_jpeg, log_refusal, reconstruct,
+)
 from .batcher import (
     StreamStates, device_step_compact, init_stream_states, make_device_step_detect,
     reset_streams,
 )
+from .wsgi import App, Request, jsonify
+
+
+def _jpeg_dims(data: bytes) -> Optional[tuple]:
+    """(h, w) from the JPEG SOF marker — a header scan, no decode.
+
+    Used on the device-detect JPEG path to learn the client frame's size
+    before the pooled decode conforms it to detect_capture_hw, so face_bbox
+    can be returned in the client's coordinates (reference
+    face_detection.py:84-88). None when the bytes are not parsable JPEG."""
+    n = len(data)
+    if n < 4 or data[0] != 0xFF or data[1] != 0xD8:
+        return None
+    i = 2
+    while i + 9 < n:
+        if data[i] != 0xFF:
+            i += 1
+            continue
+        m = data[i + 1]
+        if m == 0xFF:
+            # 0xFF fill bytes may pad a marker (ITU T.81 B.1.1.2): resync on
+            # the next byte rather than read a fill byte as a marker
+            i += 1
+            continue
+        if m == 0x00:    # FF 00 is a stuffed data byte, not a marker
+            i += 2
+            continue
+        if m == 0xDA:
+            # SOS before any SOF: every valid JPEG has SOF first (T.81
+            # B.2.1); scanning on would walk entropy-coded data
+            return None
+        if m in (0xD8, 0x01) or 0xD0 <= m <= 0xD7:   # standalone markers
+            i += 2
+            continue
+        if m in (0xC0, 0xC1, 0xC2, 0xC3, 0xC5, 0xC6, 0xC7,
+                 0xC9, 0xCA, 0xCB, 0xCD, 0xCE, 0xCF):   # SOFn
+            h = (data[i + 5] << 8) | data[i + 6]
+            w = (data[i + 7] << 8) | data[i + 8]
+            return (h, w) if h and w else None
+        seglen = (data[i + 2] << 8) | data[i + 3]
+        if seglen < 2:
+            return None
+        i += 2 + seglen
+    return None
+
+
+_INVALID_IMAGE = {"error": "Invalid image format", "status": 400}
 
 
 @dataclass
@@ -63,11 +119,17 @@ class _Pending:
     face_hw: tuple = (0, 0)
     faces_detected: int = 0
     bbox: Optional[tuple] = None
-    # device-detect mode: the capture-size frame, and the client frame's
-    # (h, w) when it was conformed to detect_capture_hw (face_bbox is then
-    # scaled back to the client's coordinates)
-    frame_capture: Optional[np.ndarray] = None
+    # device-detect mode: the capture-size frame (a host array, or a tensor
+    # on the engine's device when the tick decoded it), and the client
+    # frame's (h, w) when it was conformed to detect_capture_hw (face_bbox
+    # is then scaled back to the client's coordinates)
+    frame_capture: Optional[Union[np.ndarray, torch.Tensor]] = None
     orig_hw: Optional[tuple] = None
+    # device-detect JPEG path: the raw bytes, decoded by the batcher in one
+    # pooled call per tick; need_dims when the request thread's header scan
+    # failed, so the client dims come from that decode
+    jpeg: Optional[bytes] = None
+    need_dims: bool = False
     # owning stream id, checked against the slot table at tick time: a
     # request parked while its stream was LRU-evicted must not write into
     # the slot's new owner's state
@@ -81,6 +143,9 @@ def _unported(cfg: DetectorConfig, server_cfg: ServerConfig) -> None:
     if server_cfg.ingest_plane != "bgr":
         raise NotImplementedError(
             "ingest_plane wire formats come with the wire-ingest slice")
+    if server_cfg.ingest_scaled_decode:
+        raise NotImplementedError("ingest_scaled_decode: libjpeg's DCT-scaled decode "
+                                  "is not ported")
     if cfg.mtcnn_device:
         raise NotImplementedError("mtcnn_device comes with the MTCNN slice")
     if server_cfg.device_detect and cfg.ssd_bf16:
@@ -197,7 +262,7 @@ class MultiStreamEngine:
                 np.full(b, self.n_slots, np.int32))
 
     def _dispatch(self, cfg: DetectorConfig, arrays, states: StreamStates):
-        dev = [torch.from_numpy(a).to(self.device) for a in arrays]
+        dev = [torch.as_tensor(a, device=self.device) for a in arrays]
         if self._detect_steps is not None:   # (frames_capture, active, slot_idx)
             return self._detect_steps[cfg](*dev, states)
         return device_step_compact(self.model, cfg, *dev[:5], dev[5], states)
@@ -247,6 +312,17 @@ class MultiStreamEngine:
             slot = len(self.slot_of)
         self.slot_of[stream_id] = slot
         return slot
+
+    def rate_limited(self, slot: int) -> Optional[int]:
+        """Check and stamp a slot's rate window: None when admitted, else
+        the milliseconds to wait."""
+        now = time.time()
+        with self.lock:
+            last = self.last_request.get(slot, 0.0)
+            if now - last < self.server_cfg.min_request_interval:
+                return int((self.server_cfg.min_request_interval - (now - last)) * 1000)
+            self.last_request[slot] = now
+        return None
 
     def admit(self, stream_id: str) -> Tuple[int, Optional[int]]:
         """Resolve/create the stream's slot AND check+stamp its rate window
@@ -309,12 +385,25 @@ class MultiStreamEngine:
     # --------------------------------------------------------------- intake
 
     def analyze_jpeg(self, data: bytes, stream_id: str = "default",
-                     timeout: float = 60.0) -> Optional[dict]:
-        """The JAX engine's native one-call JPEG prep. It is not ported (the
-        HTTP slice brings JPEG decode), so this returns None, which tells the
-        caller to decode and use analyze() — what the JAX engine returns
-        when its native prep is unavailable."""
-        return None
+                     timeout: float = 60.0) -> dict:
+        """JPEG bytes in, response out. Device-detect mode: enqueue the raw
+        bytes; the batcher decodes the whole tick's JPEGs in one pooled call
+        (request threads do no image work). Host-prep mode: decode here
+        (utils/jpeg_ingest.decode_jpeg), then analyze(). A stream the
+        decoder refuses gives {"error": "Invalid image format", "status":
+        400}."""
+        if self._detect_steps is None:
+            frame = decode_jpeg(data)
+            return dict(_INVALID_IMAGE) if frame is None else self.analyze(
+                frame, stream_id, timeout)
+        t0 = time.time()
+        slot = self.slot_for(stream_id)
+        dims = _jpeg_dims(data)
+        capture = tuple(self.server_cfg.detect_capture_hw)
+        return self._enqueue(_Pending(
+            stream_slot=slot, stream_id=stream_id, jpeg=data, t_start=t0,
+            orig_hw=dims if dims and dims != capture else None,
+            need_dims=dims is None), timeout)
 
     def analyze(self, frame_bgr: np.ndarray, stream_id: str = "default",
                 timeout: float = 60.0) -> dict:
@@ -425,21 +514,63 @@ class MultiStreamEngine:
                 kept.append(p)
         return kept
 
+    def _decode_tick_jpegs(self, entries: List[_Pending]) -> None:
+        """Entropy-decode the tick's JPEGs in one pooled host call, then
+        reconstruct each same-layout group as one batch on the engine's
+        device and conform it to detect_capture_hw (ops/resize, the JAX
+        package's resize). Refused streams are answered 400 here."""
+        ch, cw = self.server_cfg.detect_capture_hw
+        groups: Dict[tuple, List[Tuple[_Pending, object]]] = {}
+        for p, jc in zip(entries, decode_coefs_batch([p.jpeg for p in entries],
+                                                     self.server_cfg.prep_threads)):
+            if isinstance(jc, JpegError):
+                log_refusal(str(jc))
+                p.result = dict(_INVALID_IMAGE)
+                p.event.set()
+                continue
+            if p.need_dims:   # the header scan failed: the decode knows the size
+                p.orig_hw = (jc.height, jc.width) if (jc.height, jc.width) != (ch, cw) else None
+            groups.setdefault(jc.layout, []).append((p, jc))
+        for members in groups.values():
+            frames = reconstruct([jc for _, jc in members], self.device)
+            if frames.shape[1:3] != (ch, cw):
+                frames = resize_bilinear_u8_cv2(frames, ch, cw)
+            for k, (p, _) in enumerate(members):
+                p.frame_capture = frames[k]
+
     def _run_tick(self, batch: List[_Pending]):
         """Assemble the compact bucketed batch and run one tick; the drainer
         completes the requests."""
         batch = self._drop_stale(batch)
+        jpegs = [p for p in batch if p.jpeg is not None]
+        if jpegs:
+            t_prep = time.time()
+            self._decode_tick_jpegs(jpegs)
+            batch = [p for p in batch if not p.event.is_set()]
+            # only ticks that decoded JPEGs count: frame requests prep in
+            # their own threads
+            self._ewma("ewma_host_prep_ms", (time.time() - t_prep) * 1000)
         if not batch:
             return
         b = self._bucket_for(len(batch))
         if self._detect_steps is not None:
-            # has_face comes from the tick's output
-            frames, active, slot_idx = arrays = self._detect_inputs(b)
+            # has_face comes from the tick's output; frames decoded on the
+            # device go in by row after the host frames' one copy
+            frames, active, slot_idx = self._detect_inputs(b)
             has_face = None
+            rows = []
             for i, p in enumerate(batch):
                 slot_idx[i] = p.stream_slot
-                frames[i] = p.frame_capture
                 active[i] = True
+                if isinstance(p.frame_capture, torch.Tensor):
+                    rows.append(i)
+                else:
+                    frames[i] = p.frame_capture
+            frames = torch.from_numpy(frames).to(self.device)
+            if rows:
+                frames[torch.tensor(rows, device=self.device)] = torch.stack(
+                    [batch[i].frame_capture for i in rows])
+            arrays = (frames, active, slot_idx)
         else:
             arrays = self._tick_inputs(b)
             frames, faces, has_face, face_hw, active, slot_idx = arrays
@@ -542,3 +673,121 @@ class MultiStreamEngine:
         self._stop = True
         self._thread.join(timeout=2.0)
         self._drainer.join(timeout=2.0)
+
+
+def create_batched_app(engine: Optional[MultiStreamEngine] = None,
+                       server_cfg: ServerConfig = ServerConfig(),
+                       device: Optional[Union[str, torch.device]] = None) -> App:
+    """WSGI app with the reference surface, backed by the batching engine
+    (made on `device` when not given: None means CUDA). Without a stream id
+    a request belongs to the "default" stream, the reference's single
+    global stream."""
+    from .server import _decode_frame, _device_strings
+    app = App()
+    if engine is None:
+        engine = MultiStreamEngine(
+            DetectorConfig().with_threshold(server_cfg.detection_threshold), server_cfg,
+            device=device)
+    app.engine = engine
+    device_str, accel_name = _device_strings(engine.device)
+
+    def _stream_id(req: Request) -> str:
+        return (req.form.get("stream_id") or req.environ.get("HTTP_X_STREAM_ID")
+                or "default")
+
+    @app.route("/health", methods=["GET"])
+    def health(_req):
+        return jsonify({
+            "status": "healthy",
+            "model_loaded": True,
+            "device": device_str,
+            "gpu_name": accel_name,
+            "frame_count": engine.frame_count(),
+            "capabilities": {"face_detection": True, "frame_forensics": True,
+                             "temporal_tracking": True},
+        })
+
+    @app.route("/reset", methods=["POST"])
+    def reset(req):
+        engine.reset(req.form.get("stream_id") or req.environ.get("HTTP_X_STREAM_ID"))
+        return jsonify({"success": True, "message": "Detector reset successfully"})
+
+    @app.route("/analyze", methods=["POST"])
+    def analyze(req):
+        # validate before a slot is allocated: slot_for can LRU-evict (and
+        # zero) a live stream, so an invalid request never may
+        if "frame" not in req.files:
+            return jsonify({"error": "No frame provided"}, 400)
+        data = req.files["frame"]
+        sid = _stream_id(req)
+        # slot resolution, rate check and stamp under one lock (admit)
+        _slot, retry = engine.admit(sid)
+        if retry is not None:
+            return jsonify({"error": "Rate limited", "retry_after_ms": retry}, 429)
+        try:
+            if data[:2] == b"\xff\xd8":
+                result = engine.analyze_jpeg(data, sid)
+            else:
+                frame = _decode_frame(data)   # None: the port decodes JPEG only
+                if frame is None:
+                    return jsonify({"error": "Invalid image format"}, 400)
+                result = engine.analyze(frame, sid)
+            if "error" in result:
+                # tick failures surface as error dicts; the reference answers
+                # analyze exceptions with 500 (backend_server.py:235)
+                return jsonify({"error": result["error"]}, result.get("status", 500))
+            return jsonify(result)
+        except Exception as e:
+            return jsonify({"error": str(e)}, 500)
+
+    @app.route("/metrics", methods=["GET"])
+    def metrics(_req):
+        """Batching telemetry (not part of the reference surface)."""
+        with engine.lock:
+            active_streams = len(engine.slot_of)
+        return jsonify({**{k: (round(v, 3) if isinstance(v, float) else v)
+                           for k, v in engine.metrics.items()},
+                        "active_streams": active_streams, "max_streams": engine.n_slots})
+
+    @app.route("/profile", methods=["POST"])
+    def profile(req):
+        """A torch.profiler trace of the next `seconds` (form field, default
+        2, at most 30), written as a Chrome trace into `dir` (default
+        torch_profile under the temporary directory)."""
+        secs = min(float(req.form.get("seconds", "2")), 30.0)
+        outdir = req.form.get("dir", os.path.join(tempfile.gettempdir(), "torch_profile"))
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if engine.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        try:
+            prof.start()
+        except RuntimeError as e:   # e.g. a trace already running
+            return jsonify({"success": False, "error": str(e)}, 500)
+
+        def _stop():
+            time.sleep(secs)
+            try:
+                prof.stop()
+                os.makedirs(outdir, exist_ok=True)
+                prof.export_chrome_trace(os.path.join(outdir, f"trace_{int(time.time())}.json"))
+            except Exception:   # a background thread: log, never raise
+                logging.getLogger(__name__).exception("profile trace failed")
+
+        threading.Thread(target=_stop, daemon=True).start()
+        return jsonify({"success": True, "dir": outdir, "seconds": secs})
+
+    @app.route("/stats", methods=["GET"])
+    def stats(req):
+        sid = _stream_id(req)
+        with engine.lock:
+            slot = engine.slot_of.get(sid)
+        if slot is None:
+            return jsonify({"frame_count": 0, "temporal_average": 0.0,
+                            "stability_score": 0.0, "confidence_level": "UNCERTAIN",
+                            "history_length": 0,
+                            "voting": {"fake_count": 0, "real_count": 0, "total_frames": 0},
+                            "device": device_str})
+        return jsonify({**engine.stream_stats(slot), "device": device_str})
+
+    return app

@@ -20,7 +20,8 @@ reducers. Reference semantics kept exactly (deepfake_detection.py:93-289):
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple, Union
+import time
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -168,3 +169,115 @@ def tracker_stability(state: TrackerState) -> torch.Tensor:
     var = torch.where(mask, (vals - mean[:, None]) ** 2, zero).sum(1) / nf
     stab = 1.0 - torch.clamp(var * 4.0, max=1.0)
     return torch.where(n < 10, torch.zeros_like(stab), stab).to(torch.float32)
+
+
+def tracker_weighted_average(state: TrackerState) -> torch.Tensor:
+    """np.linspace(0.5, 1.0, n) recency weighting of the score history
+    (deepfake_detection.py:204-212); 0.0 when empty. (N,) f32."""
+    cap = state.scores.shape[1]
+    n = state.n_scores
+    vals, mask = _chron(state)
+    i = torch.arange(cap, dtype=torch.float32, device=vals.device)
+    nf = torch.clamp(n, min=1).to(torch.float32)[:, None]
+    w = torch.where(n[:, None] > 1, 0.5 + 0.5 * i / torch.clamp(nf - 1.0, min=1.0),
+                    torch.full_like(nf, 0.5))
+    zero = torch.zeros((), device=vals.device)
+    num = torch.where(mask, vals * w, zero).sum(1)
+    den = torch.where(mask, w, zero).sum(1)
+    avg = num / torch.clamp(den, min=1e-30)
+    return torch.where(n == 0, torch.zeros_like(avg), avg).to(torch.float32)
+
+
+def tracker_anomaly_score(state: TrackerState) -> torch.Tensor:
+    """min(10 * mean(variance history), 1); 0.0 below 10 entries
+    (deepfake_detection.py:223-233). (N,) f32."""
+    cap = state.var_hist.shape[1]
+    n = state.n_var
+    mask = torch.arange(cap, device=n.device) < n[:, None]
+    zero = torch.zeros((), device=n.device)
+    mean = torch.where(mask, state.var_hist, zero).sum(1) / torch.clamp(n, min=1)
+    score = torch.clamp(mean * 10.0, max=1.0)
+    return torch.where(n < 10, torch.zeros_like(score), score).to(torch.float32)
+
+
+class TemporalTracker:
+    """Single-stream wrapper with the reference's Python API
+    (deepfake_detection.py:93-289) over a one-stream TrackerState on
+    `device`, for the single-stream detector; the batched serving tick uses
+    the functions above directly."""
+
+    def __init__(self, window_size: int = 60, high_confidence_threshold: float = 0.6,
+                 voting_window: int = 10, detection_threshold: float = 0.5,
+                 device: Union[str, torch.device] = "cpu"):
+        self.cfg = TrackerConfig(window_size=window_size, voting_window=voting_window,
+                                 detection_threshold=detection_threshold,
+                                 high_confidence_threshold=high_confidence_threshold)
+        self.detection_threshold = detection_threshold
+        self.high_confidence_threshold = high_confidence_threshold
+        self.window_size = window_size
+        self.voting_window = voting_window
+        self.last_alert_time = 0.0
+        self.alert_cooldown = self.cfg.alert_cooldown
+        self.device = torch.device(device)
+        self.state = tracker_init_batch(1, self.cfg, self.device)
+        self._valid = torch.ones(1, dtype=torch.bool, device=self.device)
+
+    def update(self, fake_probability) -> None:
+        if fake_probability is None:   # reference :122-124
+            return
+        prob = torch.tensor([float(fake_probability)], dtype=torch.float32, device=self.device)
+        self.state = tracker_update(self.state, prob, self._valid, float(self.detection_threshold))
+
+    def _stats(self) -> tuple:
+        """(verdict, temporal average, weighted average, stability, anomaly,
+        fake votes, real votes, total votes), in one device-to-host copy."""
+        s = self.state
+        fake, real, total = tracker_voting_stats(s)
+        vals = [tracker_verdict(s), tracker_temporal_average(s), tracker_weighted_average(s),
+                tracker_stability(s), tracker_anomaly_score(s), fake, real, total]
+        return tuple(torch.stack([v[0].to(torch.float64) for v in vals]).cpu().tolist())
+
+    def get_confidence_level(self) -> str:
+        return VERDICT_NAMES[int(self._stats()[0])]
+
+    @property
+    def current_verdict(self):
+        v = int(self._stats()[0])
+        return None if v == VERDICT_UNCERTAIN else VERDICT_NAMES[v]
+
+    def get_temporal_average(self) -> float:
+        return self._stats()[1]
+
+    def get_weighted_average(self) -> float:
+        return self._stats()[2]
+
+    def get_stability_score(self) -> float:
+        return self._stats()[3]
+
+    def detect_anomalies(self) -> float:
+        return self._stats()[4]
+
+    def get_voting_stats(self) -> dict:
+        s = self._stats()
+        return {"fake_count": int(s[5]), "real_count": int(s[6]), "total_frames": int(s[7])}
+
+    @property
+    def history_length(self) -> int:
+        return int(self.state.n_scores[0])
+
+    def should_trigger_forensic_analysis(self, now: Optional[float] = None) -> bool:
+        """Forensic-trigger cooldown (reference :235-250); the wall clock
+        stays on the host."""
+        if self.history_length < self.window_size // 2:
+            return False
+        now = time.time() if now is None else now
+        if (self.get_temporal_average() > self.high_confidence_threshold
+                and self.get_stability_score() > 0.7
+                and now - self.last_alert_time > self.alert_cooldown):
+            self.last_alert_time = now
+            return True
+        return False
+
+    def reset(self) -> None:
+        self.state = tracker_reset(self.state)
+        self.last_alert_time = 0.0

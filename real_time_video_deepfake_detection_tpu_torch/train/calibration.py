@@ -1,9 +1,9 @@
-"""The optional isotonic probability calibrator, load side only.
+"""The optional isotonic probability calibrator: loading and applying.
 
-Port of the loading half of real_time_video_deepfake_detection_tpu/train/
-calibration.py: knots stored as an .npz payload (two float arrays x, y).
-Pickled calibrators are never loaded here. Fitting comes with the training
-slice.
+Port of those halves of real_time_video_deepfake_detection_tpu/train/
+calibration.py: knots stored as an .npz payload (two float arrays x, y),
+applied with np.interp through sklearn's `predict_proba` surface. Pickled
+calibrators are never loaded here. Fitting comes with the training slice.
 """
 
 from __future__ import annotations
@@ -21,6 +21,17 @@ class IsotonicCalibrator:
     def __init__(self, x: Optional[np.ndarray] = None, y: Optional[np.ndarray] = None):
         self.x_ = x
         self.y_ = y
+
+    def transform(self, probs) -> np.ndarray:
+        if self.x_ is None:
+            return np.asarray(probs)
+        return np.interp(np.asarray(probs), self.x_, self.y_)
+
+    def predict_proba(self, rows) -> np.ndarray:
+        """sklearn's surface, which DeepfakeDetector.apply_calibration
+        calls: rows [[p], ...] -> (n, 2) [1 - calibrated, calibrated]."""
+        cal = self.transform(np.asarray(rows, np.float64).reshape(-1))
+        return np.stack([1 - cal, cal], axis=1)
 
     @classmethod
     def load(cls, path: str) -> "IsotonicCalibrator":

@@ -117,7 +117,9 @@ def test_engine_stream_table_stats_and_reset(engine):
     assert set(engine.metrics) == {"ticks", "frames_total", "ewma_tick_latency_ms",
                                    "ewma_host_prep_ms", "ewma_batch_size",
                                    "max_batch_seen"}
-    assert engine.analyze_jpeg(b"\xff\xd8", "b") is None   # caller decodes instead
+    # the port's own decoder refuses a stream that is only a JPEG header
+    assert engine.analyze_jpeg(b"\xff\xd8", "b") == {"error": "Invalid image format",
+                                                      "status": 400}
 
 
 def test_engine_admit_rate_limits_a_stream(engine):

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither jax nor the JAX package, and
-its entry points do not drop to the CPU when CUDA is absent."""
+"""The port stands alone: it imports neither jax nor the JAX package (nor
+cv2 or PIL), and its entry points do not drop to the CPU when CUDA is
+absent."""
 
 import os
 import pkgutil
@@ -25,7 +26,8 @@ def test_every_port_module_imports_without_jax():
     assert len(mods) > 20
     code = (
         "import sys, importlib\n"
-        "sys.modules['jax'] = None\n"
+        "for blocked in ('jax', 'cv2', 'PIL'):\n"
+        "    sys.modules[blocked] = None\n"
         f"mods = {mods!r}\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
@@ -39,11 +41,12 @@ def test_every_port_module_imports_without_jax():
 
 
 _JAX_PKG_IMPORT = re.compile(
-    r"^\s*(from|import)\s+(jax\b|real_time_video_deepfake_detection_tpu(?!_torch)\b)",
-    re.MULTILINE)
+    r"^\s*(from|import)\s+(jax\b|real_time_video_deepfake_detection_tpu(?!_torch)\b"
+    r"|cv2\b|PIL\b)", re.MULTILINE)
 
 
 def test_port_sources_and_chip_smoke_never_import_jax_package():
+    """Nor cv2 or PIL, which the card's machine does not have."""
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _dirs, names in os.walk(PORT_DIR):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
@@ -58,9 +61,12 @@ def test_port_sources_and_chip_smoke_never_import_jax_package():
 def test_engine_without_device_raises_when_cuda_absent(monkeypatch):
     from real_time_video_deepfake_detection_tpu_torch.core.device import resolve_device
     from real_time_video_deepfake_detection_tpu_torch.serving.multi import MultiStreamEngine
+    from real_time_video_deepfake_detection_tpu_torch.pipeline.detector import DeepfakeDetector
+    from real_time_video_deepfake_detection_tpu_torch.serving.server import create_app
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        MultiStreamEngine()
+    for entry in (MultiStreamEngine, DeepfakeDetector, create_app):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry()
     with pytest.raises(RuntimeError):
         resolve_device()
     assert resolve_device("cpu").type == "cpu"
