@@ -23,7 +23,9 @@ in phases, each printing one JSON line:
               statistics set from one batch), 16 streams x 12 synthetic
               480x640 frames from 16 threads, with the preproc and hue
               kernels on; checks the responses and that the kernels were
-              launched; times host prep on one thread
+              launched; times host prep on one thread, the face crop's Lab
+              + CLAHE with each rung of the Lab ladder; then the same run
+              with the jnp Lab rung pinned in place of the default cv2 one
   5. parity   device_step_compact at bucket 64 on cuda against the same
               tick on the CPU (where the plain versions run); the tick's
               time, a profiler window over it (device busy and idle share,
@@ -55,8 +57,19 @@ in phases, each printing one JSON line:
               each; every kernel launched in every tick, and stream 0's
               responses equal to a second engine's fed the decoded frames
               through analyze (floats within 1e-6)
+ 10. wire     the wire planes of JPEG ingest (ServerConfig.ingest_plane):
+              (a) device-detect engines (as detect-serve) with the bgr,
+              coef and ycbcr420 planes answer the same requests alike (an
+              eligible 480x640 fixture, the 720x405 frame, which takes the
+              full decode, and a corrupt stream: 400; floats within 1e-6);
+              (b) the planes' reconstruction on the card equals the CPU's
+              and the full decode byte for byte, with its device ms and
+              activities inside a bucket-16 tick and the copy of the wire
+              buffer, pinned and pageable; (c) batched HTTP as in http(b)
+              with the 480x640 fixtures, each plane in turn, every kernel
+              launched in every tick
 
-then a `{"kernels": [...]}` line (launches: the http phase's batched run) and, last, `{"ok": true, "device": ...}`.
+then a `{"kernels": [...]}` line (launches: the wire phase's coef run) and, last, `{"ok": true, "device": ...}`.
 Any failed phase makes it exit non-zero without the last line. It needs a
 CUDA device and the repository checkout around it.
 
@@ -536,34 +549,56 @@ _SCHEMA = {"success", "analysis_mode", "faces_detected", "fake_probability",
 
 def _host_prep_ms(engine, frames):
     """Median ms of each host-prep step of MultiStreamEngine.analyze on one
-    thread with nothing else running, over a face stream's frames."""
+    thread with nothing else running, over a face stream's frames: the Lab
+    + CLAHE of the face crop with each rung of the Lab ladder (clahe_lab:
+    the default, cv2's 8-bit tables in numpy), and the jnp rung with the
+    exact powf chain alone."""
     from real_time_video_deepfake_detection_tpu_torch.pipeline.detector import (
         preprocess_face_quality)
     from real_time_video_deepfake_detection_tpu_torch.utils.host_resize import (
         resize_analysis)
     steps = {"resize_analysis": [], "detect": [], "clahe_lab": [], "align": [],
-             "clahe_lab_exact_powf_only": []}
+             "clahe_lab_native": [], "clahe_lab_jnp": [], "clahe_lab_jnp_exact_powf_only": []}
     for f in frames:
-        t0 = time.perf_counter()
+        t = [time.perf_counter()]
         resize_analysis(f, 256, 256)
-        t1 = time.perf_counter()
+        t.append(time.perf_counter())
         x, y, fw, fh = engine.face_detector(f)[0]
-        t2 = time.perf_counter()
-        crop = preprocess_face_quality(f[y:y + fh, x:x + fw])
-        t3 = time.perf_counter()
+        face = f[y:y + fh, x:x + fw]
+        t.append(time.perf_counter())
+        crop = preprocess_face_quality(face)
+        t.append(time.perf_counter())
         engine.aligner(crop)
-        t4 = time.perf_counter()
+        t.append(time.perf_counter())
+        preprocess_face_quality(face, lab_backend="native")
+        t.append(time.perf_counter())
+        jnp_crop = preprocess_face_quality(face, lab_backend="jnp")
+        t.append(time.perf_counter())
         with exact_powf_only():
-            same = preprocess_face_quality(f[y:y + fh, x:x + fw])
-        t5 = time.perf_counter()
-        if not (same == crop).all():
+            same = preprocess_face_quality(face, lab_backend="jnp")
+        t.append(time.perf_counter())
+        if not (same == jnp_crop).all():
             raise AssertionError("the exact powf chain alone changed a CLAHE'd crop")
-        for k, a, b in zip(steps, (t0, t1, t2, t3, t4), (t1, t2, t3, t4, t5)):
+        for k, a, b in zip(steps, t, t[1:]):
             steps[k].append((b - a) * 1e3)
     return {k: statistics.median(v) for k, v in steps.items()}
 
 
 def phase_serve(ctx):
+    """The host-prep engine with the default Lab rung (cv2's 8-bit tables),
+    then with the jnp rung pinned, in turns in one call."""
+    from real_time_video_deepfake_detection_tpu_torch.pipeline import detector
+    runs = {}
+    for lab in ("cv2", "jnp"):
+        saved, detector._LAB_BACKEND = detector._LAB_BACKEND, lab
+        try:
+            runs[lab] = _serve_run(ctx, host_prep=lab == "cv2")
+        finally:
+            detector._LAB_BACKEND = saved
+    return {"lab_rung_cv2": runs["cv2"], "lab_rung_jnp": runs["jnp"]}
+
+
+def _serve_run(ctx, host_prep):
     import numpy as np
     import torch
     from real_time_video_deepfake_detection_tpu_torch.core.config import (
@@ -639,7 +674,7 @@ def phase_serve(ctx):
             problems.append(f"kernel {k} was not launched on the main path")
     face_probs = [r["face_probability"] for rs in results.values() for r in rs
                   if "face_probability" in r]
-    host_prep = _host_prep_ms(engine, frames[0])
+    host_prep = _host_prep_ms(engine, frames[0]) if host_prep else None
     if not max(face_probs) - min(face_probs) > 1e-3:
         problems.append(f"the classifier gave every face the same probability {face_probs[0]}")
     if problems:
@@ -1405,11 +1440,182 @@ def phase_http(ctx):
     return {"single_stream": single, "batched_device_detect": batched}
 
 
+# ------------------------------------------------------------------- wire
+
+# the fixtures at detect_capture_hw (480x640), which the wire planes carry
+WIRE_JPEGS = ("frame_640x480_q85_420.jpg", "q50_640x480_420.jpg", "q95_640x480_420.jpg")
+
+
+def _wire_reconstruction(data):
+    """(b) The wire planes of a bucket-16 batch of the 480x640 fixtures:
+    the reconstruction on the card against the CPU's and against the full
+    decode, byte for byte; then, inside one such tick, the reconstruction's
+    device ms and activities and the copy of the wire buffer to the card,
+    from pinned and from pageable memory."""
+    import numpy as np
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.ops.jpeg_decode import (
+        bgr_from_coefs_420, bgr_from_ycbcr420)
+    from real_time_video_deepfake_detection_tpu_torch.utils import jpeg_ingest as J
+    datas = [data[WIRE_JPEGS[i % 3]] for i in range(16)]
+    full = torch.from_numpy(np.stack([J.decode_jpeg(d) for d in datas]))
+    out = {}
+    for plane, rec in (("coef", lambda y, c, q: bgr_from_coefs_420(
+            y, c, q.to(torch.int32) & 0xFFFF, 480, 640)), ("ycbcr420", bgr_from_ycbcr420)):
+        pinned = J.wire_buffer(plane, 16, 480, 640, pin_memory=True)
+        t0 = time.perf_counter()
+        ok = J.decode_wire_into(plane, datas, 480, 640, pinned.numpy())
+        decode_ms = (time.perf_counter() - t0) * 1e3
+        if not ok.all():
+            raise AssertionError(f"{plane}: fixtures refused by the wire decode: {ok}")
+        dev = pinned.cuda()
+        on_card = rec(*J.wire_views(plane, dev, 480, 640))
+        on_cpu = rec(*J.wire_views(plane, pinned, 480, 640))
+        if not torch.equal(on_card.cpu(), on_cpu) or not torch.equal(on_cpu, full):
+            raise AssertionError(f"{plane}: {int((on_card.cpu() != on_cpu).sum())} bytes differ "
+                                 f"card vs CPU, {int((on_cpu != full).sum())} CPU vs full decode")
+        fn = functools.partial(rec, *J.wire_views(plane, dev, 480, 640))
+        wall, busy, acts, top = profile_device(fn, 10)
+        pageable = torch.from_numpy(pinned.numpy().copy())
+        out[plane] = {
+            "bytes_per_frame": pinned[0].numel() * pinned.element_size(),
+            "host_decode_ms_16_frames": decode_ms,
+            "reconstruct_bucket16": {"event_ms": time_cuda(fn, n=20), "device_ms": busy,
+                                     "device_activities": acts, "top": top[:4]},
+            "copy_bucket16_event_ms": {
+                "pinned": time_cuda(lambda: pinned.to("cuda", non_blocking=True), n=20),
+                "pageable": time_cuda(lambda: pageable.to("cuda"), n=20)}}
+    return out
+
+
+def _wire_http(ctx, engine, data, n_streams, n_frames):
+    """(c) create_batched_app over `engine`, n_streams client threads with
+    X-Stream-Id sending n_frames of the 480x640 fixtures each, 150 ms
+    apart; every kernel launched in every tick, wire ticks counted apart."""
+    import numpy as np
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.serving.multi import create_batched_app
+    ticks = []
+
+    def counted(dispatch, kind, active_at):
+        def run(tick_cfg, arrays, states):
+            before = _read_launches()
+            out = dispatch(tick_cfg, arrays, states)
+            torch.cuda.synchronize()
+            after = _read_launches()
+            ticks.append((kind, int(np.sum(arrays[active_at])),
+                          {k: after[k] - before[k] for k in after}))
+            return out
+        return run
+
+    engine._dispatch = counted(engine._dispatch, "bgr", 1)   # (frames, active, slot_idx)
+    engine._dispatch_wire = counted(engine._dispatch_wire, "wire", -2)
+    app = create_batched_app(engine, engine.server_cfg)
+    results = {s: [] for s in range(n_streams)}
+    lat, errors = [], []
+    op = _client()
+    with _serving(app) as url:
+        def client(s):
+            try:
+                last = 0.0
+                for t in range(n_frames):
+                    time.sleep(max(0.0, last + 0.15 - time.time()))
+                    last = time.time()
+                    st, r, sec = _http(op, url + "/analyze", data[WIRE_JPEGS[t % 3]],
+                                       sid=f"stream-{s}")
+                    results[s].append((st, r))
+                    lat.append(sec * 1e3)
+            except Exception as e:   # reported below; the phase fails on it
+                errors.append(f"stream {s}: {type(e).__name__}: {e}")
+
+        _reset_launches()
+        t0 = time.time()
+        threads = [threading.Thread(target=client, args=(s,)) for s in range(n_streams)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.time() - t0
+        launches = _read_launches()
+        metrics = _http(op, url + "/metrics")[1]
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"clients failed: {errors[:3]}")
+    problems = []
+    for s, rs in results.items():
+        for t, (st, r) in enumerate(rs):
+            if st != 200 or _SCHEMA - set(r) or r.get("frame_count") != t + 1:
+                problems.append(f"stream {s} frame {t}: {st} {r}")
+    for i, (kind, _, tl) in enumerate(ticks):
+        if min(tl.values()) <= 0:
+            problems.append(f"{kind} tick {i}: a kernel was not launched: {tl}")
+    wire_ticks = [n for kind, n, _ in ticks if kind == "wire"]
+    plane = engine.server_cfg.ingest_plane
+    if (plane != "bgr") != bool(wire_ticks) or (plane != "bgr" and len(wire_ticks) != len(ticks)):
+        problems.append(f"{plane}: {len(wire_ticks)} wire ticks of {len(ticks)}")
+    if problems:
+        raise AssertionError(f"wire http {plane}: " + "; ".join(problems[:6]))
+    return {"frames_per_s": n_streams * n_frames / wall, "wall_s": wall,
+            "latency_ms_p50": float(np.percentile(lat, 50)),
+            "latency_ms_p99": float(np.percentile(lat, 99)),
+            "ewma_host_prep_ms": metrics["ewma_host_prep_ms"], "ticks": len(ticks),
+            "wire_ticks": len(wire_ticks), "mean_batch": statistics.mean(n for _, n, _ in ticks),
+            "launches": launches,
+            "launches_per_tick_min": {k: min(t[k] for _, _, t in ticks) for k in launches},
+            "engine_metrics": metrics}
+
+
+def phase_wire(ctx):
+    """The wire planes of device-detect serving: (a) the bgr, coef and
+    ycbcr420 engines (as detect-serve) answer the same requests alike, an
+    eligible 480x640 frame, the 720x405 frame (not eligible: full decode)
+    and a corrupt stream (400); (b) the reconstruction on the card equals
+    the CPU's; (c) batched HTTP with each plane in turn."""
+    from real_time_video_deepfake_detection_tpu_torch.core.config import ServerConfig
+    from real_time_video_deepfake_detection_tpu_torch.models.caffe_net import CaffeNet
+    from real_time_video_deepfake_detection_tpu_torch.serving.multi import MultiStreamEngine
+    data, _ = _jpegs()
+    proto, cm = _ssd_files(ctx)
+    probe = [data[WIRE_JPEGS[0]], data[FRAME_JPEG], b"\xff\xd8 corrupt stream"]
+    answers, served = {}, {}
+    for plane in ("bgr", "coef", "ycbcr420"):
+        engine = MultiStreamEngine(
+            _detect_cfg(), ServerConfig(max_streams=64, max_batch=64, device_detect=True,
+                                        ingest_plane=plane),
+            params=b0_state(ctx), device="cuda", ssd_net=CaffeNet(proto, cm))
+        try:
+            answers[plane] = [engine.analyze_jpeg(d, "probe") for d in probe * 2]
+            served[plane] = _wire_http(ctx, engine, data, n_streams=16, n_frames=12)
+        finally:
+            engine.shutdown()
+    problems, max_diff = [], 0.0
+    for plane in ("coef", "ycbcr420"):
+        for i, (want, got) in enumerate(zip(answers["bgr"], answers[plane])):
+            if set(got) != set(want):
+                problems.append(f"{plane} request {i}: keys {set(got) ^ set(want)}")
+                continue
+            for k in set(want) - {"processing_time_ms"}:
+                if isinstance(want[k], float):
+                    max_diff = max(max_diff, abs(got[k] - want[k]))
+                    if not abs(got[k] - want[k]) <= 1e-6:
+                        problems.append(f"{plane} request {i} {k}: {got[k]} vs {want[k]}")
+                elif got[k] != want[k]:
+                    problems.append(f"{plane} request {i} {k}: {got[k]} vs {want[k]}")
+    if [r.get("status") for r in answers["bgr"]] != [None, None, 400] * 2:
+        problems.append(f"bgr answers {answers['bgr']}")
+    if problems:
+        raise AssertionError("; ".join(problems[:6]))
+    ctx["launches"] = served["coef"]["launches"]
+    return {"requests": ["eligible 480x640", "720x405 (full decode)", "corrupt"] * 2,
+            "answers_bgr": answers["bgr"], "max_float_diff_vs_bgr": max_diff,
+            "tolerance": 1e-6, "reconstruction": _wire_reconstruction(data),
+            "http_16_streams": served}
+
+
 PHASES = (("device", phase_device), ("build", phase_build),
           ("kernels", phase_kernels), ("serve", phase_serve),
           ("parity", phase_parity), ("detect-serve", phase_detect_serve),
           ("detect-parity", phase_detect_parity), ("decode", phase_decode),
-          ("http", phase_http))
+          ("http", phase_http), ("wire", phase_wire))
 
 
 def main() -> int:

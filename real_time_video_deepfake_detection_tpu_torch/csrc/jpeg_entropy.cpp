@@ -25,6 +25,11 @@
 // int16 in natural (row-major) order within each block, components one
 // after another in one buffer. Quant tables: (components, 64) uint16 in
 // natural order, each component's table as latched at its first scan.
+//
+// For the serving tick's wire planes (ServerConfig.ingest_plane) two pooled
+// entries decode eligible 4:2:0 streams straight into rows of one batch
+// buffer: jpeg_wire_coefs_batch (coefficients and quant tables, "coef") and
+// jpeg_wire_raw420_batch (the planes after the inverse DCT, "ycbcr420").
 
 #include <algorithm>
 #include <cstddef>
@@ -529,6 +534,133 @@ struct Decoder {
   }
 };
 
+// ------------------------------------------------------ 4:2:0 wire planes
+//
+// The serving tick's wire planes split the decode between host and device.
+// A stream is eligible when it has three YCbCr components sampled 2x2, 1x1,
+// 1x1, is exactly (eh, ew) with both multiples of 16, and its Cb and Cr use
+// one quant table; every other stream gets ok = 0 (the caller decodes it in
+// full), as the JAX package's native/ingest.cpp check_420_header. At these
+// sizes the padded block grid is the image: Y holds (eh/8)(ew/8) blocks, Cb
+// and Cr a quarter of that each.
+
+int jpeg_decode_coefs_impl(const uint8_t* data, size_t len, const int32_t* info,
+                           int16_t* coefs, uint16_t* qtabs) {
+  Decoder dec(data, len);
+  return dec.run(info, coefs, qtabs);
+}
+
+// Probes `data` and decodes its coefficients into `coefs` (zeroed here; Y,
+// Cb, Cr blocks one after another) when the stream is eligible; qt gets the
+// luma and the chroma table. 0 when eligible and decoded.
+int wire_decode_coefs(const uint8_t* data, size_t len, int eh, int ew, int16_t* coefs,
+                      uint16_t* qt) {
+  Decoder probe(data, len);
+  if (probe.run(nullptr, nullptr, nullptr) != kOk) return 1;
+  const int32_t* info = probe.info;
+  if (eh % 16 || ew % 16 || info[0] != eh || info[1] != ew || info[2] != 3) return 1;
+  if (info[7] != 2 || info[8] != 2 || info[9] != 1 || info[10] != 1 || info[11] != 1 ||
+      info[12] != 1 || probe.comp[1].tq != probe.comp[2].tq)
+    return 1;
+  memset(coefs, 0, size_t(eh / 8) * (ew / 8) * 3 / 2 * 64 * sizeof(int16_t));
+  uint16_t latched[3 * 64];
+  if (jpeg_decode_coefs_impl(data, len, info, coefs, latched) != kOk) return 1;
+  // a DQT between the Cb and Cr scans could latch two tables on one slot
+  if (memcmp(latched + 64, latched + 128, 64 * sizeof(uint16_t)) != 0) return 1;
+  memcpy(qt, latched, 2 * 64 * sizeof(uint16_t));
+  return 0;
+}
+
+// jpeg_idct_islow (jidctint.c), the C twin of ops/jpeg.idct_islow: int32
+// arithmetic that wraps as torch's does (here in uint32, where wrapping is
+// defined), columns then rows, + 128 and clamped to [0, 255] as
+// ops/jpeg_decode.samples_from_coefs.
+constexpr int kConstBits = 13, kPass1Bits = 2;
+constexpr uint32_t F_0_298631336 = 2446, F_0_390180644 = 3196, F_0_541196100 = 4433,
+                   F_0_765366865 = 6270, F_0_899976223 = 7373, F_1_175875602 = 9633,
+                   F_1_501321110 = 12299, F_1_847759065 = 15137, F_1_961570560 = 16069,
+                   F_2_053119869 = 16819, F_2_562915447 = 20995, F_3_072711026 = 25172;
+
+inline uint32_t descale(uint32_t x, int n) {
+  return static_cast<uint32_t>(static_cast<int32_t>(x + (uint32_t(1) << (n - 1))) >> n);
+}
+
+void idct_1d(const uint32_t* in, int stride, uint32_t* out, int shift) {
+  const uint32_t d0 = in[0], d1 = in[stride], d2 = in[2 * stride], d3 = in[3 * stride],
+                 d4 = in[4 * stride], d5 = in[5 * stride], d6 = in[6 * stride],
+                 d7 = in[7 * stride];
+  uint32_t z1 = (d2 + d6) * F_0_541196100;
+  const uint32_t tmp2 = z1 + d6 * (0u - F_1_847759065);
+  const uint32_t tmp3 = z1 + d2 * F_0_765366865;
+  const uint32_t tmp0 = (d0 + d4) << kConstBits;
+  const uint32_t tmp1 = (d0 - d4) << kConstBits;
+  const uint32_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+  const uint32_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+  uint32_t t0 = d7, t1 = d5, t2 = d3, t3 = d1;
+  z1 = t0 + t3;
+  uint32_t z2 = t1 + t2, z3 = t0 + t2, z4 = t1 + t3;
+  const uint32_t z5 = (z3 + z4) * F_1_175875602;
+  t0 *= F_0_298631336;
+  t1 *= F_2_053119869;
+  t2 *= F_3_072711026;
+  t3 *= F_1_501321110;
+  z1 *= 0u - F_0_899976223;
+  z2 *= 0u - F_2_562915447;
+  z3 = z3 * (0u - F_1_961570560) + z5;
+  z4 = z4 * (0u - F_0_390180644) + z5;
+  t0 += z1 + z3;
+  t1 += z2 + z4;
+  t2 += z2 + z3;
+  t3 += z1 + z4;
+  out[0] = descale(tmp10 + t3, shift);
+  out[stride] = descale(tmp11 + t2, shift);
+  out[2 * stride] = descale(tmp12 + t1, shift);
+  out[3 * stride] = descale(tmp13 + t0, shift);
+  out[4 * stride] = descale(tmp13 - t0, shift);
+  out[5 * stride] = descale(tmp12 - t1, shift);
+  out[6 * stride] = descale(tmp11 - t2, shift);
+  out[7 * stride] = descale(tmp10 - t3, shift);
+}
+
+// One block's samples into an 8x8 window of a plane with row pitch `pitch`.
+void idct_block(const int16_t* coef, const uint16_t* qt, uint8_t* dst, int pitch) {
+  uint32_t deq[64], ws[64], sp[64];
+  for (int i = 0; i < 64; ++i)
+    deq[i] = static_cast<uint32_t>(int32_t(coef[i]) * int32_t(qt[i]));
+  for (int c = 0; c < 8; ++c) idct_1d(deq + c, 8, ws + c, kConstBits - kPass1Bits);
+  for (int r = 0; r < 8; ++r) idct_1d(ws + 8 * r, 1, sp + 8 * r, kConstBits + kPass1Bits + 3);
+  for (int r = 0; r < 8; ++r) {
+    for (int c = 0; c < 8; ++c) {
+      const int32_t v = static_cast<int32_t>(sp[8 * r + c] + 128u);
+      dst[r * pitch + c] = static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
+    }
+  }
+}
+
+// A component's (hb, wb) blocks into its (8 hb, 8 wb) plane.
+void idct_plane(const int16_t* coefs, const uint16_t* qt, int hb, int wb, uint8_t* plane) {
+  for (int by = 0; by < hb; ++by)
+    for (int bx = 0; bx < wb; ++bx)
+      idct_block(coefs + (int64_t(by) * wb + bx) * 64, qt,
+                 plane + int64_t(by) * 8 * wb * 8 + bx * 8, wb * 8);
+}
+
+// Runs work(i, t) for i in [0, n) on up to n_threads threads (0: one per
+// core); t is the worker's index.
+template <typename Work>
+void pooled(int n, int n_threads, Work work) {
+  if (n <= 0) return;
+  if (n_threads <= 0) n_threads = static_cast<int>(std::thread::hardware_concurrency());
+  n_threads = std::max(1, std::min(n_threads, n));
+  auto run = [&](int t) {
+    for (int i = t; i < n; i += n_threads) work(i, t);
+  };
+  std::vector<std::thread> pool;
+  for (int t = 1; t < n_threads; ++t) pool.emplace_back(run, t);
+  run(0);
+  for (auto& th : pool) th.join();
+}
+
 }  // namespace
 
 extern "C" {
@@ -547,8 +679,7 @@ int jpeg_probe(const uint8_t* data, size_t len, int32_t* info) {
 // coefficient buffer must be zeroed; 0 or a negative status.
 int jpeg_decode_coefs(const uint8_t* data, size_t len, const int32_t* info,
                       int16_t* coefs, uint16_t* qtabs) {
-  Decoder dec(data, len);
-  return dec.run(info, coefs, qtabs);
+  return jpeg_decode_coefs_impl(data, len, info, coefs, qtabs);
 }
 
 // jpeg_decode_coefs over n streams on up to n_threads threads (0: one per
@@ -557,18 +688,51 @@ void jpeg_decode_coefs_batch(const uint8_t* const* datas, const size_t* lens,
                              const int32_t* infos, int16_t* const* coefs,
                              uint16_t* const* qtabs, int n, int n_threads,
                              int32_t* rcs) {
-  if (n <= 0) return;
+  pooled(n, n_threads, [&](int i, int) {
+    rcs[i] = jpeg_decode_coefs_impl(datas[i], lens[i], infos + int64_t(i) * kInfoLen,
+                                    coefs[i], qtabs[i]);
+  });
+}
+
+// The "coef" wire plane of n streams: row i of `out` (int16, (eh/8)(ew/8)
+// * 3/2 + 2 blocks of 64) gets stream i's Y, Cb and Cr coefficient blocks,
+// then its luma and chroma quant tables as uint16 bits (zeroed when the
+// stream is not eligible; its coefficients are then left as they were).
+// ok[i] = 1 when stream i is eligible and decoded.
+void jpeg_wire_coefs_batch(const uint8_t* const* datas, const size_t* lens, int n, int eh,
+                           int ew, int16_t* out, int n_threads, int32_t* ok) {
+  const int64_t blocks = int64_t(eh / 8) * (ew / 8) * 3 / 2;
+  pooled(n, n_threads, [&](int i, int) {
+    int16_t* row = out + int64_t(i) * (blocks + 2) * 64;
+    uint16_t* qt = reinterpret_cast<uint16_t*>(row + blocks * 64);
+    ok[i] = wire_decode_coefs(datas[i], lens[i], eh, ew, row, qt) == 0;
+    if (!ok[i]) memset(qt, 0, 2 * 64 * sizeof(uint16_t));
+  });
+}
+
+// The "ycbcr420" wire plane of n streams: row i of `out` (eh * ew * 3/2
+// bytes) gets stream i's Y plane (eh, ew), then Cb and Cr (eh/2, ew/2),
+// the samples of the inverse DCT without upsampling, as libjpeg's
+// raw_data_out gives them. ok[i] as jpeg_wire_coefs_batch; a row of a
+// stream that is not eligible is left as it was.
+void jpeg_wire_raw420_batch(const uint8_t* const* datas, const size_t* lens, int n, int eh,
+                            int ew, uint8_t* out, int n_threads, int32_t* ok) {
+  const int hb = eh / 8, wb = ew / 8;
+  const int64_t yb = int64_t(hb) * wb;
   if (n_threads <= 0) n_threads = static_cast<int>(std::thread::hardware_concurrency());
-  n_threads = std::max(1, std::min(n_threads, n));
-  auto work = [&](int t) {
-    for (int i = t; i < n; i += n_threads)
-      rcs[i] = jpeg_decode_coefs(datas[i], lens[i], infos + int64_t(i) * kInfoLen,
-                                 coefs[i], qtabs[i]);
-  };
-  std::vector<std::thread> pool;
-  for (int t = 1; t < n_threads; ++t) pool.emplace_back(work, t);
-  work(0);
-  for (auto& th : pool) th.join();
+  std::vector<std::vector<int16_t>> scratch(std::max(1, std::min(n_threads, n)));
+  pooled(n, n_threads, [&](int i, int t) {
+    std::vector<int16_t>& coefs = scratch[t];
+    coefs.resize(yb * 3 / 2 * 64);
+    uint16_t qt[2 * 64];
+    ok[i] = wire_decode_coefs(datas[i], lens[i], eh, ew, coefs.data(), qt) == 0;
+    if (!ok[i]) return;
+    uint8_t* y = out + int64_t(i) * eh * ew * 3 / 2;
+    idct_plane(coefs.data(), qt, hb, wb, y);
+    for (int c = 0; c < 2; ++c)
+      idct_plane(coefs.data() + (yb + c * yb / 4) * 64, qt + 64, hb / 2, wb / 2,
+                 y + int64_t(eh) * ew + int64_t(c) * (eh / 2) * (ew / 2));
+  });
 }
 
 }  // extern "C"

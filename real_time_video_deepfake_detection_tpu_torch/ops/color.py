@@ -175,3 +175,56 @@ def lab_to_rgb_u8(lab_u8: torch.Tensor) -> torch.Tensor:
     g = _fma(z, _k(0.041556, _LAB_ZN), _fma(y, ky[1], x * _k(-0.969256, _LAB_XN)))
     b = _fma(z, _k(1.057311, _LAB_ZN), _fma(x, _k(0.055648, _LAB_XN), -(y * ky[2])))
     return _linear_to_srgb_u8(torch.stack([r, g, b], dim=-1))
+
+
+# The same jnp Lab pair as the JAX package's host path calls it, outside jit
+# (pipeline/detector.preprocess_face_quality's `jnp` rung): every jnp op is a
+# computation of its own, so each product, quotient and sum rounds to f32 in
+# source order, with no reciprocal, no constant folding and no contraction;
+# the powers and cube roots are glibc's powf as above. Both conversions equal
+# the JAX functions called eagerly on the CPU (tests/test_torch_lab.py, every
+# 17th of the 2^24 inputs).
+
+
+def _lab_f_op_by_op(t: torch.Tensor) -> torch.Tensor:
+    return torch.where(t > _LAB_EPS, _cbrt(t), t * _k(7.787) + _LAB_K)
+
+
+def rgb_to_lab_u8_op_by_op(rgb_u8: torch.Tensor) -> torch.Tensor:
+    """(..., 3) u8 RGB -> (..., 3) u8 Lab, the JAX rgb_to_lab_u8 op by op."""
+    c = rgb_u8.to(torch.float32) / _k(255.0)
+    lin = torch.where(c <= _k(0.04045), c / _k(12.92),
+                      powf((c + _k(0.055)) / _k(1.055), 2.4))
+    r, g, b = lin[..., 0], lin[..., 1], lin[..., 2]
+    x = (r * _k(0.412453) + g * _k(0.357580) + b * _k(0.180423)) / _k(_LAB_XN)
+    y = r * _k(0.212671) + g * _k(0.715160) + b * _k(0.072169)
+    z = (r * _k(0.019334) + g * _k(0.119193) + b * _k(0.950227)) / _k(_LAB_ZN)
+    fy = _lab_f_op_by_op(y)
+    L = torch.where(y > _LAB_EPS, _cbrt(y) * _k(116.0) - _k(16.0), y * _k(903.3))
+    a = (_lab_f_op_by_op(x) - fy) * _k(500.0) + _k(128.0)
+    bb = (fy - _lab_f_op_by_op(z)) * _k(200.0) + _k(128.0)
+    return torch.stack([_q_u8(L * _k(255.0) / _k(100.0)), _q_u8(a), _q_u8(bb)], dim=-1)
+
+
+def lab_to_rgb_u8_op_by_op(lab_u8: torch.Tensor) -> torch.Tensor:
+    """(..., 3) u8 Lab -> (..., 3) u8 RGB, the JAX lab_to_rgb_u8 op by op."""
+    lab = lab_u8.to(torch.float32)
+    L = lab[..., 0] * _k(100.0) / _k(255.0)
+    fy = (L + _k(16.0)) / _k(116.0)
+    fx = fy + (lab[..., 1] - _k(128.0)) / _k(500.0)
+    fz = fy - (lab[..., 2] - _k(128.0)) / _k(200.0)
+
+    def finv(t):
+        t3 = t * t * t
+        return torch.where(t3 > _LAB_EPS, t3, (t - _LAB_K) / _k(7.787))
+
+    y = torch.where(L > 8.0, fy * fy * fy, L / _k(903.3))
+    x = finv(fx) * _k(_LAB_XN)
+    z = finv(fz) * _k(_LAB_ZN)
+    rgb = torch.stack([x * _k(3.240479) - y * _k(1.537150) - z * _k(0.498535),
+                       x * _k(-0.969256) + y * _k(1.875991) + z * _k(0.041556),
+                       x * _k(0.055648) - y * _k(0.204043) + z * _k(1.057311)], dim=-1)
+    c = torch.clamp(rgb, 0.0, 1.0)
+    s = torch.where(c <= _k(0.0031308), c * _k(12.92),
+                    powf(c, 1.0 / 2.4) * _k(1.055) - _k(0.055))
+    return _q_u8(s * _k(255.0))

@@ -16,7 +16,9 @@ forensics); the tracker takes the face probability when a face is analyzed;
 a failed face analysis returns (None, None, None) and the frame falls back
 to forensic-only, with a warning the first time.
 
-Also here, as in the JAX package: `preprocess_face_quality` and the resize
+Also here, as in the JAX package: `preprocess_face_quality`, with the JAX
+package's ladder of Lab rungs (cv2, native, jnp; an unpinned call takes
+cv2's 8-bit conversion, which the port computes without cv2), and the resize
 aligner, the host prep of the batched engine.
 
 Not in this slice (each raises NotImplementedError): checkpoint loading
@@ -39,7 +41,7 @@ from ..core.device import resolve_device
 from ..models import backbones
 from ..ops import forensics
 from ..ops.clahe import clahe_u8_numpy
-from ..ops.color import bgr_to_gray_u8, lab_to_rgb_u8, rgb_to_lab_u8
+from ..ops.color import bgr_to_gray_u8, lab_to_rgb_u8_op_by_op, rgb_to_lab_u8_op_by_op
 from ..state.forensic_state import ForensicState, forensic_state_init_batch, forensic_state_reset
 from ..state.tracker import TemporalTracker
 from ..utils.host_resize import resize_analysis
@@ -47,15 +49,43 @@ from .classify import apply_small_face_heuristic, classify_batch
 from .faces import FaceDetector
 
 
-def preprocess_face_quality(face_bgr: np.ndarray) -> np.ndarray:
+LAB_BACKENDS = ("cv2", "native", "jnp")
+# the rung an unpinned call takes: the JAX ladder's first, cv2, which the
+# port computes without cv2 (ops/lab_u8.py); a test or a benchmark may pin
+# another here, as the JAX package's tests pin theirs
+_LAB_BACKEND = "cv2"
+
+
+def preprocess_face_quality(face_bgr: np.ndarray,
+                            lab_backend: Optional[str] = None) -> np.ndarray:
     """BGR u8 crop -> BGR u8 crop with CLAHE(2.0, 8x8) applied to the Lab L
-    channel (deepfake_detection.py:357-370): the JAX package's jnp Lab rung,
-    in torch on the CPU, and the numpy CLAHE."""
-    rgb = torch.from_numpy(np.ascontiguousarray(face_bgr[..., ::-1]))
-    lab = rgb_to_lab_u8(rgb).numpy()
+    channel (deepfake_detection.py:357-370), with the numpy CLAHE. The Lab
+    pair is a rung of the JAX package's ladder, `lab_backend` (None: the
+    module's `_LAB_BACKEND`, "cv2"):
+
+      "cv2"     cv2.cvtColor's 8-bit tables, rebuilt in numpy integer
+                arithmetic (ops/lab_u8.py), the original repo's conversion
+      "native"  the JAX package's float-formula C pair (csrc/lab_host.cpp)
+      "jnp"     the JAX package's jnp Lab as its host path calls it, op by
+                op (ops/color.py, in torch on the CPU)
+    """
+    backend = lab_backend or _LAB_BACKEND
+    if backend == "cv2":
+        from ..ops.lab_u8 import bgr_to_lab_u8_cv2 as to_lab, lab_to_bgr_u8_cv2 as to_bgr
+    elif backend == "native":
+        from ..utils.native_lab import bgr2lab_native as to_lab, lab2bgr_native as to_bgr
+    elif backend == "jnp":
+        def to_lab(bgr):
+            rgb = torch.from_numpy(np.ascontiguousarray(bgr[..., ::-1]))
+            return rgb_to_lab_u8_op_by_op(rgb).numpy()
+
+        def to_bgr(lab):
+            return lab_to_rgb_u8_op_by_op(torch.from_numpy(lab)).numpy()[..., ::-1].copy()
+    else:
+        raise ValueError(f"unknown lab_backend {backend!r} (expected one of {LAB_BACKENDS})")
+    lab = to_lab(face_bgr)
     l_eq = clahe_u8_numpy(lab[..., 0], clip_limit=2.0, tiles=8)
-    merged = np.stack([l_eq, lab[..., 1], lab[..., 2]], axis=-1)
-    return lab_to_rgb_u8(torch.from_numpy(merged)).numpy()[..., ::-1].copy()
+    return to_bgr(np.stack([l_eq, lab[..., 1], lab[..., 2]], axis=-1))
 
 
 class _ResizeAligner:

@@ -18,7 +18,10 @@ make_device_step_detect builds the capture-to-verdict tick of device-detect
 serving: capture-size BGR frames -> the 300x300 and 256x256 cv2-exact
 resizes -> the SSD Caffe graph, decode and NMS -> the reference's box
 selection -> per-stream crop and align to 160x160 RGB -> the tick above.
-Clip attention, in-tick MTCNN and the SSD in bf16 come with later slices.
+make_device_step_detect_wire feeds the same tick from a wire plane of the
+JPEG ingest (quantised coefficients, or the 4:2:0 planes after the inverse
+DCT), finishing the decode in the tick. Clip attention, in-tick MTCNN and
+the SSD in bf16 come with later slices.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from ..models.efficientnet import EfficientNet
 from ..models.ssd_res10 import detect_postprocess_batch, ssd_input
 from ..ops import forensics
 from ..ops.color import lab_to_rgb_u8, rgb_to_lab_u8
+from ..ops.jpeg_decode import bgr_from_coefs_420, bgr_from_ycbcr420
 from ..ops.resize import crop_resize_u8_cv2, resize_bilinear_u8_cv2
 from ..pipeline.classify import classify_batch
 from ..state.forensic_state import ForensicState, forensic_state_init_batch
@@ -260,3 +264,37 @@ def make_device_step_detect(net: CaffeNet, model: EfficientNet, cfg: DetectorCon
                             slot_idx, states)
 
     return step
+
+
+def make_device_step_detect_wire(net: CaffeNet, model: EfficientNet, cfg: DetectorConfig,
+                                 wire: str, capture_hw: Tuple[int, int]):
+    """The detect tick fed by a wire plane of the JPEG ingest
+    (ServerConfig.ingest_plane) instead of decoded frames: the tick first
+    finishes the decode with libjpeg's integer math (ops/jpeg_decode), then
+    runs make_device_step_detect's tick.
+
+      wire="coef":     step(coef_y i16 (B, yb, 64), coef_c i16 (B, 2, yb/4,
+                       64), qtab (B, 2, 64) uint16 values in any integer
+                       dtype (int16 bits included), active, slot_idx, states):
+                       dequantise, inverse DCT, upsample, YCbCr -> BGR
+      wire="ycbcr420": step(y u8 (B, H, W), c u8 (B, 2, H/2, W/2), active,
+                       slot_idx, states): upsample, YCbCr -> BGR
+
+    Inactive rows may hold garbage (the engine decodes straight into its
+    padded bucket and flags the ineligible entries): the arithmetic is
+    integer only, its output is clamped, and active=False masks every
+    state update."""
+    detect_prep = _make_detect_prep(net, cfg)
+    hc, wc = capture_hw
+
+    if wire == "coef":
+        def step(coef_y, coef_c, qtab, active, slot_idx, states):
+            frames = bgr_from_coefs_420(coef_y, coef_c, qtab.to(torch.int32) & 0xFFFF, hc, wc)
+            return _detect_tick(detect_prep, model, cfg, frames, active, slot_idx, states)
+        return step
+    if wire == "ycbcr420":
+        def step(y, c, active, slot_idx, states):
+            return _detect_tick(detect_prep, model, cfg, bgr_from_ycbcr420(y, c), active,
+                                slot_idx, states)
+        return step
+    raise ValueError(f"unknown ingest wire plane: {wire!r}")

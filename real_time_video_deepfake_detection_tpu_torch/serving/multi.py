@@ -16,13 +16,20 @@ requests with the reference's JSON response. Two modes:
     pooled host call, reconstructs and conforms them on the engine's device,
     and runs serving/batcher.make_device_step_detect (SSD detection,
     resizes, crop/align, CLAHE with clahe_device, classification, tracker);
-    face_bbox comes back in the client frame's coordinates.
+    face_bbox comes back in the client frame's coordinates. With a wire
+    plane (ServerConfig.ingest_plane "coef" or "ycbcr420") the JPEGs that
+    are YCbCr 4:2:0 at detect_capture_hw skip the grouping and the conform:
+    one pooled host call decodes their quantised coefficients (or their
+    planes after the inverse DCT) straight into the padded bucket's rows of
+    a host buffer, pinned on CUDA, one copy moves it to the device, and
+    serving/batcher.make_device_step_detect_wire finishes the decode in the
+    tick; the other JPEGs take the path above in a second dispatch.
 
 `create_batched_app` puts the reference's HTTP surface in front of it.
 Per-stream session state lives in the batched StreamStates on the device,
 with one extra dummy row for padded entries; /reset with a stream id resets
-only that slot. Not in this slice (each raises NotImplementedError): wire
-ingest, scaled decode, MTCNN alignment and clip attention. The JAX engine's
+only that slot. Not in this slice (each raises NotImplementedError): scaled
+decode, MTCNN alignment and clip attention. The JAX engine's
 one-call native prep of host-prep mode (libjpeg plus host C) is not ported:
 `analyze_jpeg` decodes with the port's decoder and calls `analyze`.
 """
@@ -56,11 +63,12 @@ from ..state.tracker import (
 from ..state.tree import tree_map
 from ..utils.host_resize import resize_analysis
 from ..utils.jpeg_ingest import (
-    JpegError, decode_coefs_batch, decode_jpeg, log_refusal, reconstruct,
+    WIRE_PLANES, JpegError, decode_coefs_batch, decode_jpeg, decode_wire_into, log_refusal,
+    reconstruct, wire_buffer, wire_views,
 )
 from .batcher import (
     StreamStates, device_step_compact, init_stream_states, make_device_step_detect,
-    reset_streams,
+    make_device_step_detect_wire, reset_streams,
 )
 from .wsgi import App, Request, jsonify
 
@@ -139,10 +147,24 @@ class _Pending:
     t_start: float = 0.0
 
 
+def _check_ingest_plane(server_cfg: ServerConfig) -> None:
+    """The JAX engine's checks of ServerConfig.ingest_plane."""
+    plane = server_cfg.ingest_plane
+    if plane == "bgr":
+        return
+    if not server_cfg.device_detect:
+        raise ValueError("ingest_plane wire formats require device_detect=True (the "
+                         "decode finishes inside the device tick)")
+    if plane not in WIRE_PLANES:
+        raise ValueError(f"unknown ingest_plane {plane!r} (expected 'bgr', 'coef' or "
+                         "'ycbcr420')")
+    ch, cw = server_cfg.detect_capture_hw
+    if ch % 16 or cw % 16:
+        raise ValueError("ingest_plane wire formats need detect_capture_hw divisible by "
+                         f"16 (got {server_cfg.detect_capture_hw})")
+
+
 def _unported(cfg: DetectorConfig, server_cfg: ServerConfig) -> None:
-    if server_cfg.ingest_plane != "bgr":
-        raise NotImplementedError(
-            "ingest_plane wire formats come with the wire-ingest slice")
     if server_cfg.ingest_scaled_decode:
         raise NotImplementedError("ingest_scaled_decode: libjpeg's DCT-scaled decode "
                                   "is not ported")
@@ -171,6 +193,7 @@ class MultiStreamEngine:
                  face_detector: Optional[FaceDetector] = None,
                  ssd_net: Optional[CaffeNet] = None):
         _unported(cfg, server_cfg)
+        _check_ingest_plane(server_cfg)
         self.device = resolve_device(device)
         self.server_cfg = server_cfg
         self.spec = spec if spec is not None else backbones.make("b0")
@@ -203,8 +226,10 @@ class MultiStreamEngine:
             self._tick_cfgs = (cfg, cfg)
         self._tick_no = 0
 
-        # device-detect mode: one detect step per tick variant
+        # device-detect mode: one detect step per tick variant, and with a
+        # wire plane one wire step per variant
         self._detect_steps = None
+        self._wire_steps = None
         if server_cfg.device_detect:
             net = ssd_net
             if net is None and self.face_detector._ssd is not None:
@@ -216,6 +241,11 @@ class MultiStreamEngine:
             net = net.to(self.device).eval()
             self._detect_steps = {c: make_device_step_detect(net, self.model, c)
                                   for c in dict.fromkeys(self._tick_cfgs)}
+            if server_cfg.ingest_plane != "bgr":
+                self._wire_steps = {
+                    c: make_device_step_detect_wire(net, self.model, c, server_cfg.ingest_plane,
+                                                    tuple(server_cfg.detect_capture_hw))
+                    for c in dict.fromkeys(self._tick_cfgs)}
 
         self.n_slots = server_cfg.max_streams
         # +1 dummy row for the padded entries of compact ticks
@@ -227,6 +257,18 @@ class MultiStreamEngine:
             self.buckets.append(b)
             b *= 2
         self.buckets.append(min(server_cfg.max_batch, self.n_slots))
+        # wire planes: two host buffers of the largest bucket, pinned on
+        # CUDA, taken in turn (a tick decodes into a prefix of one while the
+        # other's copy to the device may still run); each buffer's event is
+        # recorded after its copy and waited on before the buffer is refilled
+        self._wire_bufs: List[torch.Tensor] = []
+        self._wire_copied: List[Optional[torch.cuda.Event]] = [None, None]
+        self._wire_turn = 0
+        if self._wire_steps is not None:
+            self._wire_bufs = [wire_buffer(server_cfg.ingest_plane, self.buckets[-1],
+                                           *server_cfg.detect_capture_hw,
+                                           pin_memory=self.device.type == "cuda")
+                               for _ in range(2)]
         self.slot_of: Dict[str, int] = {}
         self.last_request: Dict[int, float] = {}
         self.lock = threading.Lock()
@@ -267,6 +309,12 @@ class MultiStreamEngine:
             return self._detect_steps[cfg](*dev, states)
         return device_step_compact(self.model, cfg, *dev[:5], dev[5], states)
 
+    def _dispatch_wire(self, cfg: DetectorConfig, arrays, states: StreamStates):
+        """A wire step: arrays are the plane's device tensors, then active
+        and slot_idx."""
+        dev = [torch.as_tensor(a, device=self.device) for a in arrays]
+        return self._wire_steps[cfg](*dev, states)
+
     def _detect_inputs(self, b: int):
         ch, cw = self.server_cfg.detect_capture_hw
         return (np.zeros((b, ch, cw, 3), np.uint8), np.zeros(b, bool),
@@ -277,10 +325,16 @@ class MultiStreamEngine:
         serving, so kernel builds and allocator growth are not paid by a
         request."""
         inputs = self._tick_inputs if self._detect_steps is None else self._detect_inputs
+        plane, (ch, cw) = self.server_cfg.ingest_plane, self.server_cfg.detect_capture_hw
         for cfg in dict.fromkeys(self._tick_cfgs):
             for b in self.buckets:
                 out, _ = self._dispatch(cfg, inputs(b), self.states)
                 out["verdict"].cpu()
+                if self._wire_steps is not None:
+                    zeros = torch.zeros_like(self._wire_bufs[0][:b], device=self.device)
+                    out, _ = self._dispatch_wire(
+                        cfg, wire_views(plane, zeros, ch, cw) + inputs(b)[1:], self.states)
+                    out["verdict"].cpu()
 
     # ------------------------------------------------------------- streams
 
@@ -538,10 +592,55 @@ class MultiStreamEngine:
             for k, (p, _) in enumerate(members):
                 p.frame_capture = frames[k]
 
+    def _run_tick_wire(self, entries: List[_Pending]) -> set:
+        """Wire-plane dispatch (ServerConfig.ingest_plane "coef" or
+        "ycbcr420"): one pooled host call decodes the JPEGs' plane into the
+        padded bucket's rows of a wire buffer, one copy moves it to the
+        device, and the wire step finishes the decode inside the tick.
+        Entries that are not eligible (not YCbCr 4:2:0 at detect_capture_hw,
+        or not decodable) stay inactive rows here and are left to the
+        caller's full-decode path. Returns the id()s of the entries this
+        dispatch took."""
+        (ch, cw), plane = self.server_cfg.detect_capture_hw, self.server_cfg.ingest_plane
+        t_prep = time.time()
+        b = self._bucket_for(len(entries))
+        k, self._wire_turn = self._wire_turn, 1 - self._wire_turn
+        if self._wire_copied[k] is not None:
+            self._wire_copied[k].synchronize()   # its last copy to the device is done
+        host = self._wire_bufs[k][:b]
+        ok = decode_wire_into(plane, [p.jpeg for p in entries], ch, cw, host.numpy(),
+                              self.server_cfg.prep_threads)
+        if not ok.any():
+            return set()
+        dev = host.to(self.device, non_blocking=True)
+        if self.device.type == "cuda":
+            self._wire_copied[k] = torch.cuda.Event()
+            self._wire_copied[k].record()
+        self._ewma("ewma_host_prep_ms", (time.time() - t_prep) * 1000)
+        active = np.zeros(b, bool)
+        slot_idx = np.full(b, self.n_slots, np.int32)
+        taken = [(i, p) for i, p in enumerate(entries) if ok[i]]
+        for i, p in taken:
+            active[i] = True
+            slot_idx[i] = p.stream_slot
+            if p.need_dims:   # eligibility proved the size is detect_capture_hw
+                p.orig_hw = None
+        self._launch(self._dispatch_wire, wire_views(plane, dev, ch, cw) + (active, slot_idx),
+                     [p for _, p in taken], None, np.array([i for i, _ in taken]))
+        return {id(p) for _, p in taken}
+
     def _run_tick(self, batch: List[_Pending]):
         """Assemble the compact bucketed batch and run one tick; the drainer
-        completes the requests."""
+        completes the requests. With a wire plane the eligible JPEGs go in
+        a wire dispatch first and the rest in a second dispatch of the same
+        batcher turn; a slot appears at most once per turn, so each
+        stream's updates stay in order."""
         batch = self._drop_stale(batch)
+        if self._wire_steps is not None:
+            wire = [p for p in batch if p.jpeg is not None]
+            if wire:
+                taken = self._run_tick_wire(wire)
+                batch = [p for p in batch if id(p) not in taken]
         jpegs = [p for p in batch if p.jpeg is not None]
         if jpegs:
             t_prep = time.time()
@@ -583,6 +682,12 @@ class MultiStreamEngine:
                     has_face[i] = True
                     face_hw[i] = p.face_hw
 
+        self._launch(self._dispatch, arrays, batch, has_face)
+
+    def _launch(self, dispatch, arrays, entries: List[_Pending],
+                has_face: Optional[np.ndarray], rows: Optional[np.ndarray] = None):
+        """Run one tick through `dispatch` and queue it for the drainer.
+        `rows` maps entry k to its row of the tick's output (None: row k)."""
         t_dev = time.time()
         # snapshot the state under the lock, run outside it; resets landing
         # meanwhile are re-applied to the new state below
@@ -592,23 +697,25 @@ class MultiStreamEngine:
             self._tick_no += 1
             states = self.states
             self._pending_reset = None
-        out, new_states = self._dispatch(tick_cfg, arrays, states)
+        out, new_states = dispatch(tick_cfg, arrays, states)
         with self.lock:
             if self._pending_reset is not None:
                 new_states = reset_streams(
                     new_states, torch.from_numpy(self._pending_reset).to(self.device))
                 self._pending_reset = None
             self.states = new_states
-        self._inflight.put((out, list(batch), has_face, t_dev))
+        self._inflight.put((out, list(entries), has_face, t_dev, rows))
 
     def _drain_loop(self):
         while not self._stop:
             try:
-                out_dev, entries, has_face, t_dev = self._inflight.get(timeout=0.1)
+                out_dev, entries, has_face, t_dev, rows = self._inflight.get(timeout=0.1)
             except queue.Empty:
                 continue
             try:
                 out = {k: v.cpu().numpy() for k, v in out_dev.items()}
+                if rows is not None:   # a wire tick: entry k is row rows[k]
+                    out = {k: v[rows] for k, v in out.items()}
                 self._complete(out, entries, has_face, t_dev)
             except Exception as e:
                 # the drainer must survive any completion error, or the

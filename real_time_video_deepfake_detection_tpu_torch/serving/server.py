@@ -261,14 +261,19 @@ def main(argv=None):
                         "inside the device tick; requires --ssd-weights")
     p.add_argument("--scaled-decode", action="store_true", help="not ported yet")
     p.add_argument("--mtcnn-device", action="store_true", help="not ported yet")
-    p.add_argument("--ingest-plane", default="bgr", help="only 'bgr' is ported")
+    p.add_argument("--ingest-plane", default="bgr", choices=["bgr", "coef", "ycbcr420"],
+                   help="with --device-detect: the wire format of JPEG ingest. 'coef': the "
+                        "host entropy-decodes only and the tick finishes the decode; "
+                        "'ycbcr420': the host also runs the inverse DCT and the tick "
+                        "upsamples and converts the colour. Both equal the full decode; "
+                        "JPEGs that are not YCbCr 4:2:0 at the capture size take the "
+                        "full decode")
     args = p.parse_args(argv)
     for flag, msg in _UNPORTED.items():
         if getattr(args, flag):
             raise SystemExit(msg)
-    if args.ingest_plane != "bgr":
-        raise SystemExit("--ingest-plane: the coef/ycbcr420 wire planes come with the "
-                         "wire-ingest slice")
+    if args.ingest_plane != "bgr" and not args.device_detect:
+        raise SystemExit("--ingest-plane requires --device-detect")
     from ..models import backbones
     try:
         spec = backbones.make(args.backbone)
@@ -302,7 +307,8 @@ def main(argv=None):
         scfg = ServerConfig(detection_threshold=args.threshold,
                             max_streams=args.max_streams, max_batch=args.max_batch,
                             batch_timeout_ms=args.batch_timeout_ms,
-                            device_detect=args.device_detect)
+                            device_detect=args.device_detect,
+                            ingest_plane=args.ingest_plane)
         fd = None
         if args.ssd_weights:
             fd = FaceDetector(ssd_weights_path=args.ssd_weights,

@@ -10,8 +10,9 @@ other stream (progressive, arithmetic-coded, 12-bit, CMYK, truncated,
 corrupt, or not a JPEG at all) is refused with a reason.
 
 The library is built with g++ at first use into
-`<repo>/.build/jpeg_entropy_<hash of the source and flags>/`. If the build
-fails, decoding raises: there is no other decoder below it.
+`<repo>/.build/jpeg_entropy_<hash of the source and flags>/`
+(utils/host_build). If the build fails, decoding raises: there is no other
+decoder below it.
 """
 
 from __future__ import annotations
@@ -19,10 +20,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import hashlib
 import logging
-import os
-import subprocess
 import threading
 from typing import List, Optional, Sequence, Tuple, Union
 
@@ -30,9 +28,9 @@ import numpy as np
 import torch
 
 from ..ops.jpeg_decode import bgr_from_components
+from .host_build import build_host_library, csrc
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(_PKG_DIR, "csrc", "jpeg_entropy.cpp")
+SRC = csrc("jpeg_entropy.cpp")
 CXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 INFO_LEN = 16   # kInfoLen in csrc/jpeg_entropy.cpp
 
@@ -57,29 +55,12 @@ class JpegError(ValueError):
         self.status = status
 
 
-def build() -> str:
-    """Compile (when needed) and return the path of the shared library."""
-    with open(SRC, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
-    out_dir = os.path.join(os.path.dirname(_PKG_DIR), ".build", f"jpeg_entropy_{digest}")
-    lib_path = os.path.join(out_dir, "libjpeg_entropy.so")
-    if os.path.exists(lib_path):
-        return lib_path
-    os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    r = subprocess.run(["g++", *CXX_FLAGS, SRC, "-o", tmp], capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"building {SRC} failed:\n{r.stdout}{r.stderr}")
-    os.replace(tmp, lib_path)   # atomic: a concurrent loader never sees half a file
-    return lib_path
-
-
 def library() -> ctypes.CDLL:
     """The loaded entropy decoder (built on first use)."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
+            lib = ctypes.CDLL(build_host_library(SRC, CXX_FLAGS, "jpeg_entropy"))
             lib.jpeg_info_len.restype = ctypes.c_int
             if lib.jpeg_info_len() != INFO_LEN:
                 raise RuntimeError("csrc/jpeg_entropy.cpp and utils/jpeg_ingest.py "
@@ -89,6 +70,10 @@ def library() -> ctypes.CDLL:
             lib.jpeg_decode_coefs_batch.argtypes = [_P, _P, _P, _P, _P, ctypes.c_int,
                                                     ctypes.c_int, _P]
             lib.jpeg_decode_coefs_batch.restype = None
+            for fn in (lib.jpeg_wire_coefs_batch, lib.jpeg_wire_raw420_batch):
+                fn.argtypes = [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
+                               ctypes.c_int, _P]
+                fn.restype = None
             _lib = lib
         return _lib
 
@@ -172,6 +157,113 @@ def reconstruct(group: Sequence[JpegCoefs], device: Union[str, torch.device]) ->
              for c in range(len(first.factors))]
     qtabs = torch.from_numpy(np.stack([jc.qtabs.astype(np.int32) for jc in group])).to(device)
     return bgr_from_components(coefs, qtabs, first.factors, first.height, first.width)
+
+
+# ------------------------------------------------------------ wire planes
+#
+# The wire planes of device-detect serving (ServerConfig.ingest_plane) carry
+# eligible frames (YCbCr 4:2:0 at exactly the capture size, both sides
+# multiples of 16, Cb and Cr on one quant table) as one batch buffer, a row
+# per stream, which the host fills in one pooled call and the device tick
+# reconstructs (ops/jpeg_decode.bgr_from_coefs_420 or bgr_from_ycbcr420).
+# The JAX package (utils/native_ingest.decode_coefs_batch and
+# decode_raw420_batch, through libjpeg) also carries progressive streams;
+# the port's entropy decoder refuses them, so they take the full decode.
+
+WIRE_PLANES = ("coef", "ycbcr420")
+
+
+def wire_row_shape(plane: str, h: int, w: int) -> Tuple[Tuple[int, ...], np.dtype]:
+    """(shape, dtype) of one stream's row of a wire batch buffer:
+    "coef": ((h/8)(w/8) * 3/2 + 2, 64) int16, the Y, Cb and Cr coefficient
+    blocks in natural order, then the luma and chroma quant tables as
+    uint16 bits; "ycbcr420": (h*w*3/2,) uint8, the Y plane, then Cb and
+    Cr."""
+    if plane not in WIRE_PLANES:
+        raise ValueError(f"unknown wire plane {plane!r} (expected one of {WIRE_PLANES})")
+    if h % 16 or w % 16:
+        raise ValueError(f"the wire planes need sides divisible by 16, got {(h, w)}")
+    if plane == "coef":
+        return ((h // 8) * (w // 8) * 3 // 2 + 2, 64), np.dtype(np.int16)
+    return (h * w * 3 // 2,), np.dtype(np.uint8)
+
+
+def wire_buffer(plane: str, rows: int, h: int, w: int, pin_memory: bool = False
+                ) -> torch.Tensor:
+    """An uninitialised wire batch buffer of `rows` rows on the host
+    (page-locked with `pin_memory`, for asynchronous copies to a GPU); its
+    .numpy() shares the memory."""
+    shape, _ = wire_row_shape(plane, h, w)
+    return torch.empty((rows,) + shape, dtype=torch.int16 if plane == "coef" else torch.uint8,
+                       pin_memory=pin_memory)
+
+
+def wire_views(plane: str, buf, h: int, w: int) -> tuple:
+    """Views (no copies) of a wire batch buffer, numpy or torch, of shape
+    (R,) + row shape, as the wire step takes them: "coef" (coef_y (R, yb,
+    64), coef_c (R, 2, yb/4, 64), qtab (R, 2, 64) int16 holding uint16
+    bits) with yb = (h/8)(w/8); "ycbcr420" (y (R, h, w), c (R, 2, h/2,
+    w/2))."""
+    r = buf.shape[0]
+    if plane == "coef":
+        yb = (h // 8) * (w // 8)
+        return (buf[:, :yb], buf[:, yb:yb * 3 // 2].reshape(r, 2, yb // 4, 64),
+                buf[:, yb * 3 // 2:])
+    return buf[:, :h * w].reshape(r, h, w), buf[:, h * w:].reshape(r, 2, h // 2, w // 2)
+
+
+def decode_wire_into(plane: str, datas: Sequence[bytes], h: int, w: int, buf: np.ndarray,
+                     n_threads: int = 0) -> np.ndarray:
+    """Decode the streams' wire plane into rows 0..len(datas)-1 of `buf`
+    (shape (R,) + row shape, R >= len(datas); e.g. a pinned buffer) in one
+    pooled call (up to `n_threads` threads, 0 = one per core; the GIL is
+    released while it runs). Returns ok (len(datas),) bool: True where the
+    stream is eligible and decoded. Rows of the others, and rows past
+    len(datas), keep what they held, except that their quant tables
+    ("coef") are zeroed."""
+    shape, dtype = wire_row_shape(plane, h, w)
+    n = len(datas)
+    if buf.shape[1:] != shape or buf.dtype != dtype or buf.shape[0] < n:
+        raise ValueError(f"wire buffer {buf.shape} {buf.dtype} cannot hold {n} rows of "
+                         f"{shape} {dtype}")
+    if not buf.flags.c_contiguous:
+        raise ValueError("the wire buffer must be C-contiguous")
+    ok = np.zeros(n, np.int32)
+    if n:
+        fn = library().jpeg_wire_coefs_batch if plane == "coef" else (
+            library().jpeg_wire_raw420_batch)
+        fn((ctypes.c_char_p * n)(*datas), (ctypes.c_size_t * n)(*[len(d) for d in datas]),
+           n, h, w, buf.ctypes.data, n_threads, ok.ctypes.data)
+    if plane == "coef":
+        buf[n:, -2:] = 0
+    return ok.astype(bool)
+
+
+def _wire_batch(plane, datas, h, w, n_threads, pad_to):
+    buf = wire_buffer(plane, max(len(datas), pad_to), h, w).numpy()
+    ok = decode_wire_into(plane, datas, h, w, buf, n_threads)
+    return wire_views(plane, buf, h, w), ok
+
+
+def decode_coefs_wire_batch(datas: Sequence[bytes], h: int, w: int, n_threads: int = 0,
+                            pad_to: int = 0):
+    """The "coef" wire plane of a tick's streams, with the contract of the
+    JAX package's utils/native_ingest.decode_coefs_batch: (coef_y (R, yb,
+    64) int16, coef_c (R, 2, yb/4, 64) int16, qtab (R, 2, 64) uint16, ok
+    (N,) bool), R = max(N, pad_to); the rows of streams that are not
+    eligible and the padded rows hold garbage, their quant tables zeros."""
+    (coef_y, coef_c, qtab), ok = _wire_batch("coef", datas, h, w, n_threads, pad_to)
+    return coef_y, coef_c, qtab.view(np.uint16), ok
+
+
+def decode_raw420_batch(datas: Sequence[bytes], h: int, w: int, n_threads: int = 0,
+                        pad_to: int = 0):
+    """The "ycbcr420" wire plane, with the contract of the JAX package's
+    utils/native_ingest.decode_raw420_batch: (y (R, h, w) uint8, c (R, 2,
+    h/2, w/2) uint8 Cb then Cr, ok (N,) bool), R = max(N, pad_to); the
+    samples of libjpeg's islow inverse DCT without upsampling."""
+    (y, c), ok = _wire_batch("ycbcr420", datas, h, w, n_threads, pad_to)
+    return y, c, ok
 
 
 @functools.lru_cache(maxsize=None)

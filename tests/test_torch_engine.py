@@ -2,8 +2,8 @@
 on the CPU with the small EfficientNet spec and the same carried
 parameters, heuristic face detection, 2 streams x 11 frames (one stream with
 a face). The responses carry the same keys, verdict sequence, analysis mode,
-face box and faces_detected, and probabilities within 1e-5. The JAX engine
-is pinned to its jnp Lab rung, whose math the port carries."""
+face box and faces_detected, and probabilities within 1e-5. Both engines'
+host-side face CLAHE is pinned to the jnp Lab rung."""
 
 import dataclasses
 import threading
@@ -21,6 +21,7 @@ from real_time_video_deepfake_detection_tpu.serving.multi import (
 from real_time_video_deepfake_detection_tpu_torch.core.config import (
     DetectorConfig as TDC, ForensicConfig as TFC, ServerConfig as TSC,
 )
+from real_time_video_deepfake_detection_tpu_torch.pipeline import detector as t_detector
 from real_time_video_deepfake_detection_tpu_torch.serving.multi import (
     MultiStreamEngine as TEngine,
 )
@@ -62,6 +63,7 @@ def _drive(engine):
 
 def test_engine_responses_match_jax(monkeypatch):
     monkeypatch.setattr(j_detector, "_LAB_BACKEND", "jnp")
+    monkeypatch.setattr(t_detector, "_LAB_BACKEND", "jnp")
     spec_j, spec_t = small_specs()
     _, pj, _ = small_models(seed=5)
     # a 64x64 analysis frame and classifier input keep the CPU ticks short;
@@ -130,9 +132,19 @@ def test_engine_admit_rate_limits_a_stream(engine):
 
 
 @pytest.mark.parametrize("server_kw,cfg_kw", [
-    ({"device_detect": True}, {"ssd_bf16": True}), ({"ingest_plane": "coef"}, {}),
+    ({"device_detect": True}, {"ssd_bf16": True}), ({"ingest_scaled_decode": True}, {}),
     ({"device_detect": True}, {"mtcnn_device": True}), ({}, {"mtcnn_device": True}),
     ({}, {"clip_window": 8})])
 def test_engine_unported_modes_raise(server_kw, cfg_kw):
     with pytest.raises(NotImplementedError):
         TEngine(TDC(**cfg_kw), TSC(**server_kw), device="cpu")
+
+
+@pytest.mark.parametrize("plane", ["coef", "ycbcr420"])
+def test_engine_wire_plane_needs_device_detect(plane):
+    """As the JAX engine: the wire planes finish the decode inside the
+    device-detect tick."""
+    for eng, dc, sc in ((JEngine, JDC, JSC), (TEngine, TDC, TSC)):
+        kw = {} if eng is JEngine else {"device": "cpu"}
+        with pytest.raises(ValueError, match="device_detect"):
+            eng(dc(), sc(ingest_plane=plane), **kw)

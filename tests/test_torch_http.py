@@ -15,7 +15,9 @@ rate stamp, stale requests fail), the multipart parser against the JAX
 one, the threaded server over real sockets (64 clients at once), the
 single-stream pieces (TemporalTracker, analyze_frame, classify_batch) and
 main()'s flag checks.
-The JAX side takes its jnp Lab rung, whose math the port carries."""
+The host-side face CLAHE of both sides is pinned to the jnp Lab rung, and
+the single-stream app is also compared unpinned (both take cv2's 8-bit
+conversion; the port computes it without cv2)."""
 
 import dataclasses
 import io
@@ -48,6 +50,7 @@ from real_time_video_deepfake_detection_tpu_torch.core.config import (
 from real_time_video_deepfake_detection_tpu_torch.models.ssd_res10 import SSDRes10 as TSSD
 from real_time_video_deepfake_detection_tpu_torch.ops import forensics as TF
 from real_time_video_deepfake_detection_tpu_torch.pipeline import classify as TCL
+from real_time_video_deepfake_detection_tpu_torch.pipeline import detector as t_detector
 from real_time_video_deepfake_detection_tpu_torch.pipeline.detector import DeepfakeDetector
 from real_time_video_deepfake_detection_tpu_torch.serving import multi as TM
 from real_time_video_deepfake_detection_tpu_torch.serving import server as TS
@@ -129,10 +132,24 @@ def _cfgs(**kw):
 
 @pytest.fixture()
 def jnp_lab(monkeypatch):
+    """Both host-side Lab ladders pinned to their jnp rung."""
     monkeypatch.setattr(j_detector, "_LAB_BACKEND", "jnp")
+    monkeypatch.setattr(t_detector, "_LAB_BACKEND", "jnp")
 
 
 def test_single_stream_app_matches_jax(models, jnp_lab):
+    _single_stream_matches_jax(models)
+
+
+def test_single_stream_app_matches_jax_unpinned(models):
+    """Both ladders unpinned: the JAX one resolves to cv2 where cv2 is
+    installed, the port's takes its cv2 rung, computed without cv2."""
+    assert j_detector._resolve_lab_backend() == "cv2"
+    assert t_detector._LAB_BACKEND == "cv2"
+    _single_stream_matches_jax(models)
+
+
+def _single_stream_matches_jax(models):
     spec_j, pj, spec_t = models
     cj, ct = _cfgs(face_backend="heuristic")
     scfg = dict(min_request_interval=0.0)

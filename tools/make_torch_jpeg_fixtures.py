@@ -56,10 +56,14 @@ def main() -> None:
     rng = np.random.default_rng(SEED)
     frame = face_frame(405, 720, rng)        # the extension's 16:9 capture
     small = face_frame(241, 319, rng)        # odd sizes: partial MCUs
+    portrait = face_frame(720, 405, rng)
+    capture = face_frame(480, 640, rng)      # detect_capture_hw: the wire planes' size
     files = {
         "frame_720x405_q85_420.jpg": encode(frame),
-        "frame_405x720_q85_420.jpg": encode(face_frame(720, 405, rng)),
-        "frame_640x480_q85_420.jpg": encode(face_frame(480, 640, rng)),
+        "frame_405x720_q85_420.jpg": encode(portrait),
+        "frame_640x480_q85_420.jpg": encode(capture),
+        "q50_640x480_420.jpg": encode(capture, quality=50),
+        "q95_640x480_420.jpg": encode(capture, quality=95),
         "tiny_33x17_q85_420.jpg": encode(face_frame(17, 33, rng)),
         "one_1x1_q85_420.jpg": encode(face_frame(1, 1, rng)),
         "s422_319x241_q85.jpg": encode(small, sampling=cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422),
