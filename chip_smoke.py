@@ -68,6 +68,25 @@ in phases, each printing one JSON line:
               buffer, pinned and pageable; (c) batched HTTP as in http(b)
               with the 480x640 fixtures, each plane in turn, every kernel
               launched in every tick
+ 11. haar     the haar_native face rung (HAARCASCADE_DIR set to the
+              committed cascade XML): g++ builds csrc/haar.cpp; on the
+              photograph, the 720x405 and 640x480 fixtures and a seeded
+              noise frame, the C++ evaluator's raw windows equal the numpy
+              evaluator's and its boxes the JAX rung's
+              (tests/data/torch_haar/expected.json), ms per frame of each;
+              FaceDetector() resolves to it and its native call count
+              rises; the single-stream server at default settings answers
+              the photograph with one face; host-prep serving, 16 streams x
+              12 of the three decoded fixtures, with the rung on auto (one
+              native call per frame, each frame answered with the JAX
+              rung's box) and then pinned to the heuristic
+ 12. bench    the port's serving benchmark (cli/bench.py) at its sizes with
+              4 timed windows: classify core, the bf16 and tick-schedule
+              guards, detect core (FLOPs per tick, depth-1 latency), the
+              pooled decode, and the engine end to end with the bgr, coef
+              and ycbcr420 planes and with host prep; each function's dict
+              on a line of its own, every kernel launched, all four in
+              every detect tick of bench_core_detect
 
 then a `{"kernels": [...]}` line (launches: the wire phase's coef run) and, last, `{"ok": true, "device": ...}`.
 Any failed phase makes it exit non-zero without the last line. It needs a
@@ -1611,11 +1630,278 @@ def phase_wire(ctx):
             "http_16_streams": served}
 
 
+# ------------------------------------------------------------------- haar
+
+HAAR_DIR = os.path.join(REPO, "tests", "data", "torch_haar")
+HAAR_PHOTO = "grace_hopper.jpg"   # a frontal face, 512x600 baseline 4:2:0
+
+
+def _haar_frames():
+    """The frames of tests/data/torch_haar/expected.json (the JAX rung's raw
+    window counts and boxes), decoded by the port: the photograph, the
+    720x405 and 640x480 fixtures and the seeded noise frame."""
+    import numpy as np
+    from real_time_video_deepfake_detection_tpu_torch.utils.jpeg_ingest import decode_jpeg
+    with open(os.path.join(HAAR_DIR, "expected.json")) as fh:
+        expected = json.load(fh)
+    frames = {}
+    for name in expected["frames"]:
+        if name == "noise":
+            n = expected["noise"]
+            frames[name] = np.random.default_rng(n["seed"]).integers(
+                0, 256, n["shape"], dtype=np.uint8)
+            continue
+        with open(os.path.join(HAAR_DIR if name == HAAR_PHOTO else JPEG_DIR, name), "rb") as fh:
+            frames[name] = decode_jpeg(fh.read())
+    return expected["frames"], frames
+
+
+def _haar_serve(ctx, face_backend, frames):
+    """The host-prep engine, 16 streams x 12 frames from 16 threads, each
+    stream cycling the three decoded fixtures; frames/s, the median tick
+    and the face detector's ms per frame."""
+    import numpy as np
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.core.config import (
+        DetectorConfig, ServerConfig)
+    from real_time_video_deepfake_detection_tpu_torch.serving.multi import MultiStreamEngine
+    cfg = DetectorConfig(use_pallas_preproc=True, use_pallas_color=True,
+                         face_backend=face_backend)
+    engine = MultiStreamEngine(cfg, ServerConfig(max_streams=64, max_batch=64),
+                               params=b0_state(ctx), device="cuda")
+    backend = engine.face_detector.backend
+    tick_ms, detect_ms = [], []
+    dispatch, detector = engine._dispatch, engine.face_detector
+
+    def timed_dispatch(tick_cfg, arrays, states):
+        t0 = time.perf_counter()
+        out = dispatch(tick_cfg, arrays, states)
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def timed_detector(frame):
+        t0 = time.perf_counter()
+        boxes = detector(frame)
+        detect_ms.append((time.perf_counter() - t0) * 1e3)
+        return boxes
+
+    engine._dispatch, engine.face_detector = timed_dispatch, timed_detector
+    n_streams, n_frames = 16, 12
+    names = list(frames)
+    results = {s: [] for s in range(n_streams)}
+    errors = []
+
+    def client(s):
+        try:
+            for t in range(n_frames):
+                name = names[(s + t) % len(names)]
+                results[s].append((name, engine.analyze(frames[name], f"stream-{s}")))
+        except Exception as e:   # reported below; the phase fails on it
+            errors.append(f"stream {s}: {type(e).__name__}: {e}")
+
+    _reset_launches()
+    t0 = time.time()
+    threads = [threading.Thread(target=client, args=(s,)) for s in range(n_streams)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.time() - t0
+    launches = {k: v for k, v in _read_launches().items()
+                if k in ("preprocess_faces", "unique_hue_count")}
+    engine.shutdown()
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"{face_backend} clients failed: {errors[:3]}")
+    problems = [f"{face_backend} stream {s}: {name}: {r}" for s, rs in results.items()
+                for name, r in rs if not r.get("success") or _SCHEMA - set(r)]
+    problems += [f"kernel {k} was not launched" for k, n in launches.items() if n <= 0]
+    if problems:
+        raise AssertionError("; ".join(problems[:6]))
+    faces = {}
+    for rs in results.values():
+        for name, r in rs:
+            box = r.get("face_bbox")
+            faces.setdefault(name, set()).add(
+                (box["x"], box["y"], box["width"], box["height"]) if box else None)
+    return {"backend": backend, "streams": n_streams, "frames_per_stream": n_frames,
+            "frames_per_s": n_streams * n_frames / wall, "wall_s": wall,
+            "ticks": len(tick_ms), "median_tick_ms": statistics.median(tick_ms),
+            "detect_ms_per_frame_median": statistics.median(detect_ms),
+            "detect_ms_per_frame_p90": float(np.percentile(detect_ms, 90)),
+            "boxes_by_frame": {k: sorted(map(str, v)) for k, v in faces.items()},
+            "launches": launches}
+
+
+def phase_haar(ctx):
+    """The haar_native rung on the card's host: the C++ evaluator built
+    from csrc/haar.cpp, its raw windows against the numpy evaluator's and
+    its boxes against the JAX rung's on every fixture, the default ladder
+    resolving to it, the single-stream server answering the photograph with
+    one face, and host-prep serving with the cascade against the heuristic."""
+    import numpy as np
+    # the card's host has no OpenCV data files: the committed XML
+    os.environ["HAARCASCADE_DIR"] = HAAR_DIR
+    from real_time_video_deepfake_detection_tpu_torch.core.config import (
+        DetectorConfig, ServerConfig)
+    from real_time_video_deepfake_detection_tpu_torch.models import haar_cascade as H
+    from real_time_video_deepfake_detection_tpu_torch.pipeline.detector import DeepfakeDetector
+    from real_time_video_deepfake_detection_tpu_torch.pipeline.faces import FaceDetector
+    from real_time_video_deepfake_detection_tpu_torch.serving.server import create_app
+    from real_time_video_deepfake_detection_tpu_torch.utils import native_haar as N
+    t0 = time.time()
+    N.library()
+    gpp_s = time.time() - t0
+    expected, frames = _haar_frames()
+    cascade = H.default_cascade()
+    problems, per_frame = [], {}
+    for name, bgr in frames.items():
+        gray = H.bgr_to_gray_u8(bgr)
+        native_ms = []
+        for _ in range(5):
+            t = time.perf_counter()
+            raw = cascade.native().detect_raw(gray)
+            native_ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        raw_numpy = cascade.detect_raw(gray)
+        numpy_ms = (time.perf_counter() - t) * 1e3
+        boxes = [list(b) for b in H.detect_haar_native(bgr)]
+        want = expected[name]
+        if sorted(raw) != sorted(raw_numpy):
+            problems.append(f"{name}: native and numpy raw windows differ")
+        if len(raw) != want["raw_windows"] or boxes != want["boxes"]:
+            problems.append(f"{name}: {len(raw)} raw windows, boxes {boxes}; the JAX rung: "
+                            f"{want['raw_windows']}, {want['boxes']}")
+        per_frame[name] = {"shape": list(bgr.shape), "raw_windows": len(raw), "boxes": boxes,
+                           "native_ms_median": statistics.median(native_ms),
+                           "numpy_ms": numpy_ms}
+    detector = FaceDetector()
+    calls = N.calls
+    photo_boxes = detector(frames[HAAR_PHOTO])
+    if detector.backend != "haar_native" or N.calls <= calls:
+        problems.append(f"FaceDetector(): backend {detector.backend}, "
+                        f"native calls {calls} -> {N.calls}")
+    if photo_boxes != [tuple(b) for b in expected[HAAR_PHOTO]["boxes"]]:
+        problems.append(f"FaceDetector() on the photograph: {photo_boxes}")
+
+    det = DeepfakeDetector(DetectorConfig(), params=b0_state(ctx), device="cuda")
+    with open(os.path.join(HAAR_DIR, HAAR_PHOTO), "rb") as fh:
+        photo = fh.read()
+    with _serving(create_app(det, ServerConfig())) as url:
+        st, r, sec = _http(_client(), url + "/analyze", photo)
+    want_box = dict(zip(("x", "y", "width", "height"), expected[HAAR_PHOTO]["boxes"][0]))
+    if (st != 200 or det.face_detector.backend != "haar_native"
+            or r.get("faces_detected") != 1 or r.get("face_bbox") != want_box):
+        problems.append(f"single-stream /analyze of the photograph: {st} {r}")
+    if problems:
+        raise AssertionError("; ".join(problems[:6]))
+
+    served = {name: frames[name] for name in (HAAR_PHOTO, "frame_640x480_q85_420.jpg",
+                                              "frame_720x405_q85_420.jpg")}
+    calls = N.calls
+    cascade_run = _haar_serve(ctx, "auto", served)
+    cascade_run["native_calls"] = N.calls - calls
+    heuristic_run = _haar_serve(ctx, "heuristic", served)
+    # one native call per served frame, and each frame answered with the JAX
+    # rung's box: a frame that fell through to the heuristic fails here
+    n_served = cascade_run["streams"] * cascade_run["frames_per_stream"]
+    if cascade_run["backend"] != "haar_native" or cascade_run["native_calls"] != n_served:
+        raise AssertionError(f"host-prep serving on auto did not run the cascade on every "
+                             f"frame: {cascade_run['backend']}, "
+                             f"{cascade_run['native_calls']} calls for {n_served} frames")
+    for name in served:
+        want = {str(tuple(b)) for b in expected[name]["boxes"]} or {"None"}
+        got = cascade_run["boxes_by_frame"][name]
+        if len(got) != 1 or got[0] not in want:
+            problems.append(f"host-prep serving on auto, {name}: boxes {got}, the JAX rung: "
+                            f"{sorted(want)}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"gpp_seconds": gpp_s, "library": os.path.relpath(N.library()._name, REPO),
+            "frames": per_frame,
+            "native_ms_per_frame": {k: v["native_ms_median"] for k, v in per_frame.items()},
+            "numpy_ms_per_frame": {k: v["numpy_ms"] for k, v in per_frame.items()},
+            "face_detector_backend": detector.backend,
+            "single_stream_photo": {"status": st, "faces_detected": r["faces_detected"],
+                                    "face_bbox": r["face_bbox"], "ms": sec * 1e3},
+            "host_prep_serving": {"auto": cascade_run, "heuristic": heuristic_run},
+            "frames_per_s_cascade_vs_heuristic": [cascade_run["frames_per_s"],
+                                                  heuristic_run["frames_per_s"]]}
+
+
+# ------------------------------------------------------------------ bench
+
+def phase_bench(ctx):
+    """The port's serving benchmark (cli/bench.py) at its sizes, with 4
+    timed windows in place of 10-12: each function's result on its own
+    line, every kernel's launches over the whole phase."""
+    from real_time_video_deepfake_detection_tpu_torch.cli import bench as B
+    # each detect tick's launches, counted around the step bench_core_detect
+    # builds (host-side counters: no sync, the windows' timing is kept)
+    detect_ticks, make_step = [], B.make_device_step_detect
+
+    def counted_make(*args, **kw):
+        step = make_step(*args, **kw)
+
+        def counted(*a):
+            before = _read_launches()
+            out = step(*a)
+            after = _read_launches()
+            detect_ticks.append({k: after[k] - before[k] for k in after})
+            return out
+        return counted
+
+    B.make_device_step_detect = counted_make
+    _reset_launches()
+    runs = (("bench_core", lambda: B.bench_core(n_windows=4, device="cuda")),
+            ("bf16_parity_guard", lambda: B.bf16_parity_guard(device="cuda")),
+            ("tick_schedule_guard", lambda: B.tick_schedule_guard(device="cuda")),
+            ("bench_core_detect", lambda: B.bench_core_detect(n_windows=4, device="cuda")),
+            ("bench_prep_scaling", lambda: B.bench_prep_scaling(device="cuda")),
+            ("bench_e2e bgr", lambda: B.bench_e2e(device="cuda")),
+            ("bench_e2e coef", lambda: B.bench_e2e(ingest_plane="coef", device="cuda")),
+            ("bench_e2e ycbcr420", lambda: B.bench_e2e(ingest_plane="ycbcr420",
+                                                       device="cuda")),
+            ("bench_e2e host-prep heuristic",
+             lambda: B.bench_e2e(device_detect=False, device="cuda")))
+    results = {}
+    try:
+        for name, run in runs:
+            t0 = time.time()
+            results[name] = run()
+            emit({"bench": name, "seconds": round(time.time() - t0, 3), **results[name]})
+    finally:
+        B.make_device_step_detect = make_step
+    launches = _read_launches()
+    problems = [f"kernel {k} was not launched" for k, n in launches.items() if n <= 0]
+    per_tick_min = {k: min(t[k] for t in detect_ticks) for k in launches}
+    if min(per_tick_min.values()) <= 0:
+        problems.append(f"a detect tick of bench_core_detect missed a kernel: {per_tick_min}")
+    if not results["tick_schedule_guard"]["ok"]:
+        problems.append("the tick schedule's outputs differ from the frame schedule's")
+    if {r["device"] for r in results.values()} != {ctx["name"]}:
+        problems.append(f"devices {[r['device'] for r in results.values()]}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    core, detect = results["bench_core"], results["bench_core_detect"]
+    return {"launches": launches, "card": ctx["smi"],
+            "bench_core_detect_ticks_counted": len(detect_ticks),
+            "launches_per_detect_tick_min": per_tick_min,
+            "classify_core": {k: core[k] for k in ("fps", "tick_ms_p50", "tick_ms_p95")},
+            "detect_core": {k: detect[k] for k in (
+                "fps", "tick_ms_p50", "tick_ms_p95", "req_ms_p50", "req_ms_p95",
+                "gflop_per_tick_conv_matmul", "achieved_tflops", "mfu_pct_bf16peak")},
+            "e2e_fps": {k: v["fps"] for k, v in results.items() if k.startswith("bench_e2e")},
+            "e2e_req_ms_p95": {k: v["req_ms_p95"] for k, v in results.items()
+                               if k.startswith("bench_e2e")}}
+
+
 PHASES = (("device", phase_device), ("build", phase_build),
           ("kernels", phase_kernels), ("serve", phase_serve),
           ("parity", phase_parity), ("detect-serve", phase_detect_serve),
           ("detect-parity", phase_detect_parity), ("decode", phase_decode),
-          ("http", phase_http), ("wire", phase_wire))
+          ("http", phase_http), ("wire", phase_wire), ("haar", phase_haar),
+          ("bench", phase_bench))
 
 
 def main() -> int:

@@ -7,8 +7,10 @@ Why this exists: cv2 5.0 REMOVED both detector backends the reference
 relies on — cv2.dnn.readNetFromCaffe (primary SSD) and
 cv2.CascadeClassifier + the bundled haarcascade XMLs (fallback). In an
 environment without the user-downloaded SSD caffemodel there is therefore
-NO runnable reference face detector at all. This module keeps the face
-path alive as the bottom rung of the ladder (SSD -> heuristic):
+no runnable cv2 face detector. Where the cascade XML is found, the
+from-scratch cascade (models/haar_cascade.py) stands in for the fallback;
+this module keeps the face path alive as the bottom rung of the ladder
+(SSD -> haar_native -> heuristic):
 
   YCrCb skin mask -> density gates -> percentile bounding box.
 

@@ -1,12 +1,24 @@
 """Face detection frontend with the reference's detector ladder.
 
-Port of real_time_video_deepfake_detection_tpu/pipeline/faces.py. The
-ladder keeps its rungs — "ssd" (SSD-Res10, models/ssd_res10.py), "haar"
-(cv2), "haar_native" (the from-scratch cascade) and "heuristic"
-(models/heuristic_face.py). The SSD rung is available when the detector is
-given a caffemodel (with deploy.prototxt beside it), as in the JAX
-package; the two Haar rungs are not ported and report unavailable, as they
-do in the JAX package on a host with no cv2 cascade and no cascade XML.
+Port of real_time_video_deepfake_detection_tpu/pipeline/faces.py
+(face_detection.py:37-123 in the reference: the OpenCV-DNN SSD when its
+caffemodel exists, else the Haar cascade; an exception falls through). The
+ladder's rungs, in order:
+
+  1. "ssd": SSD-Res10 (models/ssd_res10.py), available when the detector is
+     given a caffemodel (with deploy.prototxt beside it);
+  2. "haar": cv2's CascadeClassifier. The port has no cv2, so this rung is
+     always unavailable: what the JAX rung reports under cv2 5.0, which
+     removed the class. A known difference only on a host whose cv2 still
+     has it;
+  3. "haar_native": the from-scratch cascade (models/haar_cascade.py, its
+     C++ evaluator csrc/haar.cpp), available when find_cascade_xml() finds
+     haarcascade_frontalface_default.xml ($HAARCASCADE_DIR or the distro
+     paths). With no SSD weights this is the default detector, as in the
+     JAX package;
+  4. "heuristic": the skin-region proposal (models/heuristic_face.py);
+  5. an empty list.
+
 Same contract as the reference: a list of (x, y, w, h) int tuples.
 """
 
@@ -19,6 +31,7 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..models import haar_cascade
 from ..models.heuristic_face import detect_heuristic
 
 Box = Tuple[int, int, int, int]
@@ -26,12 +39,17 @@ Box = Tuple[int, int, int, int]
 
 class FaceDetector:
     """`detect_bounding_box` semantics (face_detection.py:37-68): guards
-    tiny or invalid frames; the selected rung's answer is final, and only an
-    exception falls through to the next rung.
+    tiny or invalid frames; the selected rung's answer is final (no faces
+    included), and only an exception falls through to the next rung, for
+    that frame only.
 
     `backend`: "auto" takes the first available rung; "ssd" / "haar" /
     "haar_native" / "heuristic" pin a rung (rungs above it are disabled).
-    `device` places the SSD (None: CUDA, raising without it; "cpu")."""
+    `device` places the SSD (None: CUDA, raising without it; "cpu").
+
+    The haar_native rung's cascade and C++ library are loaded at its first
+    frame, outside the fall-through: a failed build raises instead of
+    turning into the heuristic's answer."""
 
     _LADDER = ("ssd", "haar", "haar_native", "heuristic")
 
@@ -45,7 +63,8 @@ class FaceDetector:
         if ssd_weights_path and os.path.exists(ssd_weights_path):
             from ..models.ssd_res10 import SSDRes10
             self._ssd = SSDRes10.from_caffemodel(ssd_weights_path, device=device)
-        self._ok = {"ssd": True, "haar": False, "haar_native": False, "heuristic": True}
+        self._ok = {r: True for r in self._LADDER}
+        self._probed: dict = {}
         if backend != "auto":
             if backend not in self._LADDER:
                 raise ValueError(f"unknown face backend {backend!r}")
@@ -54,13 +73,22 @@ class FaceDetector:
             if not self._available(backend):
                 warnings.warn(
                     f"requested face backend {backend!r} is unavailable (no SSD "
-                    f"weights, or not ported); the ladder degrades to {self.backend!r}",
-                    RuntimeWarning, stacklevel=2)
+                    f"weights, no cascade XML, or no cv2); the ladder degrades to "
+                    f"{self.backend!r}", RuntimeWarning, stacklevel=2)
 
     def _available(self, rung: str) -> bool:
+        """Availability probes run once and are cached both ways."""
+        if not self._ok[rung]:
+            return False
         if rung == "ssd":
-            return self._ok["ssd"] and self._ssd is not None
-        return self._ok[rung]
+            return self._ssd is not None
+        if rung == "haar":
+            return False   # cv2's CascadeClassifier: no cv2 in the port
+        if rung == "haar_native":
+            if rung not in self._probed:
+                self._probed[rung] = haar_cascade.native_haar_available()
+            return self._probed[rung]
+        return True
 
     @property
     def backend(self) -> str:
@@ -77,10 +105,14 @@ class FaceDetector:
         for r in self._LADDER:
             if not self._available(r):
                 continue
+            if r == "haar_native":
+                haar_cascade.default_cascade()   # loads (or raises) outside the try
             try:
                 if r == "ssd":
                     return self._ssd.detect(frame_bgr, self.confidence_threshold,
                                             self.min_face_px)
+                if r == "haar_native":
+                    return haar_cascade.detect_haar_native(frame_bgr)
                 return detect_heuristic(frame_bgr)
             except Exception:   # reference: a rung's exception falls through
                 continue

@@ -14,10 +14,14 @@ kernels of this tick are selected by DetectorConfig.use_pallas_preproc
 (kernels/preproc.py), use_pallas_color (kernels/color_stats.py) and
 clahe_device (Lab, then CLAHE on L through kernels/clahe.py, then RGB).
 
-make_device_step_detect builds the capture-to-verdict tick of device-detect
-serving: capture-size BGR frames -> the 300x300 and 256x256 cv2-exact
-resizes -> the SSD Caffe graph, decode and NMS -> the reference's box
-selection -> per-stream crop and align to 160x160 RGB -> the tick above.
+device_step_from_capture is the tick over every stream's row of the state
+with the capture-to-256 resize in front of it (the classify-only bench
+tick); device_step_compact takes a bucket of entries and their slots.
+make_device_step_detect builds the capture-to-verdict
+tick of device-detect serving: capture-size BGR frames -> the 300x300 and
+256x256 cv2-exact resizes -> the SSD Caffe graph, decode and NMS -> the
+reference's box selection -> per-stream crop and align to 160x160 RGB ->
+the tick above.
 make_device_step_detect_wire feeds the same tick from a wire plane of the
 JPEG ingest (quantised coefficients, or the 4:2:0 planes after the inverse
 DCT), finishing the decode in the tick. Clip attention, in-tick MTCNN and
@@ -180,6 +184,20 @@ def _step_core(model: EfficientNet, cfg: DetectorConfig,
         "full_forensic": full,
     }
     return out, StreamStates(new_forensic, new_tracker, new_counts)
+
+
+@torch.no_grad()
+def device_step_from_capture(model: EfficientNet, cfg: DetectorConfig,
+                             frames_capture_u8: torch.Tensor, faces_raw: torch.Tensor,
+                             has_face: torch.Tensor, face_hw: torch.Tensor,
+                             active: torch.Tensor, states: StreamStates
+                             ) -> Tuple[Dict[str, torch.Tensor], StreamStates]:
+    """The tick over every stream's row of the state, with the cv2-exact
+    capture-to-analysis resize in the same call: frames_capture_u8
+    (N, H, W, 3) u8 BGR at the capture size."""
+    h, w = cfg.forensic.analysis_size
+    return _step_core(model, cfg, resize_bilinear_u8_cv2(frames_capture_u8, h, w),
+                      faces_raw, has_face, face_hw, active, states)
 
 
 @torch.no_grad()

@@ -17,7 +17,8 @@ single-stream pieces (TemporalTracker, analyze_frame, classify_batch) and
 main()'s flag checks.
 The host-side face CLAHE of both sides is pinned to the jnp Lab rung, and
 the single-stream app is also compared unpinned (both take cv2's 8-bit
-conversion; the port computes it without cv2)."""
+conversion; the port computes it without cv2), and with the face ladder
+unpinned, where both resolve to the haar_native cascade."""
 
 import dataclasses
 import io
@@ -147,6 +148,39 @@ def test_single_stream_app_matches_jax_unpinned(models):
     assert j_detector._resolve_lab_backend() == "cv2"
     assert t_detector._LAB_BACKEND == "cv2"
     _single_stream_matches_jax(models)
+
+
+HAAR_DIR = os.path.join(os.path.dirname(DATA), "torch_haar")
+
+
+def test_single_stream_app_matches_jax_with_the_haar_rung(models, monkeypatch):
+    """face_backend "auto" in both packages, the cascade XML found: both
+    ladders resolve to haar_native (the JAX one has no cv2 cascade, the
+    port no cv2), and the photograph and two capture frames get the same
+    answers, boxes included."""
+    monkeypatch.setenv("HAARCASCADE_DIR", HAAR_DIR)
+    spec_j, pj, spec_t = models
+    cj, ct = _cfgs()
+    assert cj.face_backend == ct.face_backend == "auto"
+    scfg = dict(min_request_interval=0.0)
+    ja = JS.create_app(j_detector.DeepfakeDetector(cj, params=pj, spec=spec_j), JSC(**scfg))
+    ta = TS.create_app(DeepfakeDetector(ct, params=params_from_jax(pj), spec=spec_t,
+                                        device="cpu"), TSC(**scfg))
+    assert ja.detector.face_detector.backend == "haar_native"
+    assert ta.detector.face_detector.backend == "haar_native"
+    with open(os.path.join(HAAR_DIR, "grace_hopper.jpg"), "rb") as fh:
+        photo = fh.read()
+    seq = [("grace_hopper.jpg", photo)] + [(n, _read(n)) for n in (
+        "frame_640x480_q85_420.jpg", "frame_720x405_q85_420.jpg")]
+    boxes = {}
+    for i, (name, data) in enumerate(seq * 2):
+        r = _same_response(_post(ja, "/analyze", data), _post(ta, "/analyze", data), (i, name))
+        boxes[name] = (r["faces_detected"], r.get("face_bbox"))
+    assert boxes == {"grace_hopper.jpg": (1, {"x": 154, "y": 105, "width": 222, "height": 222}),
+                     "frame_640x480_q85_420.jpg": (1, {"x": 192, "y": 82, "width": 264,
+                                                       "height": 264}),
+                     "frame_720x405_q85_420.jpg": (0, None)}
+    assert r["frame_count"] == 2 * len(seq)
 
 
 def _single_stream_matches_jax(models):
