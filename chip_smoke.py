@@ -38,7 +38,13 @@ in phases, each printing one JSON line:
   7. detect-parity  one bucket-64 detect tick on cuda against the same tick
               on the CPU; the count of Lab and CLAHE'd face pixels that
               differ between the two; the Lab pair's time; the tick's time
-              and a profiler window
+              and a profiler window; then the same with the MTCNN cascade in
+              the tick (mtcnn_device, clahe_device; seeded weights whose
+              scores do not saturate), GPU against CPU, every kernel
+              launched (the f32 entry of preprocess_faces included) and
+              profiled beside the tick without it; then the SSD-bf16
+              guard's result and the detect tick's device ms with the bf16
+              SSD against the f32 SSD
   8. decode   every JPEG fixture of tests/data/torch_jpeg through the
               port's decoder (entropy decode on the host, reconstruction on
               the host CPU) against the sha256 of cv2.imdecode's output, the
@@ -80,13 +86,23 @@ in phases, each printing one JSON line:
               12 of the three decoded fixtures, with the rung on auto (one
               native call per frame, each frame answered with the JAX
               rung's box) and then pinned to the heuristic
- 12. bench    the port's serving benchmark (cli/bench.py) at its sizes with
-              4 timed windows: classify core, the bf16 and tick-schedule
-              guards, detect core (FLOPs per tick, depth-1 latency), the
-              pooled decode, and the engine end to end with the bgr, coef
-              and ycbcr420 planes and with host prep; each function's dict
-              on a line of its own, every kernel launched, all four in
-              every detect tick of bench_core_detect
+ 12. mtcnn    the MTCNN cascade (models/mtcnn.py) on the card against the
+              CPU: mtcnn_align_batch on 64 random 160x160 crops and
+              MTCNNAligner.detect on the photograph's face and crops of the
+              640x480 fixture (scores 1e-5, boxes 1e-3 px, faces 1e-3 where
+              a face passed, the same rows passing); ms per detect call and
+              the device activities of one cascade; from_weights from a
+              directory and from one file; serving: the device-detect
+              engine with the cascade in the tick beside the same engine
+              without it (the detect-serve workload), and host-prep serving
+              with the MTCNN aligner beside the resize aligner (the haar
+              phase's frames)
+ 13. bench    the port's serving benchmark (cli/bench.py): its main, the
+              timed windows cut to 4, prints its one JSON line (the MTCNN
+              core and the SSD-bf16 guard in it); each function's dict on a
+              line of its own, every kernel launched, all four in every
+              detect tick (the hue kernel in every full-forensic one) and
+              the f32 preprocess entry in every MTCNN tick
 
 then a `{"kernels": [...]}` line (launches: the wire phase's coef run) and, last, `{"ok": true, "device": ...}`.
 Any failed phase makes it exit non-zero without the last line. It needs a
@@ -101,6 +117,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import hashlib
 import json
 import os
 import statistics
@@ -350,6 +367,8 @@ def phase_kernels(ctx):
         "inputs_checked": [list(x.shape) + [str(x.dtype)[6:], o] for x, o in cases],
         "ms": time_cuda(kernel), "host_us": host_us(kernel),
         "ms_f32_input": time_cuda(lambda: preproc.preprocess_faces(faces_f32, 224)),
+        "device_ms_f32_input": profile_device(
+            lambda: preproc.preprocess_faces(faces_f32, 224), 20)[1],
         "plain_ms": time_cuda(plain),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": time_cuda(library), "library_call_max_abs_diff": lib_err,
@@ -411,6 +430,7 @@ def phase_kernels(ctx):
     ctx["kernels"] = res
     return {k: {kk: v.get(kk) for kk in ("max_abs_err", "ms", "host_us", "plain_ms",
                                          "bound_ms", "library_ms", "device_ms",
+                                         "ms_f32_input", "device_ms_f32_input",
                                          "plain_device_ms", "library_device_ms",
                                          "max_diff_from_numpy_oracle", "inputs_checked",
                                          "edge_planes_checked", "random_luts_checked")}
@@ -846,6 +866,14 @@ def _reset_launches():
     color_stats.launches = 0
     for k in clahe.launches:
         clahe.launches[k] = 0
+    for k in preproc.entry_launches:
+        preproc.entry_launches[k] = 0
+
+
+def _read_entry_launches():
+    """preprocess_faces launches by entry (u8 and f32 faces)."""
+    from real_time_video_deepfake_detection_tpu_torch.kernels import preproc
+    return dict(preproc.entry_launches)
 
 
 def _read_launches():
@@ -855,7 +883,14 @@ def _read_launches():
             "unique_hue_count": color_stats.launches, **clahe.launches}
 
 
-def phase_detect_serve(ctx):
+def _detect_serve(ctx, aligner=None):
+    """The device-detect engine with clahe_device on the card, 16 streams x
+    12 capture frames from 16 threads; with an MTCNNAligner `aligner`, the
+    cascade runs in the tick (mtcnn_device). Checks the responses, that
+    every kernel was launched (with MTCNN, the f32 preprocess entry too)
+    and that faces were found; frames/s, the request latency and the
+    median tick."""
+    import dataclasses
     import numpy as np
     import torch
     from real_time_video_deepfake_detection_tpu_torch.core.config import ServerConfig
@@ -864,9 +899,10 @@ def phase_detect_serve(ctx):
 
     proto, cm = _ssd_files(ctx)
     net = CaffeNet(proto, cm)   # the engine moves it to the card
+    cfg = dataclasses.replace(_detect_cfg(), mtcnn_device=aligner is not None)
     engine = MultiStreamEngine(
-        _detect_cfg(), ServerConfig(max_streams=64, max_batch=64, device_detect=True),
-        params=b0_state(ctx), device="cuda", ssd_net=net)
+        cfg, ServerConfig(max_streams=64, max_batch=64, device_detect=True),
+        params=b0_state(ctx), device="cuda", ssd_net=net, aligner=aligner)
     tick_ms, batch_sizes = [], []
     dispatch = engine._dispatch
 
@@ -882,12 +918,14 @@ def phase_detect_serve(ctx):
     n_streams, n_frames = 16, 12
     seed, frames = _capture_frames(n_streams, n_frames, net)
     results = {s: [] for s in range(n_streams)}
-    errors = []
+    latency_ms, errors = [], []
 
     def client(s):
         try:
             for t in range(n_frames):
+                t0 = time.perf_counter()
                 results[s].append(engine.analyze(frames[s][t], f"stream-{s}"))
+                latency_ms.append((time.perf_counter() - t0) * 1e3)
         except Exception as e:   # reported below; the phase fails on it
             errors.append(f"stream {s}: {type(e).__name__}: {e}")
 
@@ -899,9 +937,8 @@ def phase_detect_serve(ctx):
     for th in threads:
         th.join(timeout=600)
     wall = time.time() - t0
-    launches = _read_launches()
+    launches, entries = _read_launches(), _read_entry_launches()
     engine.shutdown()
-    ctx["launches"] = launches
     if errors or any(th.is_alive() for th in threads):
         raise AssertionError(f"clients failed: {errors[:3]}")
 
@@ -930,6 +967,9 @@ def phase_detect_serve(ctx):
     for k, n in launches.items():
         if n <= 0:
             problems.append(f"kernel {k} was not launched on the main path")
+    want_entry = "preprocess_faces_f32" if aligner is not None else "preprocess_faces_u8"
+    if entries[want_entry] != launches["preprocess_faces"]:
+        problems.append(f"preprocess_faces entries {entries}, want every launch {want_entry}")
     faces = [r for rs in results.values() for r in rs if r.get("analysis_mode") == "face+frame"]
     if not faces:
         problems.append("no frame had a detected face")
@@ -939,12 +979,24 @@ def phase_detect_serve(ctx):
     if problems:
         raise AssertionError("; ".join(problems[:8]))
     return {"streams": n_streams, "frames_per_stream": n_frames, "frame_seed": seed,
+            "mtcnn_device": aligner is not None,
             "ticks": len(tick_ms), "mean_batch": statistics.mean(batch_sizes),
             "median_tick_ms": statistics.median(tick_ms), "wall_s": wall,
             "frames_per_s": n_streams * n_frames / wall,
-            "frames_with_face": len(faces), "launches": launches,
+            "request_ms_p50": float(np.percentile(latency_ms, 50)),
+            "request_ms_p99": float(np.percentile(latency_ms, 99)),
+            "frames_with_face": len(faces),
+            "frames_with_ssd_face": sum(r["faces_detected"] > 0 for rs in results.values()
+                                        for r in rs),
+            "launches": launches, "preprocess_entry_launches": entries,
             "engine_metrics": engine.metrics,
             "face_probability_range": [min(face_probs), max(face_probs)]}
+
+
+def phase_detect_serve(ctx):
+    info = _detect_serve(ctx)
+    ctx["launches"] = info["launches"]
+    return info
 
 
 def phase_detect_parity(ctx):
@@ -962,13 +1014,14 @@ def phase_detect_parity(ctx):
     cfg = _detect_cfg()
     b = 64
     proto, cm = _ssd_files(ctx)
-    nets, steps, preps = {}, {}, {}
+    nets, models, steps, preps = {}, {}, {}, {}
     for dev in ("cpu", "cuda"):
         model = backbones.build_model(backbones.make("b0")).eval()
         model.load_state_dict(b0_state(ctx))
+        models[dev] = model.to(dev)
         nets[dev] = CaffeNet(proto, cm).to(dev).eval()
-        steps[dev] = make_device_step_detect(nets[dev], model.to(dev), cfg)
-        preps[dev] = _make_detect_prep(nets[dev], cfg)
+        steps[dev] = make_device_step_detect(nets[dev], models[dev], cfg)
+        preps[dev] = _make_detect_prep(nets[dev], cfg)[0]
     rng = np.random.default_rng(SEED + 5)
     frames = np.stack([_synthetic_frame(rng, i % 2 == 0, i % 12) for i in range(b)])
     active = rng.random(b) < 0.9
@@ -1041,6 +1094,8 @@ def phase_detect_parity(ctx):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     wall, busy, activities, top = profile_device(tick, 5)
+    mtcnn = _mtcnn_tick_parity(ctx, nets, models, xs, xg, tick)
+    ssd16 = _ssd_bf16_tick(nets["cuda"], models["cuda"], cfg, xg)
     return {"bucket": b, "faces_detected_frames": n_face, "max_float_diff": max_float_diff,
             "tolerance": 1e-4,
             "clahe_face_pixels_differing_gpu_vs_cpu": px_diff,
@@ -1050,7 +1105,114 @@ def phase_detect_parity(ctx):
             "median_tick_ms_bucket64": statistics.median(times),
             "profiled_tick": {"wall_ms": wall, "device_busy_ms": busy,
                               "device_idle_share": None if busy is None else 1 - busy / wall,
-                              "device_activities": activities, "top": top}}
+                              "device_activities": activities, "top": top},
+            "mtcnn_tick": mtcnn, "ssd_bf16": ssd16}
+
+
+def _mtcnn_weights(bias: float = 3.0):
+    """The JAX package's init_random_mtcnn(5) draws with the class heads
+    biased by -bias / +bias (cli/bench._decisive_mtcnn). At 3 the cascade
+    accepts many crops and its scores do not saturate; the bench's 5 makes
+    most of P-Net's top probabilities exact float32 ties."""
+    from real_time_video_deepfake_detection_tpu_torch.cli.bench import _decisive_mtcnn
+    return _decisive_mtcnn(5, bias)
+
+
+def _profiled(fn, n=5):
+    wall, busy, acts, top = profile_device(fn, n)
+    return {"wall_ms": wall, "device_busy_ms": busy, "device_activities": acts,
+            "device_idle_share": None if busy is None else 1 - busy / wall, "top": top[:4]}
+
+
+def _mtcnn_tick_parity(ctx, nets, models, xs, xg, plain_tick):
+    """The bucket-64 detect tick with the cascade in it (mtcnn_device and
+    clahe_device), on the card against the CPU: has_face, face_bbox and
+    faces_detected equal, floats within 1e-4 (face_probability on face
+    rows); every kernel launched in the card's tick, the f32 preprocess
+    entry included; wall, device-busy ms and activities beside the tick
+    without the cascade, in turns."""
+    import dataclasses
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.models.mtcnn import build_nets
+    from real_time_video_deepfake_detection_tpu_torch.serving.batcher import (
+        init_stream_states, make_device_step_detect)
+    from real_time_video_deepfake_detection_tpu_torch.state.tree import tree_leaves
+    b = xs[0].shape[0]
+    cfg = dataclasses.replace(_detect_cfg(), mtcnn_device=True)
+    steps = {dev: make_device_step_detect(nets[dev], models[dev], cfg,
+                                          build_nets(_mtcnn_weights(), dev))
+             for dev in ("cpu", "cuda")}
+    out_c, st_c = steps["cpu"](*xs, init_stream_states(b + 1, cfg, "cpu"))
+    _reset_launches()
+    out_g, st_g = steps["cuda"](*xg, init_stream_states(b + 1, cfg, "cuda"))
+    torch.cuda.synchronize()
+    launches, entries = _read_launches(), _read_entry_launches()
+    face = out_c["has_face"]
+    pairs = [(k, out_c[k], out_g[k].cpu()) for k in out_c]
+    pairs += [(f"state{i}", a, g.cpu()) for i, (a, g) in
+              enumerate(zip(tree_leaves(st_c), tree_leaves(st_g)))]
+    max_diff = 0.0
+    for k, a, g in pairs:
+        if k == "face_probability":   # the cascade's rejects hold no face
+            a, g = a[face], g[face]
+        if a.dtype.is_floating_point:
+            d = float((a - g).abs().max()) if a.numel() else 0.0
+            max_diff = max(max_diff, d)
+            if not d <= 1e-4:
+                raise AssertionError(f"mtcnn tick {k}: max abs diff {d} > 1e-4")
+        elif not torch.equal(a, g):
+            raise AssertionError(f"mtcnn tick {k}: {int((a != g).sum())} integers differ")
+    n_ssd = int((out_c["faces_detected"] > 0).sum())
+    if int(face.sum()) == 0:
+        raise AssertionError(f"the cascade accepted none of {n_ssd} SSD faces")
+    if min(launches.values()) < 1 or entries["preprocess_faces_f32"] < 1:
+        raise AssertionError(f"mtcnn tick launches {launches}, entries {entries}")
+    st = init_stream_states(b + 1, cfg, "cuda")
+
+    def tick():
+        steps["cuda"](*xg, st)
+
+    for _ in range(3):
+        tick()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        tick()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    profiles = {"without_mtcnn": [], "with_mtcnn": []}
+    for name in ("without_mtcnn", "with_mtcnn", "with_mtcnn", "without_mtcnn"):
+        profiles[name].append(_profiled(plain_tick if name == "without_mtcnn" else tick))
+    return {"rows_with_ssd_face": n_ssd, "rows_accepted_by_cascade": int(face.sum()),
+            "max_float_diff": max_diff, "tolerance": 1e-4, "launches": launches,
+            "preprocess_entry_launches": entries,
+            "median_tick_ms_bucket64": statistics.median(times), "profiles": profiles}
+
+
+def _ssd_bf16_tick(net, model, cfg, xg):
+    """The bench's SSD-bf16 guard (its dict printed on a line of its own),
+    then the bucket-64 detect tick's wall and device ms with the bf16 SSD
+    against the f32 SSD, in turns."""
+    import dataclasses
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.cli import bench as B
+    from real_time_video_deepfake_detection_tpu_torch.serving.batcher import (
+        init_stream_states, make_device_step_detect)
+    guard = B.detect_ssd_bf16_guard(device="cuda")
+    emit({"ssd_bf16_guard": guard})
+    b = xg[0].shape[0]
+    ticks = {}
+    for name, c in (("f32", cfg), ("bf16", dataclasses.replace(cfg, ssd_bf16=True))):
+        step, st = make_device_step_detect(net, model, c), init_stream_states(b + 1, c, "cuda")
+        ticks[name] = functools.partial(step, *xg, st)
+        for _ in range(3):
+            ticks[name]()
+    torch.cuda.synchronize()
+    profiles = {"f32": [], "bf16": []}
+    for name in ("f32", "bf16", "bf16", "f32"):
+        profiles[name].append(_profiled(ticks[name]))
+    return {"guard": guard, "profiles": profiles}
 
 
 # ------------------------------------------------------------ decode, http
@@ -1656,10 +1818,11 @@ def _haar_frames():
     return expected["frames"], frames
 
 
-def _haar_serve(ctx, face_backend, frames):
+def _haar_serve(ctx, face_backend, frames, aligner=None):
     """The host-prep engine, 16 streams x 12 frames from 16 threads, each
-    stream cycling the three decoded fixtures; frames/s, the median tick
-    and the face detector's ms per frame."""
+    stream cycling the three decoded fixtures; frames/s, the median tick,
+    the face detector's and the aligner's ms per frame. `aligner`: None
+    is the resize aligner."""
     import numpy as np
     import torch
     from real_time_video_deepfake_detection_tpu_torch.core.config import (
@@ -1668,10 +1831,10 @@ def _haar_serve(ctx, face_backend, frames):
     cfg = DetectorConfig(use_pallas_preproc=True, use_pallas_color=True,
                          face_backend=face_backend)
     engine = MultiStreamEngine(cfg, ServerConfig(max_streams=64, max_batch=64),
-                               params=b0_state(ctx), device="cuda")
+                               params=b0_state(ctx), device="cuda", aligner=aligner)
     backend = engine.face_detector.backend
-    tick_ms, detect_ms = [], []
-    dispatch, detector = engine._dispatch, engine.face_detector
+    tick_ms, detect_ms, align_ms = [], [], []
+    dispatch, detector, align = engine._dispatch, engine.face_detector, engine.aligner
 
     def timed_dispatch(tick_cfg, arrays, states):
         t0 = time.perf_counter()
@@ -1686,7 +1849,21 @@ def _haar_serve(ctx, face_backend, frames):
         detect_ms.append((time.perf_counter() - t0) * 1e3)
         return boxes
 
+    align_crops = {}    # the crops handed to an MTCNN aligner: [crop, calls]
+
+    def timed_aligner(crop):
+        if aligner is not None:
+            with lock:
+                key = hashlib.sha1(np.ascontiguousarray(crop).tobytes()).hexdigest()
+                align_crops.setdefault(key, [crop.copy(), 0])[1] += 1
+        t0 = time.perf_counter()
+        face = align(crop)
+        align_ms.append((time.perf_counter() - t0) * 1e3)
+        return face
+
+    lock = threading.Lock()
     engine._dispatch, engine.face_detector = timed_dispatch, timed_detector
+    engine.aligner = timed_aligner
     n_streams, n_frames = 16, 12
     names = list(frames)
     results = {s: [] for s in range(n_streams)}
@@ -1729,8 +1906,15 @@ def _haar_serve(ctx, face_backend, frames):
             "ticks": len(tick_ms), "median_tick_ms": statistics.median(tick_ms),
             "detect_ms_per_frame_median": statistics.median(detect_ms),
             "detect_ms_per_frame_p90": float(np.percentile(detect_ms, 90)),
+            "aligner": type(align).__name__, "aligned_face_frames": len(align_ms),
+            "align_ms_per_face_frame_median": statistics.median(align_ms) if align_ms else None,
+            "frames_answered_with_face": sum(r.get("analysis_mode") == "face+frame"
+                                             for rs in results.values() for _, r in rs),
             "boxes_by_frame": {k: sorted(map(str, v)) for k, v in faces.items()},
-            "launches": launches}
+            "served_by_frame": {k: sum(name == k for rs in results.values() for name, _ in rs)
+                                for k in names},
+            "launches": launches,
+            **({"align_crops": list(align_crops.values())} if aligner is not None else {})}
 
 
 def phase_haar(ctx):
@@ -1829,71 +2013,284 @@ def phase_haar(ctx):
                                                   heuristic_run["frames_per_s"]]}
 
 
+# ------------------------------------------------------------------ mtcnn
+
+def _mtcnn_crops(n: int, frames: dict):
+    """n 160x160 RGB float crops, from SEED: half uniform noise, half cut at
+    random offsets from the decoded frames of the haar phase."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 8)
+    imgs = list(frames.values())
+    crops = []
+    for i in range(n):
+        if i % 2:
+            crops.append(rng.integers(0, 256, (160, 160, 3)))
+            continue
+        img = imgs[i // 2 % len(imgs)]
+        y = int(rng.integers(0, img.shape[0] - 160 + 1))
+        x = int(rng.integers(0, img.shape[1] - 160 + 1))
+        crops.append(img[y:y + 160, x:x + 160, ::-1])
+    return np.stack(crops).astype(np.float32)
+
+
+def _pnet_ties(nets, crops, k=64):
+    """Exact float32 ties among P-Net's top-k face probabilities of each
+    pyramid level: (mean, max) over crops and levels of the number of the k
+    values that equal another of them."""
+    import numpy as np
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.models import mtcnn as M
+    counts = []
+    with torch.no_grad():
+        for Wh, Ww, _ in M._pyramid(160, 160, torch.device("cpu")):
+            x = M._normalize(M._area_resize_static(torch.from_numpy(crops), Wh, Ww))
+            p = nets["pnet"](x.permute(0, 3, 1, 2))[0][:, 1].reshape(len(crops), -1)
+            for row in M._top_k(p, k)[0].numpy():
+                _, inv, cnt = np.unique(row, return_inverse=True, return_counts=True)
+                counts.append(int((cnt[inv] > 1).sum()))
+    return float(np.mean(counts)), int(max(counts))
+
+
+def phase_mtcnn(ctx):
+    """The MTCNN cascade on the card against the CPU, from_weights, and
+    serving with it: in the device-detect tick beside the tick without it,
+    and as the host-prep aligner beside the resize aligner."""
+    import numpy as np
+    import torch
+    os.environ["HAARCASCADE_DIR"] = HAAR_DIR
+    from real_time_video_deepfake_detection_tpu_torch.models import mtcnn as M
+    sds = _mtcnn_weights()
+    nets = {dev: M.build_nets(sds, dev) for dev in ("cpu", "cuda")}
+    expected, frames = _haar_frames()
+    crops = _mtcnn_crops(64, frames)
+    ties3 = _pnet_ties(nets["cpu"], crops[:8])
+    ties5 = _pnet_ties(M.build_nets(_mtcnn_weights(5.0), "cpu"), crops[:8])
+    problems = []
+
+    def compare(what, got, want):
+        """(faces, scores, boxes) of the card against the CPU's."""
+        fg, sg, bg = (t.cpu() for t in got)
+        fc, sc, bc = want
+        ok = sg > 0
+        if not torch.equal(ok, sc > 0):
+            problems.append(f"{what}: rows passing differ: {ok.tolist()} {(sc > 0).tolist()}")
+            return 0.0, 0.0, 0.0
+        d = (float((sg - sc).abs().max()), float((bg - bc)[ok].abs().max()) if ok.any() else 0.0,
+             float((fg - fc)[ok].abs().max()) if ok.any() else 0.0)
+        if not (d[0] <= 1e-5 and d[1] <= 1e-3 and d[2] <= 1e-3):
+            problems.append(f"{what}: score, box, face max abs diff {d}")
+        return d
+
+    # 1. the in-tick cascade on a bucket of 64 crops
+    out = {dev: M.mtcnn_align_batch(nets[dev], torch.from_numpy(crops).to(dev))
+           for dev in ("cpu", "cuda")}
+    batch_diff = compare("mtcnn_align_batch", out["cuda"], out["cpu"])
+    g = torch.from_numpy(crops).cuda()
+    batch_prof = _profiled(lambda: M.mtcnn_align_batch(nets["cuda"], g))
+    batch_ms = time_cuda(lambda: M.mtcnn_align_batch(nets["cuda"], g), n=10)
+
+    # 2. the host aligner: the photograph's face at the haar rung's box, and
+    # crops of the 640x480 fixture
+    aligners = {dev: M.MTCNNAligner(sds, device=dev) for dev in ("cpu", "cuda")}
+    photo = frames[HAAR_PHOTO]
+    fixture = frames["frame_640x480_q85_420.jpg"]
+    x, y, w, h = 154, 105, 222, 222
+    host_crops = {"photo_face": photo[y:y + h, x:x + w],
+                  "fixture_center_200": fixture[140:340, 220:420],
+                  "fixture_top_left_120x160": fixture[:120, :160],
+                  "fixture_full": fixture}
+    detect = {}
+    for name, crop in host_crops.items():
+        r = {dev: aligners[dev].detect(np.ascontiguousarray(crop)) for dev in ("cpu", "cuda")}
+        (fg, sg, bg), (fc, sc, bc) = r["cuda"], r["cpu"]
+        entry = {"shape": list(crop.shape), "score_cuda": sg, "score_cpu": sc}
+        if (fg is None) != (fc is None):
+            problems.append(f"detect {name}: card {sg}, CPU {sc}")
+        elif fg is not None:
+            entry["max_abs_diff"] = [abs(sg - sc), float(np.abs(bg - bc).max()),
+                                     float(np.abs(fg - fc).max())]
+            entry["box_cuda"] = [float(v) for v in bg]
+            if not (entry["max_abs_diff"][0] <= 1e-5 and entry["max_abs_diff"][1] <= 1e-3
+                    and entry["max_abs_diff"][2] <= 1e-3):
+                problems.append(f"detect {name}: score, box, face diff {entry['max_abs_diff']}")
+        detect[name] = entry
+    face_crop = np.ascontiguousarray(host_crops["photo_face"])
+    aligners["cuda"].detect(face_crop)
+    detect_ms = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        aligners["cuda"].detect(face_crop)
+        detect_ms.append((time.perf_counter() - t0) * 1e3)
+    detect_prof = _profiled(lambda: aligners["cuda"].detect(face_crop))
+
+    # 3. from_weights: facenet's three files, then one prefixed file
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mtcnn_") as d:
+        for net, sd in sds.items():
+            torch.save(sd, os.path.join(d, f"{net}.pt"))
+        torch.save({f"{net}.{k}": v for net, sd in sds.items() for k, v in sd.items()},
+                   os.path.join(d, "bundle.pt"))
+        loaded = {"directory": M.MTCNNAligner.from_weights(d, device="cuda"),
+                  "file": M.MTCNNAligner.from_weights(os.path.join(d, "bundle.pt"),
+                                                      device="cuda")}
+    want = aligners["cuda"].detect(face_crop)
+    for how, al in loaded.items():
+        got = al.detect(face_crop)
+        same_weights = all(torch.equal(al.nets[n].state_dict()[k].cpu(), v)
+                           for n, sd in sds.items() for k, v in sd.items())
+        if not same_weights or got[1] != want[1]:
+            problems.append(f"from_weights ({how}): weights equal {same_weights}, "
+                            f"score {got[1]} against {want[1]}")
+    if problems:
+        raise AssertionError("; ".join(problems[:6]))
+
+    # 4. serving: the cascade in the device-detect tick beside the tick
+    # without it, and the host-prep aligner beside the resize aligner
+    detect_serve = {"without_mtcnn": _detect_serve(ctx),
+                    "with_mtcnn": _detect_serve(ctx, aligners["cuda"])}
+    served = {name: frames[name] for name in (HAAR_PHOTO, "frame_640x480_q85_420.jpg",
+                                              "frame_720x405_q85_420.jpg")}
+    host_prep = {"resize_aligner": _haar_serve(ctx, "auto", served),
+                 "mtcnn_aligner": _haar_serve(ctx, "auto", served, aligners["cuda"])}
+    # the aligner returned on every served frame that has a face (an
+    # exception would answer forensic-only and go unrecorded), and answered
+    # a face exactly where the CPU aligner accepts the crop it was handed
+    run = host_prep["mtcnn_aligner"]
+    want_calls = sum(n for name, n in run["served_by_frame"].items()
+                     if expected[name]["boxes"])
+    want_faces = sum(n for crop, n in run.pop("align_crops")
+                     if aligners["cpu"].detect(crop)[0] is not None)
+    if run["aligned_face_frames"] != want_calls or run["frames_answered_with_face"] != want_faces:
+        raise AssertionError(
+            f"host-prep serving with the MTCNN aligner: {run['aligned_face_frames']} aligner "
+            f"returns for {want_calls} served frames with a face, "
+            f"{run['frames_answered_with_face']} answered with a face where the CPU aligner "
+            f"accepts {want_faces}")
+    run["expected_aligner_returns"], run["expected_answered_with_face"] = want_calls, want_faces
+    pick = ("frames_per_s", "request_ms_p50", "request_ms_p99", "median_tick_ms",
+            "frames_with_face", "frames_with_ssd_face", "launches", "preprocess_entry_launches")
+    return {"card": ctx["smi"],
+            "weights": "init_random_mtcnn(5) draws, class heads -3/+3",
+            "pnet_top64_exact_ties_mean_max": {"bias_3": ties3, "bias_5": ties5},
+            "align_batch": {"crops": 64, "caps": [64, 16, 8],
+                            "rows_passing": int((out["cuda"][1] > 0).sum()),
+                            "max_abs_diff_score_box_face": batch_diff,
+                            "ms_event_median": batch_ms, "profile": batch_prof},
+            "detect": detect,
+            "detect_ms_photo_face_median": statistics.median(detect_ms),
+            "detect_profile_photo_face": detect_prof,
+            "from_weights": sorted(loaded),
+            "detect_serve": {k: {kk: v[kk] for kk in pick} for k, v in detect_serve.items()},
+            "host_prep_serving": {k: {kk: v[kk] for kk in (
+                "frames_per_s", "median_tick_ms", "detect_ms_per_frame_median", "aligner",
+                "aligned_face_frames", "align_ms_per_face_frame_median",
+                "frames_answered_with_face", "launches")} for k, v in host_prep.items()},
+            "host_prep_mtcnn_expected": {k: host_prep["mtcnn_aligner"][k] for k in (
+                "expected_aligner_returns", "expected_answered_with_face")}}
+
+
 # ------------------------------------------------------------------ bench
 
 def phase_bench(ctx):
-    """The port's serving benchmark (cli/bench.py) at its sizes, with 4
-    timed windows in place of 10-12: each function's result on its own
-    line, every kernel's launches over the whole phase."""
+    """The port's serving benchmark (cli/bench.py): its main with the timed
+    windows cut to 4 (from 6-12), its one JSON line checked for the MTCNN
+    core and the SSD-bf16 guard; each function's result on a line of its
+    own; every kernel's launches over the whole phase, all four in every
+    detect tick (the hue kernel in every tick that runs the full forensics)
+    and the f32 preprocess entry in every MTCNN tick."""
+    import io
+    from contextlib import redirect_stdout
     from real_time_video_deepfake_detection_tpu_torch.cli import bench as B
-    # each detect tick's launches, counted around the step bench_core_detect
-    # builds (host-side counters: no sync, the windows' timing is kept)
+    # each detect tick's launches, counted around the steps the bench builds
+    # (host-side counters: no sync, the windows' timing is kept)
     detect_ticks, make_step = [], B.make_device_step_detect
 
-    def counted_make(*args, **kw):
-        step = make_step(*args, **kw)
+    def counted_make(net, model, cfg, *rest):
+        step = make_step(net, model, cfg, *rest)
 
         def counted(*a):
-            before = _read_launches()
+            before, e0 = _read_launches(), _read_entry_launches()
             out = step(*a)
-            after = _read_launches()
-            detect_ticks.append({k: after[k] - before[k] for k in after})
+            after, e1 = _read_launches(), _read_entry_launches()
+            detect_ticks.append({"mtcnn": cfg.mtcnn_device,
+                                 "fast": cfg.forensic_schedule == "tick_fast",
+                                 "f32_entry": e1["preprocess_faces_f32"]
+                                 - e0["preprocess_faces_f32"],
+                                 **{k: after[k] - before[k] for k in after}})
             return out
         return counted
 
+    names = ("bench_core", "bf16_parity_guard", "tick_schedule_guard", "detect_ssd_bf16_guard",
+             "bench_core_detect", "bench_e2e", "bench_prep_scaling")
+    originals = {name: getattr(B, name) for name in names}
+    runs = []
+
+    def recorded(name):
+        def run(*args, **kw):
+            if name in ("bench_core", "bench_core_detect"):
+                kw["n_windows"] = min(kw.get("n_windows", 10), 4)
+            t0 = time.time()
+            r = originals[name](*args, **kw)
+            runs.append({"bench": name, "seconds": round(time.time() - t0, 3),
+                         "kwargs": {k: v for k, v in kw.items() if k != "device"}, **r})
+            return r
+        return run
+
+    for name in names:
+        setattr(B, name, recorded(name))
     B.make_device_step_detect = counted_make
     _reset_launches()
-    runs = (("bench_core", lambda: B.bench_core(n_windows=4, device="cuda")),
-            ("bf16_parity_guard", lambda: B.bf16_parity_guard(device="cuda")),
-            ("tick_schedule_guard", lambda: B.tick_schedule_guard(device="cuda")),
-            ("bench_core_detect", lambda: B.bench_core_detect(n_windows=4, device="cuda")),
-            ("bench_prep_scaling", lambda: B.bench_prep_scaling(device="cuda")),
-            ("bench_e2e bgr", lambda: B.bench_e2e(device="cuda")),
-            ("bench_e2e coef", lambda: B.bench_e2e(ingest_plane="coef", device="cuda")),
-            ("bench_e2e ycbcr420", lambda: B.bench_e2e(ingest_plane="ycbcr420",
-                                                       device="cuda")),
-            ("bench_e2e host-prep heuristic",
-             lambda: B.bench_e2e(device_detect=False, device="cuda")))
-    results = {}
+    out = io.StringIO()
     try:
-        for name, run in runs:
-            t0 = time.time()
-            results[name] = run()
-            emit({"bench": name, "seconds": round(time.time() - t0, 3), **results[name]})
+        with redirect_stdout(out):
+            rc = B.main(["--device", "cuda"])
     finally:
         B.make_device_step_detect = make_step
+        for name, fn in originals.items():
+            setattr(B, name, fn)
+    for r in runs:
+        emit(r)
     launches = _read_launches()
+    lines = out.getvalue().splitlines()
     problems = [f"kernel {k} was not launched" for k, n in launches.items() if n <= 0]
-    per_tick_min = {k: min(t[k] for t in detect_ticks) for k in launches}
+    if rc != 0 or len(lines) != 1:
+        raise AssertionError(f"bench main: rc {rc}, {len(lines)} lines on stdout")
+    line = json.loads(lines[0])
+    emit({"bench_main": line})
+    if not {"metric", "value", "unit", "mtcnn_core", "ssd", "ssd_bf16_guard"} <= set(line):
+        problems.append(f"bench main's line lacks keys: {sorted(line)}")
+    # the fast ticks of the tick schedule skip the colour signal, and with it
+    # the hue kernel
+    per_tick_min = {k: min(t[k] for t in detect_ticks
+                           if not (k == "unique_hue_count" and t["fast"])) for k in launches}
     if min(per_tick_min.values()) <= 0:
-        problems.append(f"a detect tick of bench_core_detect missed a kernel: {per_tick_min}")
-    if not results["tick_schedule_guard"]["ok"]:
+        problems.append(f"a detect tick of the bench missed a kernel: {per_tick_min}")
+    mtcnn_ticks = [t for t in detect_ticks if t["mtcnn"]]
+    if not mtcnn_ticks or min(t["f32_entry"] for t in mtcnn_ticks) <= 0:
+        problems.append(f"{len(mtcnn_ticks)} MTCNN ticks, the f32 preprocess entry missing")
+    by_name = {}
+    for r in runs:
+        by_name.setdefault(r["bench"], []).append(r)
+    if not all(r["ok"] for r in by_name["tick_schedule_guard"]):
         problems.append("the tick schedule's outputs differ from the frame schedule's")
-    if {r["device"] for r in results.values()} != {ctx["name"]}:
-        problems.append(f"devices {[r['device'] for r in results.values()]}")
+    if {r["device"] for r in runs} != {ctx["name"]}:
+        problems.append(f"devices {sorted({r['device'] for r in runs})}")
     if problems:
         raise AssertionError("; ".join(problems))
-    core, detect = results["bench_core"], results["bench_core_detect"]
+    detect = by_name["bench_core_detect"]
     return {"launches": launches, "card": ctx["smi"],
-            "bench_core_detect_ticks_counted": len(detect_ticks),
+            "detect_ticks_counted": len(detect_ticks), "mtcnn_ticks_counted": len(mtcnn_ticks),
+            "fast_forensic_ticks_counted": sum(t["fast"] for t in detect_ticks),
             "launches_per_detect_tick_min": per_tick_min,
-            "classify_core": {k: core[k] for k in ("fps", "tick_ms_p50", "tick_ms_p95")},
-            "detect_core": {k: detect[k] for k in (
-                "fps", "tick_ms_p50", "tick_ms_p95", "req_ms_p50", "req_ms_p95",
-                "gflop_per_tick_conv_matmul", "achieved_tflops", "mfu_pct_bf16peak")},
-            "e2e_fps": {k: v["fps"] for k, v in results.items() if k.startswith("bench_e2e")},
-            "e2e_req_ms_p95": {k: v["req_ms_p95"] for k, v in results.items()
-                               if k.startswith("bench_e2e")}}
+            "main": {k: line[k] for k in ("value", "ssd", "ssd_bf16_guard", "mtcnn_core")},
+            "classify_core": [{k: r[k] for k in ("kwargs", "fps", "tick_ms_p50", "tick_ms_p95")}
+                              for r in by_name["bench_core"]],
+            "detect_core": [{k: r[k] for k in ("kwargs", "ssd", "mtcnn", "fps", "tick_ms_p50",
+                                               "tick_ms_p95", "req_ms_p50",
+                                               "gflop_per_tick_conv_matmul",
+                                               "mfu_pct_bf16peak")} for r in detect],
+            "ssd_bf16_guard": by_name["detect_ssd_bf16_guard"][0],
+            "e2e": [{k: r[k] for k in ("mode", "fps", "req_ms_p50", "req_ms_p95")}
+                    for r in by_name["bench_e2e"]]}
 
 
 PHASES = (("device", phase_device), ("build", phase_build),
@@ -1901,7 +2298,7 @@ PHASES = (("device", phase_device), ("build", phase_build),
           ("parity", phase_parity), ("detect-serve", phase_detect_serve),
           ("detect-parity", phase_detect_parity), ("decode", phase_decode),
           ("http", phase_http), ("wire", phase_wire), ("haar", phase_haar),
-          ("bench", phase_bench))
+          ("mtcnn", phase_mtcnn), ("bench", phase_bench))
 
 
 def main() -> int:

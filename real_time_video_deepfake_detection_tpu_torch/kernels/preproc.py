@@ -20,8 +20,10 @@ from . import build
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
-# Kernel launches since the last reset (the CPU path never counts).
+# Kernel launches since the last reset (the CPU path never counts), in all
+# and by entry: u8 faces (the resize aligner's crops) or f32 (MTCNN's)
 launches = 0
+entry_launches = {"preprocess_faces_u8": 0, "preprocess_faces_f32": 0}
 
 _tables: Dict[Tuple[int, int, int, str], Tuple[torch.Tensor, torch.Tensor]] = {}
 
@@ -74,4 +76,5 @@ def preprocess_faces(faces_raw: torch.Tensor, out_size: int = 224) -> torch.Tens
     build.launch(name, faces_raw.device, faces_raw.data_ptr(), out.data_ptr(), b, h, w,
                  out_size, itab.data_ptr(), ftab.data_ptr())
     launches += 1
+    entry_launches[name] += 1
     return out

@@ -21,15 +21,20 @@ package's ladder of Lab rungs (cv2, native, jnp; an unpinned call takes
 cv2's 8-bit conversion, which the port computes without cv2), and the resize
 aligner, the host prep of the batched engine.
 
+With `mtcnn_weights_path` (facenet's pnet.pt / rnet.pt / onet.pt, a
+directory or one prefixed file) the MTCNN aligner (models/mtcnn.py) aligns
+the crops on the detector's device; a path that does not exist keeps the
+resize aligner, as in the JAX package.
+
 Not in this slice (each raises NotImplementedError): checkpoint loading
-(`weights_path`; the training slices), the MTCNN aligner
-(`mtcnn_weights_path`), test-time augmentation, GradCAM, and `predict`
-with its overlay drawing (the JAX package draws with cv2).
+(`weights_path`; the training slices), test-time augmentation, GradCAM,
+and `predict` with its overlay drawing (the JAX package draws with cv2).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import warnings
 from typing import Dict, Optional, Union
 
@@ -39,6 +44,7 @@ import torch
 from ..core.config import DetectorConfig
 from ..core.device import resolve_device
 from ..models import backbones
+from ..models.mtcnn import MTCNNAligner
 from ..ops import forensics
 from ..ops.clahe import clahe_u8_numpy
 from ..ops.color import bgr_to_gray_u8, lab_to_rgb_u8_op_by_op, rgb_to_lab_u8_op_by_op
@@ -119,9 +125,6 @@ class DeepfakeDetector:
         if weights_path:
             raise NotImplementedError(
                 "weights_path: checkpoint loading comes with the training slices")
-        if mtcnn_weights_path:
-            raise NotImplementedError("mtcnn_weights_path: the MTCNN aligner comes "
-                                      "with the MTCNN slice")
         if enable_gradcam:
             raise NotImplementedError("enable_gradcam: GradCAM comes with a later slice")
         if cfg.use_tta if use_tta is None else use_tta:
@@ -158,6 +161,8 @@ class DeepfakeDetector:
             confidence_threshold=cfg.ssd_confidence_threshold,
             min_face_px=cfg.min_face_px, backend=cfg.face_backend, device=self.device)
         self.aligner = _ResizeAligner()
+        if mtcnn_weights_path and os.path.exists(mtcnn_weights_path):
+            self.aligner = MTCNNAligner.from_weights(mtcnn_weights_path, device=self.device)
         self.temporal_tracker = TemporalTracker(
             window_size=cfg.tracker.window_size,
             high_confidence_threshold=cfg.tracker.high_confidence_threshold,

@@ -24,17 +24,21 @@ reference's box selection -> per-stream crop and align to 160x160 RGB ->
 the tick above.
 make_device_step_detect_wire feeds the same tick from a wire plane of the
 JPEG ingest (quantised coefficients, or the 4:2:0 planes after the inverse
-DCT), finishing the decode in the tick. Clip attention, in-tick MTCNN and
-the SSD in bf16 come with later slices.
+DCT), finishing the decode in the tick. DetectorConfig.mtcnn_device puts
+the MTCNN P/R/O cascade (models/mtcnn.py) between the crop and the
+classifier, and ssd_bf16 runs the SSD in bfloat16. Clip attention comes
+with a later slice.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..core.config import DetectorConfig
 from ..models.caffe_net import CaffeNet
@@ -221,30 +225,63 @@ def device_step_compact(model: EfficientNet, cfg: DetectorConfig,
     return out, new_full
 
 
-def _make_detect_prep(net: CaffeNet, cfg: DetectorConfig):
+def _make_detect_prep(net: CaffeNet, cfg: DetectorConfig,
+                      mtcnn_nets: Optional[Dict[str, nn.Module]] = None):
     """The capture -> (frames_256, faces, has_face, face_hw, box, n_faces)
-    stage of the detect tick."""
-    if cfg.mtcnn_device:
-        raise NotImplementedError("mtcnn_device: in-tick MTCNN comes with the MTCNN slice")
-    if cfg.ssd_bf16:
-        raise NotImplementedError("ssd_bf16: the SSD in bf16 comes with a later slice")
+    stage of the detect tick. Returns (detect_prep, step_cfg): step_cfg is
+    cfg with clahe_device off when the MTCNN path applies CLAHE itself (the
+    reference's CLAHE-then-align order), so the core never applies it
+    twice.
+
+    cfg.ssd_bf16 runs a copy of `net` whose floating weights are bfloat16
+    on a bfloat16 blob; DetectionOutput decodes in float32. cfg.mtcnn_device
+    runs the P/R/O cascade (models/mtcnn.mtcnn_align_batch with
+    cfg.mtcnn_tick_caps) on the crops, after CLAHE when cfg.clahe_device;
+    its faces (float32) replace the crops, and a crop the cascade rejects
+    falls to forensic-only (the reference's `mtcnn(img) is None`)."""
     h256, w256 = cfg.forensic.analysis_size
     m = cfg.mtcnn_image_size
+    step_cfg = cfg
+    if cfg.mtcnn_device:
+        if mtcnn_nets is None:
+            raise ValueError("cfg.mtcnn_device requires mtcnn_nets (the P/R/O-Net "
+                             "modules of an MTCNNAligner)")
+        from ..models.mtcnn import mtcnn_align_batch
+        step_cfg = dataclasses.replace(cfg, clahe_device=False)
+    if cfg.ssd_bf16:
+        net = copy.deepcopy(net).to(torch.bfloat16)
 
     def detect_prep(frames_capture_u8: torch.Tensor, active: torch.Tensor):
         hc, wc = frames_capture_u8.shape[1], frames_capture_u8.shape[2]
         frames_256 = resize_bilinear_u8_cv2(frames_capture_u8, h256, w256)
-        det = net(ssd_input(frames_capture_u8))["detection_out"]
+        blob = ssd_input(frames_capture_u8)
+        if cfg.ssd_bf16:
+            blob = blob.to(torch.bfloat16)
+        det = net(blob)["detection_out"]
         d = detect_postprocess_batch(det, hc, wc, cfg.ssd_confidence_threshold,
                                      cfg.min_face_px)
         box = d["box_xywh"]
+        has_face = d["has_face"] & active
         # BGR -> RGB (the host aligner's channel order) on the crop, where
         # it moves the fewest bytes; the crop treats channels alike
         faces_raw = crop_resize_u8_cv2(frames_capture_u8, box, m, m).flip(-1)
         face_hw = torch.stack([box[:, 3], box[:, 2]], dim=1)   # (fh, fw)
-        return frames_256, faces_raw, d["has_face"] & active, face_hw, box, d["n_faces"]
+        if cfg.mtcnn_device:
+            if cfg.clahe_device:
+                # the reference's order: CLAHE on the crop, then the
+                # alignment (deepfake_detection.py:357-383)
+                from ..kernels.clahe import clahe_u8
+                lab = rgb_to_lab_u8(faces_raw)
+                L = clahe_u8(lab[..., 0].contiguous())
+                faces_raw = lab_to_rgb_u8(torch.stack([L, lab[..., 1], lab[..., 2]], dim=-1))
+            mp, mr, mo = cfg.mtcnn_tick_caps
+            faces_raw, scores, _ = mtcnn_align_batch(
+                mtcnn_nets, faces_raw.to(torch.float32), image_size=m,
+                max_p=mp, max_r=mr, max_o=mo)
+            has_face = has_face & (scores > 0.0)
+        return frames_256, faces_raw, has_face, face_hw, box, d["n_faces"]
 
-    return detect_prep
+    return detect_prep, step_cfg
 
 
 @torch.no_grad()
@@ -265,7 +302,8 @@ def _detect_tick(detect_prep, model: EfficientNet, cfg: DetectorConfig,
     return out, new_full
 
 
-def make_device_step_detect(net: CaffeNet, model: EfficientNet, cfg: DetectorConfig):
+def make_device_step_detect(net: CaffeNet, model: EfficientNet, cfg: DetectorConfig,
+                            mtcnn_nets: Optional[Dict[str, nn.Module]] = None):
     """The capture-to-verdict tick of device-detect serving, one call per
     tick on the device of `net` and `model`:
 
@@ -274,18 +312,20 @@ def make_device_step_detect(net: CaffeNet, model: EfficientNet, cfg: DetectorCon
 
     `out` holds the keys of device_step_compact plus face_bbox (i32 (B, 4),
     x y w h in capture coordinates), has_face and faces_detected. `net` is
-    the SSD's Caffe graph (models/caffe_net.CaffeNet)."""
-    detect_prep = _make_detect_prep(net, cfg)
+    the SSD's Caffe graph (models/caffe_net.CaffeNet); `mtcnn_nets`, the
+    cascade's modules for cfg.mtcnn_device (MTCNNAligner.nets)."""
+    detect_prep, step_cfg = _make_detect_prep(net, cfg, mtcnn_nets)
 
     def step(frames_capture_u8, active, slot_idx, states):
-        return _detect_tick(detect_prep, model, cfg, frames_capture_u8, active,
+        return _detect_tick(detect_prep, model, step_cfg, frames_capture_u8, active,
                             slot_idx, states)
 
     return step
 
 
 def make_device_step_detect_wire(net: CaffeNet, model: EfficientNet, cfg: DetectorConfig,
-                                 wire: str, capture_hw: Tuple[int, int]):
+                                 wire: str, capture_hw: Tuple[int, int],
+                                 mtcnn_nets: Optional[Dict[str, nn.Module]] = None):
     """The detect tick fed by a wire plane of the JPEG ingest
     (ServerConfig.ingest_plane) instead of decoded frames: the tick first
     finishes the decode with libjpeg's integer math (ops/jpeg_decode), then
@@ -301,18 +341,20 @@ def make_device_step_detect_wire(net: CaffeNet, model: EfficientNet, cfg: Detect
     Inactive rows may hold garbage (the engine decodes straight into its
     padded bucket and flags the ineligible entries): the arithmetic is
     integer only, its output is clamped, and active=False masks every
-    state update."""
-    detect_prep = _make_detect_prep(net, cfg)
+    state update. With cfg.mtcnn_device the cascade follows the decode
+    unchanged."""
+    detect_prep, step_cfg = _make_detect_prep(net, cfg, mtcnn_nets)
     hc, wc = capture_hw
 
     if wire == "coef":
         def step(coef_y, coef_c, qtab, active, slot_idx, states):
             frames = bgr_from_coefs_420(coef_y, coef_c, qtab.to(torch.int32) & 0xFFFF, hc, wc)
-            return _detect_tick(detect_prep, model, cfg, frames, active, slot_idx, states)
+            return _detect_tick(detect_prep, model, step_cfg, frames, active, slot_idx,
+                                states)
         return step
     if wire == "ycbcr420":
         def step(y, c, active, slot_idx, states):
-            return _detect_tick(detect_prep, model, cfg, bgr_from_ycbcr420(y, c), active,
-                                slot_idx, states)
+            return _detect_tick(detect_prep, model, step_cfg, bgr_from_ycbcr420(y, c),
+                                active, slot_idx, states)
         return step
     raise ValueError(f"unknown ingest wire plane: {wire!r}")

@@ -28,10 +28,13 @@ requests with the reference's JSON response. Two modes:
 `create_batched_app` puts the reference's HTTP surface in front of it.
 Per-stream session state lives in the batched StreamStates on the device,
 with one extra dummy row for padded entries; /reset with a stream id resets
-only that slot. Not in this slice (each raises NotImplementedError): scaled
-decode, MTCNN alignment and clip attention. The JAX engine's
-one-call native prep of host-prep mode (libjpeg plus host C) is not ported:
-`analyze_jpeg` decodes with the port's decoder and calls `analyze`.
+only that slot. An MTCNNAligner (models/mtcnn.py) aligns faces on the host
+in host-prep mode, or lends its nets to the tick with
+DetectorConfig.mtcnn_device in device-detect mode. Not in this slice (each
+raises NotImplementedError): scaled decode and clip attention. The JAX
+engine's one-call native prep of host-prep mode (libjpeg plus host C) is
+not ported: `analyze_jpeg` decodes with the port's decoder and calls
+`analyze`.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from ..core.config import DetectorConfig, ServerConfig
 from ..core.device import resolve_device
 from ..models import backbones
 from ..models.caffe_net import CaffeNet
+from ..models.mtcnn import MTCNNAligner
 from ..ops.resize import resize_bilinear_u8_cv2
 from ..pipeline.detector import _ResizeAligner, preprocess_face_quality
 from ..pipeline.faces import FaceDetector
@@ -164,14 +168,15 @@ def _check_ingest_plane(server_cfg: ServerConfig) -> None:
                          f"16 (got {server_cfg.detect_capture_hw})")
 
 
+def _device_key(device: torch.device) -> tuple:
+    """"cuda" and "cuda:0" name one card."""
+    return device.type, device.index or 0
+
+
 def _unported(cfg: DetectorConfig, server_cfg: ServerConfig) -> None:
     if server_cfg.ingest_scaled_decode:
         raise NotImplementedError("ingest_scaled_decode: libjpeg's DCT-scaled decode "
                                   "is not ported")
-    if cfg.mtcnn_device:
-        raise NotImplementedError("mtcnn_device comes with the MTCNN slice")
-    if server_cfg.device_detect and cfg.ssd_bf16:
-        raise NotImplementedError("ssd_bf16: the SSD in bf16 comes with a later slice")
 
 
 class MultiStreamEngine:
@@ -184,14 +189,16 @@ class MultiStreamEngine:
     (raising when it is absent); pass "cpu" to run on the CPU.
     Device-detect mode needs the SSD: `ssd_net` (a models/caffe_net.CaffeNet,
     moved to the engine's device) or a `face_detector` built with a
-    caffemodel."""
+    caffemodel. `aligner`: None is the resize aligner; an MTCNNAligner
+    aligns on the host (float32 faces), or with cfg.mtcnn_device in
+    device-detect mode runs its cascade inside the tick."""
 
     def __init__(self, cfg: DetectorConfig = DetectorConfig(),
                  server_cfg: ServerConfig = ServerConfig(),
                  params: Optional[Dict[str, torch.Tensor]] = None, spec=None,
                  device: Optional[Union[str, torch.device]] = None, seed: int = 0,
                  face_detector: Optional[FaceDetector] = None,
-                 ssd_net: Optional[CaffeNet] = None):
+                 ssd_net: Optional[CaffeNet] = None, aligner=None):
         _unported(cfg, server_cfg)
         _check_ingest_plane(server_cfg)
         self.device = resolve_device(device)
@@ -213,10 +220,16 @@ class MultiStreamEngine:
         self.face_detector = face_detector or FaceDetector(
             confidence_threshold=cfg.ssd_confidence_threshold,
             min_face_px=cfg.min_face_px, backend=cfg.face_backend)
-        self.aligner = _ResizeAligner()
-        # the resize aligner's crops are integer-valued, so they travel as u8
-        # (clahe_device needs u8 crops; the tick checks it)
-        self._faces_dtype = np.uint8
+        self.aligner = aligner if aligner is not None else _ResizeAligner()
+        mtcnn = isinstance(self.aligner, MTCNNAligner)
+        # the resize aligner's crops are integer-valued, so they travel as
+        # u8; MTCNN's are fractional and keep float32
+        self._faces_dtype = np.float32 if mtcnn else np.uint8
+        if (cfg.clahe_device and mtcnn
+                and not (server_cfg.device_detect and cfg.mtcnn_device)):
+            # (an mtcnn_device tick CLAHEs the crop before its cascade)
+            raise ValueError("clahe_device requires the resize aligner (u8 crops); "
+                             "MTCNN alignment needs the CLAHE'd image on the host")
 
         # tick-schedule forensic variants: index 0 full tick, 1 fast tick
         if server_cfg.forensic_tick_schedule:
@@ -231,6 +244,20 @@ class MultiStreamEngine:
         self._detect_steps = None
         self._wire_steps = None
         if server_cfg.device_detect:
+            mtcnn_nets = None
+            if cfg.mtcnn_device:
+                if not mtcnn:
+                    raise ValueError("mtcnn_device requires an MTCNNAligner (its P/R/O-Net "
+                                     "weights) on the engine")
+                # the tick runs the aligner's own modules
+                if _device_key(self.aligner.device) != _device_key(self.device):
+                    raise ValueError(f"mtcnn_device needs the MTCNNAligner on the engine's "
+                                     f"device ({self.device}), not {self.aligner.device}")
+                mtcnn_nets = self.aligner.nets
+            elif mtcnn:
+                raise ValueError("device_detect pairs with the resize aligner (or "
+                                 "cfg.mtcnn_device to run the cascade in the tick); the "
+                                 "plain MTCNN aligner is host-side")
             net = ssd_net
             if net is None and self.face_detector._ssd is not None:
                 net = self.face_detector._ssd.net
@@ -239,12 +266,13 @@ class MultiStreamEngine:
                     "device_detect requires SSD weights: pass ssd_net= or "
                     "construct the FaceDetector with a caffemodel")
             net = net.to(self.device).eval()
-            self._detect_steps = {c: make_device_step_detect(net, self.model, c)
+            self._detect_steps = {c: make_device_step_detect(net, self.model, c, mtcnn_nets)
                                   for c in dict.fromkeys(self._tick_cfgs)}
             if server_cfg.ingest_plane != "bgr":
                 self._wire_steps = {
                     c: make_device_step_detect_wire(net, self.model, c, server_cfg.ingest_plane,
-                                                    tuple(server_cfg.detect_capture_hw))
+                                                    tuple(server_cfg.detect_capture_hw),
+                                                    mtcnn_nets)
                     for c in dict.fromkeys(self._tick_cfgs)}
 
         self.n_slots = server_cfg.max_streams
@@ -488,6 +516,13 @@ class MultiStreamEngine:
         face_raw, face_hw, bbox = None, (0, 0), None
         if faces:
             x, y, fw, fh = faces[0]
+            m = self.server_cfg.align_box_multiple
+            if m > 0 and isinstance(self.aligner, MTCNNAligner):
+                # the crop rounded up to a multiple of m, clipped to the
+                # frame (the JAX engine's bound on MTCNN's compiled sizes)
+                fh_frame, fw_frame = frame_bgr.shape[:2]
+                fw = min(-(-fw // m) * m, fw_frame - x)
+                fh = min(-(-fh // m) * m, fh_frame - y)
             region = frame_bgr[y:y + fh, x:x + fw]
             try:
                 # clahe_device: ship the raw aligned crop; the tick applies

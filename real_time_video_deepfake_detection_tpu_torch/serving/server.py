@@ -25,6 +25,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import logging
+import pickle
 import threading
 import time
 from socketserver import ThreadingMixIn
@@ -221,8 +222,6 @@ _UNPORTED = {
     "weights": "--weights: checkpoint loading comes with the training slices "
                "(the JAX trainer's .npz holds a JAX treedef); the port serves "
                "random weights drawn from a seed",
-    "mtcnn_weights": "--mtcnn-weights: the MTCNN aligner comes with the MTCNN slice",
-    "mtcnn_device": "--mtcnn-device: in-tick MTCNN comes with the MTCNN slice",
     "clip_window": "--clip-window: the clip-attention head comes with the clip-head slice",
     "clip_head": "--clip-head: the clip-attention head comes with the clip-head slice",
     "scaled_decode": "--scaled-decode: libjpeg's DCT-scaled decode is not ported",
@@ -247,7 +246,10 @@ def main(argv=None):
     p.add_argument("--batch-timeout-ms", type=float, default=5.0)
     p.add_argument("--max-batch", type=int, default=64,
                    help="cap on requests per device tick")
-    p.add_argument("--mtcnn-weights", default=None, help="not ported yet")
+    p.add_argument("--mtcnn-weights", default=None,
+                   help="facenet-pytorch MTCNN weights (a directory of pnet.pt/rnet.pt/"
+                        "onet.pt, or one .pt with prefixed keys): the MTCNN aligner in "
+                        "the face path")
     p.add_argument("--clip-window", type=int, default=0, help="not ported yet")
     p.add_argument("--clip-head", default=None, help="not ported yet")
     p.add_argument("--face-backend", default="auto",
@@ -260,7 +262,10 @@ def main(argv=None):
                    help="batched mode only: SSD detection, crop/align and CLAHE "
                         "inside the device tick; requires --ssd-weights")
     p.add_argument("--scaled-decode", action="store_true", help="not ported yet")
-    p.add_argument("--mtcnn-device", action="store_true", help="not ported yet")
+    p.add_argument("--mtcnn-device", action="store_true",
+                   help="with --device-detect and --mtcnn-weights: run the MTCNN P/R/O "
+                        "cascade inside the device tick (the reference's SSD -> CLAHE "
+                        "-> MTCNN order)")
     p.add_argument("--ingest-plane", default="bgr", choices=["bgr", "coef", "ycbcr420"],
                    help="with --device-detect: the wire format of JPEG ingest. 'coef': the "
                         "host entropy-decodes only and the tick finishes the decode; "
@@ -281,6 +286,10 @@ def main(argv=None):
         raise SystemExit(f"--backbone {args.backbone}: {e}")
     cfg = dataclasses.replace(DetectorConfig().with_threshold(args.threshold),
                               face_backend=args.face_backend)
+    if args.mtcnn_device:
+        if not (args.device_detect and args.mtcnn_weights):
+            raise SystemExit("--mtcnn-device requires --device-detect and --mtcnn-weights")
+        cfg = dataclasses.replace(cfg, mtcnn_device=True)
     if args.device_detect:
         if not args.batched:
             raise SystemExit("--device-detect requires --batched (the fused detect "
@@ -298,6 +307,13 @@ def main(argv=None):
         # the reference CLAHEs every face crop (deepfake_detection.py:357-370);
         # in device-detect mode the crop never reaches the host
         cfg = dataclasses.replace(cfg, clahe_device=True)
+    aligner = None
+    if args.mtcnn_weights:
+        from ..models.mtcnn import MTCNNAligner
+        try:
+            aligner = MTCNNAligner.from_weights(args.mtcnn_weights, device=args.device)
+        except (OSError, RuntimeError, KeyError, ValueError, pickle.UnpicklingError) as e:
+            raise SystemExit(f"--mtcnn-weights {args.mtcnn_weights}: {e}")
     logger.warning("serving random classifier weights drawn from seed 0 "
                    "(checkpoint loading is not ported yet)")
 
@@ -315,7 +331,8 @@ def main(argv=None):
                               confidence_threshold=cfg.ssd_confidence_threshold,
                               min_face_px=cfg.min_face_px, backend=args.face_backend,
                               device=args.device)
-        engine = MultiStreamEngine(cfg, scfg, spec=spec, device=args.device, face_detector=fd)
+        engine = MultiStreamEngine(cfg, scfg, spec=spec, device=args.device, face_detector=fd,
+                                   aligner=aligner)
         httpd = make_server(args.host, args.port, create_batched_app(engine, scfg))
         logger.info("batched deepfake server (%d streams) on http://%s:%d",
                     args.max_streams, args.host, args.port)
@@ -327,7 +344,7 @@ def main(argv=None):
             engine.shutdown()
         return
     det = DeepfakeDetector(cfg, spec=spec, ssd_weights_path=args.ssd_weights,
-                           device=args.device)
+                           mtcnn_weights_path=args.mtcnn_weights, device=args.device)
     serve(args.host, args.port, det)
 
 

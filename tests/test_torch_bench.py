@@ -74,7 +74,10 @@ _CPU_RUNS = {
                                latency_iters=1),
                           {"fps", "tick_ms_p50", "tick_ms_p95", "req_ms_p50", "req_ms_p95",
                            "gflop_per_tick_conv_matmul", "achieved_tflops",
-                           "bf16_peak_tflops", "mfu_pct_bf16peak", "power_limit"}),
+                           "bf16_peak_tflops", "mfu_pct_bf16peak", "power_limit", "ssd",
+                           "mtcnn"}),
+    "detect_ssd_bf16_guard": (dict(n_streams=2, n_ticks=1),
+                              {"ok", "max_prob_diff", "boxes_equal", "n_faces_seen"}),
     "bench_prep_scaling": (dict(n=4, threads=(1, 2), repeats=1),
                            {"frames", "exact", "coef1", "raw4201"}),
     "bench_e2e": (dict(n_streams=2, frames_per_stream=1),
@@ -88,7 +91,13 @@ def test_bench_function_runs_on_the_cpu(name):
     r = getattr(B, name)(device="cpu", **kw)
     assert r["device"] == "cpu"
     assert keys <= set(r), keys - set(r)
-    if "ok" in r:
+    if name == "detect_ssd_bf16_guard":
+        # a verdict, not a requirement: on the CPU the synthetic SSD's bf16
+        # boxes move by a pixel on some random frames, and the bench then
+        # keeps the f32 SSD
+        assert r["ok"] is (r["boxes_equal"] and r["max_prob_diff"] < 1e-3)
+        assert r["n_faces_seen"] >= 0
+    elif "ok" in r:
         assert r["ok"] is True
     if "fps" in r:
         assert r["fps"] > 0 and r["tick_ms_p50" if "tick_ms_p50" in r else "req_ms_p50"] > 0
@@ -100,6 +109,37 @@ def test_bench_function_runs_on_the_cpu(name):
         assert set(r["exact"]) == {1, 2}
     if name == "bench_e2e":
         assert r["requests"] == 2 and r["mode"] == "device-detect"
+
+
+@pytest.mark.parametrize("kw", [dict(mtcnn=True), dict(ssd_bf16=True)],
+                         ids=["mtcnn", "ssd_bf16"])
+def test_bench_core_detect_modes_on_the_cpu(kw, monkeypatch):
+    """The MTCNN core (the cascade in every tick, _decisive_mtcnn's weights)
+    and the bf16 SSD, at 2 streams; the MTCNN core's cascade accepts every
+    SSD face."""
+    ticks = []
+    make = B.make_device_step_detect
+
+    def recording(*args):
+        step = make(*args)
+
+        def run(*a):
+            out = step(*a)
+            ticks.append(out)
+            return out
+        return run
+
+    monkeypatch.setattr(B, "make_device_step_detect", recording)
+    r = B.bench_core_detect(n_streams=2, window=1, n_windows=1, warm_windows=0,
+                            latency_iters=0, device="cpu", **kw)
+    assert r["device"] == "cpu" and r["fps"] > 0 and r["tick_ms_p50"] > 0
+    assert r["ssd"] == ("bf16" if kw.get("ssd_bf16") else "f32")
+    assert r["mtcnn"] is bool(kw.get("mtcnn"))
+    assert ticks
+    if kw.get("mtcnn"):
+        sds = B._decisive_mtcnn()
+        assert sds["onet"]["dense6_1.bias"].tolist() == [-5.0, 5.0]
+        assert ticks[0][0]["face_probability"].dtype == torch.float32
 
 
 @pytest.mark.parametrize("kw", [dict(device_detect=False), dict(ingest_plane="coef"),
@@ -133,13 +173,19 @@ def _fake_phases(monkeypatch, calls, fail=None):
             calls.append((name, kw))
             if name == fail:
                 raise RuntimeError(f"{name} failed")
-            return dict(result, device="cpu")
+            extra = {}
+            if name == "bench_core_detect":
+                extra = dict(ssd="bf16" if kw.get("ssd_bf16") else "f32",
+                             mtcnn=kw.get("mtcnn", False))
+            return dict(result, device="cpu", **extra)
         monkeypatch.setattr(B, name, run)
 
     core = dict(fps=100.0, tick_ms_p50=10.0, tick_ms_p95=12.0)
     fake("bench_core", core)
     fake("bf16_parity_guard", dict(ok=True, max_prob_diff=1e-4, verdicts_equal=True))
     fake("tick_schedule_guard", dict(ok=True))
+    fake("detect_ssd_bf16_guard", dict(ok=True, max_prob_diff=2e-4, boxes_equal=True,
+                                       n_faces_seen=3))
     fake("bench_core_detect", dict(core, req_ms_p50=20.0, req_ms_p95=25.0,
                                    gflop_per_tick_conv_matmul=50.0, achieved_tflops=5.0,
                                    bf16_peak_tflops=-1.0, mfu_pct_bf16peak=-1.0))
@@ -157,17 +203,42 @@ def test_main_prints_one_json_line(monkeypatch):
     lines = out.getvalue().splitlines()
     assert len(lines) == 1
     r = json.loads(lines[0])
-    assert set(r) == {"metric", "value", "unit", "vs_baseline"}
+    assert set(r) == {"metric", "value", "unit", "vs_baseline", "ssd", "ssd_bf16_guard",
+                      "mtcnn_core"}
     assert r["metric"] == "serving_frames_per_sec_per_chip"
     assert r["value"] == 100.0 and r["vs_baseline"] == 10.0
     assert "one cpu (power limit None)" in r["unit"]
-    assert "not run (not ported yet): the SSD-bf16 guard, the MTCNN phase" in r["unit"]
+    assert "not run (not ported yet): the DCT-scaled decode" in r["unit"]
+    # the guard passed, the bf16 SSD was no faster (equal fps), so the f32
+    # SSD is reported, and the line says why
+    assert r["ssd"] == "f32" and "passed its guard" in r["unit"]
+    assert r["ssd_bf16_guard"] == dict(ok=True, max_prob_diff=2e-4, boxes_equal=True,
+                                       n_faces_seen=3)
+    assert r["mtcnn_core"] == {"fps": 100.0, "tick_ms_p50": 10.0}
+    assert "MTCNN P/R/O cascade also in the tick" in r["unit"]
     order = [name for name, _ in calls]
-    assert order[:4] == ["bench_core", "bf16_parity_guard", "tick_schedule_guard",
-                         "bench_core"]
+    # the fast classify modes were no faster (equal fps): bf16 alone is tried
+    assert order[:6] == ["bench_core", "bf16_parity_guard", "tick_schedule_guard",
+                         "bench_core", "bench_core", "detect_ssd_bf16_guard"]
     assert order[-5:] == ["bench_e2e"] * 4 + ["bench_prep_scaling"]
-    assert [kw.get("n_streams") for name, kw in calls if name == "bench_core_detect"] == [
-        None, None, 128, 32]
+    detect_calls = [kw for name, kw in calls if name == "bench_core_detect"]
+    assert [kw.get("n_streams") for kw in detect_calls] == [None, None, None, 128, 32, None]
+    assert [bool(kw.get("ssd_bf16")) for kw in detect_calls] == [True] + [False] * 5
+    assert [bool(kw.get("mtcnn")) for kw in detect_calls] == [False] * 5 + [True]
+
+
+def test_main_reports_the_f32_ssd_when_its_guard_fails(monkeypatch):
+    calls = []
+    _fake_phases(monkeypatch, calls)
+    monkeypatch.setattr(B, "detect_ssd_bf16_guard", lambda **kw: dict(
+        device="cpu", ok=False, max_prob_diff=3e-3, boxes_equal=False, n_faces_seen=2))
+    out = io.StringIO()
+    with redirect_stdout(out):
+        assert B.main(["--device", "cpu"]) == 0
+    r = json.loads(out.getvalue())
+    assert r["ssd"] == "f32" and r["ssd_bf16_guard"]["ok"] is False
+    assert "the bf16 SSD failed its guard" in r["unit"]
+    assert not any(kw.get("ssd_bf16") for name, kw in calls if name == "bench_core_detect")
 
 
 def test_main_fails_with_the_failing_phase(monkeypatch):

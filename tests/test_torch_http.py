@@ -444,6 +444,77 @@ def test_main_flag_checks_exit(argv, want):
         TS.main(argv)
 
 
+def _mtcnn_weights(tmp_path):
+    """init_random_mtcnn(5) with ±3 class heads, saved as facenet's three
+    files; returns the directory."""
+    from real_time_video_deepfake_detection_tpu_torch.models.mtcnn import init_random_mtcnn
+    d = tmp_path / "mtcnn"
+    d.mkdir()
+    for net, sd in init_random_mtcnn(5).items():
+        head = {"pnet": "conv4_1", "rnet": "dense5_1", "onet": "dense6_1"}[net]
+        sd[f"{head}.bias"] = torch.tensor([-3.0, 3.0])
+        torch.save(sd, d / f"{net}.pt")
+    return str(d)
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--mtcnn-device", "--device-detect", "--batched", "--ssd-weights", "x.caffemodel"],
+     "--mtcnn-device requires --device-detect and --mtcnn-weights"),
+    (["--mtcnn-device", "--mtcnn-weights", "MTCNN"], "--mtcnn-device requires"),
+    (["--mtcnn-weights", "EVIL"], "--mtcnn-weights .*evil.pt"),
+])
+def test_main_mtcnn_flag_checks_exit(argv, want, tmp_path):
+    """JAX's checks of --mtcnn-device; weights that need a full unpickle
+    are refused with the flag named."""
+    import argparse
+    evil = tmp_path / "evil.pt"
+    torch.save({"pnet.conv1.weight": argparse.Namespace(boom=1)}, evil)
+    paths = {"MTCNN": _mtcnn_weights(tmp_path), "EVIL": str(evil)}
+    argv = [paths.get(a, a) for a in argv]
+    with pytest.raises(SystemExit, match=want.replace("-", "[-]")):
+        TS.main(argv + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["single", "batched"])
+def test_main_serves_with_the_mtcnn_aligner(batched, tmp_path, monkeypatch):
+    """--mtcnn-weights loads the MTCNN aligner into the app (single-stream
+    DeepfakeDetector or the host-prep engine), and a served frame goes
+    through it: the photograph of tests/data/torch_haar, whose face the
+    default detector ladder (the haar cascade) finds."""
+    from real_time_video_deepfake_detection_tpu_torch.models import mtcnn as TMT
+    monkeypatch.setenv("HAARCASCADE_DIR", os.path.join(os.path.dirname(DATA), "torch_haar"))
+    calls = []
+    detect = TMT.MTCNNAligner.detect
+    monkeypatch.setattr(TMT.MTCNNAligner, "detect",
+                        lambda self, face: calls.append(face.shape) or detect(self, face))
+    seen = {}
+
+    class FakeServer:   # serve_forever posts one frame, then stops as Ctrl-C would
+        def __init__(self, app):
+            self.app = app
+
+        def serve_forever(self):
+            seen["app"] = self.app
+            with open(os.path.join(os.path.dirname(DATA), "torch_haar", "grace_hopper.jpg"),
+                      "rb") as fh:
+                seen["r"] = _post(self.app, "/analyze", fh.read(), header_sid="s")
+            raise KeyboardInterrupt
+
+    monkeypatch.setattr(TS, "make_server", lambda host, port, app, *a, **kw: FakeServer(app))
+    argv = ["--device", "cpu", "--mtcnn-weights", _mtcnn_weights(tmp_path)]
+    if batched:
+        TS.main(argv + ["--batched", "--max-streams", "2", "--max-batch", "2"])
+        aligner = seen["app"].engine.aligner
+    else:
+        with pytest.raises(KeyboardInterrupt):
+            TS.main(argv)
+        aligner = seen["app"].detector.aligner
+    assert isinstance(aligner, TMT.MTCNNAligner) and aligner.device.type == "cpu"
+    r = seen["r"].get_json()
+    assert seen["r"].status_code == 200 and r["success"], r
+    assert r["faces_detected"] >= 1 and len(calls) == 1, (r, calls)
+
+
 def test_device_strings_and_engine_reject_unported_decode_options():
     assert TS._device_strings("cpu") == ("cpu", None)
     with pytest.raises(NotImplementedError, match="scaled"):

@@ -86,11 +86,23 @@ def test_reset_streams_zeroes_only_masked_rows():
 
 @pytest.mark.parametrize("field,value", [("clip_window", 4), ("ssd_bf16", True),
                                          ("mtcnn_device", True)])
-def test_unported_tick_options_raise(field, value):
+def test_unported_tick_options_raise(field, value, tmp_path):
+    """clip_window is still refused. The detect tick's options are ported
+    (tests/test_torch_mtcnn_tick.py holds them to JAX): mtcnn_device raises
+    JAX's error without the cascade's nets, and ssd_bf16 builds its tick on
+    a bfloat16 copy of the SSD, leaving the SSD it was given in float32."""
     cfg = dataclasses.replace(TDC(forensic=TFC(analysis_size=(32, 32))), **{field: value})
-    if field != "clip_window":   # options of the detect tick
-        with pytest.raises(NotImplementedError):
+    if field == "mtcnn_device":
+        with pytest.raises(ValueError, match="requires mtcnn_nets"):
             TB.make_device_step_detect(None, None, cfg)
+        return
+    if field == "ssd_bf16":
+        from real_time_video_deepfake_detection_tpu_torch.models.caffe_net import CaffeNet
+        from real_time_video_deepfake_detection_tpu_torch.utils.ssd_synth import (
+            res10_class_ssd)
+        net = CaffeNet(*res10_class_ssd(str(tmp_path), seed=0, channels=(8, 8, 16, 16)))
+        assert callable(TB.make_device_step_detect(net, None, cfg))
+        assert all(b.dtype == torch.float32 for b in net.buffers())
         return
     st = TB.init_stream_states(2, cfg)
     z = torch.zeros
