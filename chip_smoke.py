@@ -97,7 +97,30 @@ in phases, each printing one JSON line:
               without it (the detect-serve workload), and host-prep serving
               with the MTCNN aligner beside the resize aligner (the haar
               phase's frames)
- 13. bench    the port's serving benchmark (cli/bench.py): its main, the
+ 13. clip     BASELINE config 5: (a) ViT-B/16 and Xception at full width
+              (seeded; Xception's batch-norm statistics from one batch) on
+              the card against the CPU at (16,224,224,3), features and
+              logits within 1e-4 of their largest magnitude, and each
+              backbone's bucket-64 forward: event and device ms, activities,
+              GFLOP from the shapes; (b) the config-5 detect tick
+              (clahe_device, the synthetic SSD, clip_window 64, the temporal
+              head seeded as the engine seeds it, its output layer rescaled
+              from one run of the same ticks on the card so that the
+              threshold splits the decided streams) at bucket 16 on the
+              card against the CPU over 12 ticks of history and one more,
+              with vit_b16 and then xception: every output and state leaf
+              (the rings included), floats within 1e-4 of their largest
+              magnitude, verdicts and clip_frames exactly, both REAL and
+              FAKE among the decided streams; the bucket-64
+              vit_b16 clip tick on the card in turns with the B0 detect
+              tick: wall, device-busy ms, activities and idle share;
+              (c) serving: detect-serve's workload with vit_b16 and
+              clip_window 64 and that head: every response carries
+              clip_probability and clip_frames, UNCERTAIN exactly below 10
+              clip frames and both REAL and FAKE above, all four
+              kernels launched, a /reset empties a stream's ring; frames/s
+              and request p50/p99
+ 14. bench    the port's serving benchmark (cli/bench.py): its main, the
               timed windows cut to 4, prints its one JSON line (the MTCNN
               core and the SSD-bf16 guard in it); each function's dict on a
               line of its own, every kernel launched, all four in every
@@ -245,19 +268,21 @@ def profile_device(fn, n: int):
             [{"name": k[:80], "ms_per_call": ms, "per_call": c} for k, ms, c in top])
 
 
-def b0_state(ctx):
-    """Full-size EfficientNet-B0 parameters from a seeded generator (the
-    engine's init laws), with every batch norm's statistics set to those of
-    its input on one batch of random inputs. With the init laws alone the
-    activations shrink by ~1e-14 over the 16 blocks and every face gets the
-    same probability; set this way, each layer sees unit-scale inputs and
-    the classifier's output depends on the face."""
-    if "b0_state" in ctx:
-        return ctx["b0_state"]
+def backbone_state(ctx, name: str = "b0"):
+    """Full-size parameters of backbone `name` from a seeded generator (the
+    engine's init laws), with every batch norm's statistics (EfficientNet,
+    Xception; the ViT has none) set to those of its input on one batch of
+    random inputs. With the init laws alone B0's activations shrink by
+    ~1e-14 over the 16 blocks and every face gets the same probability;
+    set this way, each layer sees unit-scale inputs and the classifier's
+    output depends on the face."""
+    key = f"{name}_state"
+    if key in ctx:
+        return ctx[key]
     import torch
     from real_time_video_deepfake_detection_tpu_torch.models import backbones
     from real_time_video_deepfake_detection_tpu_torch.models.efficientnet import BatchNorm
-    model = backbones.build_model(backbones.make("b0"),
+    model = backbones.build_model(backbones.make(name),
                                   torch.Generator().manual_seed(SEED)).cuda().eval()
 
     def set_stats(bn, args):
@@ -273,8 +298,8 @@ def b0_state(ctx):
         model(x.cuda())
     for h in hooks:
         h.remove()
-    ctx["b0_state"] = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-    return ctx["b0_state"]
+    ctx[key] = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    return ctx[key]
 
 
 # ----------------------------------------------------------------- phases
@@ -647,7 +672,7 @@ def _serve_run(ctx, host_prep):
     cfg = DetectorConfig(use_pallas_preproc=True, use_pallas_color=True,
                          face_backend="heuristic")
     engine = MultiStreamEngine(cfg, ServerConfig(max_streams=64, max_batch=64),
-                               params=b0_state(ctx), device="cuda")
+                               params=backbone_state(ctx), device="cuda")
     tick_ms, batch_sizes = [], []
     dispatch = engine._dispatch
 
@@ -747,9 +772,9 @@ def phase_parity(ctx):
     b = 64
     rng = np.random.default_rng(SEED + 1)
     model_cpu = backbones.build_model(backbones.make("b0")).eval()
-    model_cpu.load_state_dict(b0_state(ctx))
+    model_cpu.load_state_dict(backbone_state(ctx))
     model_gpu = backbones.build_model(backbones.make("b0")).eval()
-    model_gpu.load_state_dict(b0_state(ctx))
+    model_gpu.load_state_dict(backbone_state(ctx))
     model_gpu.cuda()
 
     def inputs(t):
@@ -883,26 +908,33 @@ def _read_launches():
             "unique_hue_count": color_stats.launches, **clahe.launches}
 
 
-def _detect_serve(ctx, aligner=None):
+def _detect_serve(ctx, aligner=None, backbone="b0", clip_window=0, clip_head_params=None):
     """The device-detect engine with clahe_device on the card, 16 streams x
     12 capture frames from 16 threads; with an MTCNNAligner `aligner`, the
-    cascade runs in the tick (mtcnn_device). Checks the responses, that
-    every kernel was launched (with MTCNN, the f32 preprocess entry too)
-    and that faces were found; frames/s, the request latency and the
-    median tick."""
+    cascade runs in the tick (mtcnn_device); `backbone` names the
+    classifier, and clip_window > 0 puts the clip-attention head's verdict
+    (the head's state dict `clip_head_params`) in place of the vote. Checks
+    the responses (in clip mode: the clip keys, UNCERTAIN exactly while a
+    stream has fewer than clip_min_frames face frames, both REAL and FAKE
+    among the others, and a /reset that empties a stream's ring), that every kernel
+    was launched (with MTCNN, the f32 preprocess entry too) and that faces
+    were found; frames/s, the request latency and the median tick."""
     import dataclasses
     import numpy as np
     import torch
     from real_time_video_deepfake_detection_tpu_torch.core.config import ServerConfig
+    from real_time_video_deepfake_detection_tpu_torch.models import backbones
     from real_time_video_deepfake_detection_tpu_torch.models.caffe_net import CaffeNet
     from real_time_video_deepfake_detection_tpu_torch.serving.multi import MultiStreamEngine
 
     proto, cm = _ssd_files(ctx)
     net = CaffeNet(proto, cm)   # the engine moves it to the card
-    cfg = dataclasses.replace(_detect_cfg(), mtcnn_device=aligner is not None)
+    cfg = dataclasses.replace(_detect_cfg(), mtcnn_device=aligner is not None,
+                              clip_window=clip_window)
     engine = MultiStreamEngine(
         cfg, ServerConfig(max_streams=64, max_batch=64, device_detect=True),
-        params=b0_state(ctx), device="cuda", ssd_net=net, aligner=aligner)
+        params=backbone_state(ctx, backbone), spec=backbones.make(backbone), device="cuda",
+        ssd_net=net, aligner=aligner, clip_head_params=clip_head_params)
     tick_ms, batch_sizes = [], []
     dispatch = engine._dispatch
 
@@ -938,11 +970,16 @@ def _detect_serve(ctx, aligner=None):
         th.join(timeout=600)
     wall = time.time() - t0
     launches, entries = _read_launches(), _read_entry_launches()
+    after_reset = None
+    if clip_window > 0 and not errors:
+        engine.reset("stream-0")
+        after_reset = engine.analyze(frames[0][0], "stream-0")
     engine.shutdown()
     if errors or any(th.is_alive() for th in threads):
         raise AssertionError(f"clients failed: {errors[:3]}")
 
     problems = []
+    min_frames = min(engine.cfg.clip_min_frames, clip_window)
     for s, rs in results.items():
         if len(rs) != n_frames:
             problems.append(f"stream {s}: {len(rs)} responses")
@@ -954,7 +991,16 @@ def _detect_serve(ctx, aligner=None):
                 continue
             if r["frame_count"] != t + 1:
                 problems.append(f"stream {s} frame {t}: frame_count {r['frame_count']}")
-            if r["frame_count"] >= 10 and r["confidence_level"] == "UNCERTAIN":
+            if clip_window > 0:
+                if not {"clip_probability", "clip_frames"} <= set(r):
+                    problems.append(f"stream {s} frame {t}: no clip keys")
+                elif (r["clip_frames"] < min_frames) != (r["confidence_level"] == "UNCERTAIN"):
+                    problems.append(f"stream {s} frame {t}: {r['confidence_level']} with "
+                                    f"{r['clip_frames']} clip frames")
+                elif not 0.0 <= r["clip_probability"] <= 1.0:
+                    problems.append(f"stream {s} frame {t}: clip_probability "
+                                    f"{r['clip_probability']}")
+            elif r["frame_count"] >= 10 and r["confidence_level"] == "UNCERTAIN":
                 problems.append(f"stream {s} frame {t}: UNCERTAIN")
             if not all(np.isfinite(r[k]) for k in ("fake_probability",
                                                      "frame_forensic_probability")):
@@ -976,10 +1022,27 @@ def _detect_serve(ctx, aligner=None):
     face_probs = [r["face_probability"] for r in faces]
     if faces and not max(face_probs) - min(face_probs) > 1e-3:
         problems.append(f"the classifier gave every face the same probability {face_probs[0]}")
+    clip = {}
+    if clip_window > 0:
+        answered = [r for rs in results.values() for r in rs if "clip_frames" in r]
+        decided = [r["confidence_level"] for r in answered if r["clip_frames"] >= min_frames]
+        if set(decided) != {"REAL", "FAKE"}:
+            problems.append(f"decided clip verdicts {sorted(set(decided))}, want REAL and FAKE")
+        want_after = {"clip_frames": int(after_reset.get("analysis_mode") == "face+frame"),
+                      "frame_count": 1} if after_reset else None
+        if not want_after or any(after_reset.get(k) != v for k, v in want_after.items()):
+            problems.append(f"after /reset stream 0 answered {after_reset}")
+        probs = [r["clip_probability"] for r in answered]
+        clip = {"clip_window": clip_window, "clip_min_frames": min_frames,
+                "max_clip_frames": max((r["clip_frames"] for r in answered), default=None),
+                "decided_responses": len(decided), "fake_verdicts": decided.count("FAKE"),
+                "clip_probability_range": [min(probs), max(probs)] if probs else None,
+                "after_reset": after_reset and {k: after_reset.get(k)
+                                                for k in ("clip_frames", "frame_count")}}
     if problems:
         raise AssertionError("; ".join(problems[:8]))
     return {"streams": n_streams, "frames_per_stream": n_frames, "frame_seed": seed,
-            "mtcnn_device": aligner is not None,
+            "backbone": backbone, **clip, "mtcnn_device": aligner is not None,
             "ticks": len(tick_ms), "mean_batch": statistics.mean(batch_sizes),
             "median_tick_ms": statistics.median(tick_ms), "wall_s": wall,
             "frames_per_s": n_streams * n_frames / wall,
@@ -1017,7 +1080,7 @@ def phase_detect_parity(ctx):
     nets, models, steps, preps = {}, {}, {}, {}
     for dev in ("cpu", "cuda"):
         model = backbones.build_model(backbones.make("b0")).eval()
-        model.load_state_dict(b0_state(ctx))
+        model.load_state_dict(backbone_state(ctx))
         models[dev] = model.to(dev)
         nets[dev] = CaffeNet(proto, cm).to(dev).eval()
         steps[dev] = make_device_step_detect(nets[dev], models[dev], cfg)
@@ -1366,7 +1429,7 @@ def _single_stream_http(ctx, data):
         DetectorConfig, ServerConfig)
     from real_time_video_deepfake_detection_tpu_torch.pipeline.detector import DeepfakeDetector
     from real_time_video_deepfake_detection_tpu_torch.serving.server import create_app
-    det = DeepfakeDetector(DetectorConfig().with_threshold(0.55), params=b0_state(ctx),
+    det = DeepfakeDetector(DetectorConfig().with_threshold(0.55), params=backbone_state(ctx),
                            device="cuda")
     app = create_app(det, ServerConfig(min_request_interval=0.1))
     op, problems, lat, responses = _client(), [], [], []
@@ -1518,7 +1581,7 @@ def _batched_http(ctx, data, n_streams, n_frames):
     scfg = ServerConfig(max_streams=64, max_batch=64, device_detect=True)
 
     def make_engine():
-        return MultiStreamEngine(_detect_cfg(), scfg, params=b0_state(ctx), device="cuda",
+        return MultiStreamEngine(_detect_cfg(), scfg, params=backbone_state(ctx), device="cuda",
                                  ssd_net=CaffeNet(proto, cm))
 
     engine = make_engine()
@@ -1762,7 +1825,7 @@ def phase_wire(ctx):
         engine = MultiStreamEngine(
             _detect_cfg(), ServerConfig(max_streams=64, max_batch=64, device_detect=True,
                                         ingest_plane=plane),
-            params=b0_state(ctx), device="cuda", ssd_net=CaffeNet(proto, cm))
+            params=backbone_state(ctx), device="cuda", ssd_net=CaffeNet(proto, cm))
         try:
             answers[plane] = [engine.analyze_jpeg(d, "probe") for d in probe * 2]
             served[plane] = _wire_http(ctx, engine, data, n_streams=16, n_frames=12)
@@ -1831,7 +1894,7 @@ def _haar_serve(ctx, face_backend, frames, aligner=None):
     cfg = DetectorConfig(use_pallas_preproc=True, use_pallas_color=True,
                          face_backend=face_backend)
     engine = MultiStreamEngine(cfg, ServerConfig(max_streams=64, max_batch=64),
-                               params=b0_state(ctx), device="cuda", aligner=aligner)
+                               params=backbone_state(ctx), device="cuda", aligner=aligner)
     backend = engine.face_detector.backend
     tick_ms, detect_ms, align_ms = [], [], []
     dispatch, detector, align = engine._dispatch, engine.face_detector, engine.aligner
@@ -1968,7 +2031,7 @@ def phase_haar(ctx):
     if photo_boxes != [tuple(b) for b in expected[HAAR_PHOTO]["boxes"]]:
         problems.append(f"FaceDetector() on the photograph: {photo_boxes}")
 
-    det = DeepfakeDetector(DetectorConfig(), params=b0_state(ctx), device="cuda")
+    det = DeepfakeDetector(DetectorConfig(), params=backbone_state(ctx), device="cuda")
     with open(os.path.join(HAAR_DIR, HAAR_PHOTO), "rb") as fh:
         photo = fh.read()
     with _serving(create_app(det, ServerConfig())) as url:
@@ -2190,6 +2253,254 @@ def phase_mtcnn(ctx):
 
 # ------------------------------------------------------------------ bench
 
+def _float_tol(a) -> float:
+    """GPU-against-CPU tolerance of a float tensor: 1e-4 of its largest
+    magnitude, at least 1e-4."""
+    return 1e-4 * max(1.0, float(a.abs().max()) if a.numel() else 0.0)
+
+
+def _clip_models(ctx, name, cfg, dev, head_state=None):
+    """{"backbone", "clip_head"} on `dev`: backbone_state's parameters and a
+    temporal head drawn from SEED + 1, as the engine draws it, or loaded
+    from `head_state`."""
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.models import backbones
+    from real_time_video_deepfake_detection_tpu_torch.models.temporal_head import TemporalHead
+    from real_time_video_deepfake_detection_tpu_torch.serving.batcher import clip_head_spec
+    model = backbones.build_model(backbones.make(name)).eval()
+    model.load_state_dict(backbone_state(ctx, name))
+    head = TemporalHead(clip_head_spec(cfg), torch.Generator().manual_seed(SEED + 1)).eval()
+    if head_state is not None:
+        head.load_state_dict(head_state)
+    return {"backbone": model.to(dev), "clip_head": head.to(dev)}
+
+
+def _decisive_clip_head(ctx, name, b=16, history=12, spread=6.0):
+    """The seeded head (SEED + 1) scores every stream of the synthetic
+    frames 0.04-0.09, far below the 0.55 threshold, so its verdict is
+    always REAL. Here its output layer is rescaled from one run of the
+    tick parity's ticks on the card: the decided streams' clip logits are
+    stretched to `spread` logits, and the threshold is put in the middle of
+    the widest gap between them that leaves at least a quarter of the
+    streams on each side. Returns (the head's state dict on the CPU, what
+    was measured)."""
+    import math
+    import numpy as np
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.models.caffe_net import CaffeNet
+    from real_time_video_deepfake_detection_tpu_torch.serving.batcher import (
+        init_stream_states, make_device_step_detect)
+
+    key = ("decisive_clip_head", name)
+    if key in ctx:
+        return ctx[key]
+    cfg = _clip_cfg(name)
+    proto, cm = _ssd_files(ctx)
+    net = CaffeNet(proto, cm).cuda().eval()
+    models = _clip_models(ctx, name, cfg, "cuda")
+    head = models["clip_head"]
+    if bool(head.head.b.detach().any()):
+        raise AssertionError("the seeded clip head's output bias is not zero")
+    step = make_device_step_detect(net, models, cfg)
+    states = init_stream_states(b + 1, cfg, "cuda")
+    _, frames = _capture_frames(b, history + 1, net)
+    active = torch.ones(b, dtype=torch.bool, device="cuda")
+    slot_idx = torch.arange(b, dtype=torch.int32, device="cuda")
+    for t in range(history + 1):
+        x = torch.from_numpy(np.stack([frames[s][t] for s in range(b)])).cuda()
+        out, states = step(x, active, slot_idx, states)
+    p = out["clip_probability"].double().cpu()
+    z = (torch.log(p) - torch.log1p(-p))[out["clip_frames"].cpu() >= cfg.clip_min_frames]
+    z = sorted(z.tolist())
+    if len(z) < 4:
+        raise AssertionError(f"{name}: {len(z)} decided streams, want 4 to calibrate on")
+    lo, hi = len(z) // 4, len(z) - len(z) // 4
+    i = max(range(lo - 1, hi), key=lambda j: z[j + 1] - z[j])
+    cut, scale = (z[i] + z[i + 1]) / 2, spread / (z[-1] - z[0])
+    thr = cfg.detection_threshold
+    with torch.no_grad():
+        head.head.w.mul_(scale)
+        head.head.b.fill_(math.log(thr / (1 - thr)) - scale * cut)
+    state = {k: v.detach().cpu().clone() for k, v in head.state_dict().items()}
+    ctx[key] = state, {"seeded_logits": [z[0], z[-1]], "scale": scale,
+                       "margin_logit": scale * (z[i + 1] - z[i]) / 2,
+                       "fake_streams_expected": len(z) - i - 1, "decided": len(z)}
+    return ctx[key]
+
+
+def _clip_cfg(name):
+    """detect-parity's config in clip mode: the window of 64 frames (~2 s at
+    30 fps), the head's feature width from the backbone."""
+    import dataclasses
+    from real_time_video_deepfake_detection_tpu_torch.models import backbones
+    return dataclasses.replace(_detect_cfg(), clip_window=64,
+                               clip_feature_dim=backbones.feature_dim(backbones.make(name)))
+
+
+def _clip_backbone_parity(ctx, name):
+    """(a) `name` at full width on the card against the CPU at
+    (16, 224, 224, 3): pooled features and logits; then one bucket-64
+    forward's device ms, activities and FLOPs (torch.utils.flop_counter,
+    from the shapes)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from real_time_video_deepfake_detection_tpu_torch.models import backbones
+    models = {}
+    for dev in ("cpu", "cuda"):
+        m = backbones.build_model(backbones.make(name)).eval()
+        m.load_state_dict(backbone_state(ctx, name))
+        models[dev] = m.to(dev)
+    x = torch.randn((16, 224, 224, 3), generator=torch.Generator().manual_seed(SEED + 7))
+    errs = {}
+    with torch.no_grad():
+        fc = models["cpu"].extract_features(x)
+        fg = models["cuda"].extract_features(x.cuda())
+        for k, a, g in (("features", fc, fg), ("logits", models["cpu"].apply_head(fc),
+                                               models["cuda"].apply_head(fg))):
+            err, tol = float((a - g.cpu()).abs().max()), _float_tol(a)
+            if not err <= tol:
+                raise AssertionError(f"{name} {k}: max abs diff {err} > {tol}")
+            errs[k] = {"max_abs_err": err, "tolerance": tol, "max_abs": float(a.abs().max())}
+        if not float(fc.std(0).max()) > 1e-3:
+            raise AssertionError(f"{name}: every input gives the same features")
+        x64 = torch.randn((64, 224, 224, 3), generator=torch.Generator().manual_seed(SEED + 8),
+                          device="cpu").cuda()
+        fwd = functools.partial(models["cuda"], x64)
+        with FlopCounterMode(display=False) as counter:
+            fwd()
+        ms = time_cuda(fwd, n=20)
+        wall, busy, acts, top = profile_device(fwd, 5)
+    flops = float(counter.get_total_flops())
+    return {"compared_at": list(x.shape), **errs,
+            "params": sum(p.numel() for p in models["cpu"].parameters()),
+            "bucket64_event_ms": ms, "bucket64_device_busy_ms": busy,
+            "bucket64_device_activities": acts, "bucket64_gflop": flops / 1e9,
+            "bucket64_f32_bound_ms": flops / ctx["peaks"][2] * 1e3,
+            "top": top[:4]}
+
+
+def _clip_tick_parity(ctx, name, b=16, history=12):
+    """(b) The config-5 detect tick (clahe_device, the synthetic SSD,
+    `name`, clip_window 64) at bucket b on the card and on the CPU, tick
+    by tick over `history` ticks and one more: every output and state leaf,
+    floats within _float_tol, integers and flags exactly."""
+    import numpy as np
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.models.caffe_net import CaffeNet
+    from real_time_video_deepfake_detection_tpu_torch.serving.batcher import (
+        init_stream_states, make_device_step_detect)
+    from real_time_video_deepfake_detection_tpu_torch.state.tree import tree_leaves
+
+    from real_time_video_deepfake_detection_tpu_torch.state import VERDICT_FAKE, VERDICT_REAL
+
+    cfg = _clip_cfg(name)
+    head_state, calibration = _decisive_clip_head(ctx, name, b, history)
+    proto, cm = _ssd_files(ctx)
+    nets, steps, states = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        nets[dev] = CaffeNet(proto, cm).to(dev).eval()
+        steps[dev] = make_device_step_detect(
+            nets[dev], _clip_models(ctx, name, cfg, dev, head_state), cfg)
+        states[dev] = init_stream_states(b + 1, cfg, dev)
+    seed, frames = _capture_frames(b, history + 1, nets["cuda"])
+    active = torch.ones(b, dtype=torch.bool)
+    slot_idx = torch.arange(b, dtype=torch.int32)
+    max_diff = 0.0
+    for t in range(history + 1):
+        x = torch.from_numpy(np.stack([frames[s][t] for s in range(b)]))
+        out_c, states["cpu"] = steps["cpu"](x, active, slot_idx, states["cpu"])
+        out_g, states["cuda"] = steps["cuda"](x.cuda(), active.cuda(), slot_idx.cuda(),
+                                              states["cuda"])
+        pairs = [(k, out_c[k], out_g[k].cpu()) for k in out_c]
+        pairs += [(f"state{i}", a, g.cpu()) for i, (a, g) in
+                  enumerate(zip(tree_leaves(states["cpu"]), tree_leaves(states["cuda"])))]
+        for k, a, g in pairs:
+            if a.dtype.is_floating_point:
+                d, tol = (float((a - g).abs().max()), _float_tol(a)) if a.numel() else (0.0, 0.0)
+                max_diff = max(max_diff, d)
+                if not d <= tol:
+                    raise AssertionError(f"{name} tick {t} {k}: max abs diff {d} > {tol}")
+            elif not torch.equal(a, g):
+                raise AssertionError(f"{name} tick {t} {k}: {int((a != g).sum())} differ")
+    n = out_c["clip_frames"]
+    decided = int((n >= cfg.clip_min_frames).sum())
+    if not decided or int(n.max()) >= cfg.clip_window:
+        raise AssertionError(f"{name}: clip frames {n.tolist()}: want some streams past "
+                             f"{cfg.clip_min_frames} and the rings partly full")
+    verdicts = set(out_c["verdict"][n >= cfg.clip_min_frames].tolist())
+    if verdicts != {VERDICT_REAL, VERDICT_FAKE}:
+        raise AssertionError(f"{name}: decided verdicts {sorted(verdicts)}, want REAL and FAKE")
+    return {"bucket": b, "ticks": history + 1, "frame_seed": seed, "max_float_diff": max_diff,
+            "head_calibration": calibration,
+            "fake_streams": int((out_c["verdict"] == VERDICT_FAKE).sum()),
+            "clip_frames": n.tolist(), "streams_decided": decided,
+            "verdicts": out_c["verdict"].tolist(),
+            "clip_probability": [round(float(v), 6) for v in out_c["clip_probability"]]}
+
+
+def _clip_tick_timing(ctx, b=64):
+    """The bucket-64 config-5 tick (vit_b16, clip_window 64) on the card,
+    in turns with the B0 detect tick of detect-parity on the same frames:
+    median wall ms of 10 and a profiler window over 5 of each."""
+    import numpy as np
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.models import backbones
+    from real_time_video_deepfake_detection_tpu_torch.models.caffe_net import CaffeNet
+    from real_time_video_deepfake_detection_tpu_torch.serving.batcher import (
+        init_stream_states, make_device_step_detect)
+
+    proto, cm = _ssd_files(ctx)
+    net = CaffeNet(proto, cm).cuda().eval()
+    b0 = backbones.build_model(backbones.make("b0")).eval()
+    b0.load_state_dict(backbone_state(ctx))
+    ticks = {}
+    cfg5 = _clip_cfg("vit_b16")
+    head_state = _decisive_clip_head(ctx, "vit_b16")[0]
+    for label, cfg, model in (("config5_vit_b16_clip64", cfg5,
+                               _clip_models(ctx, "vit_b16", cfg5, "cuda", head_state)),
+                              ("b0_detect", _detect_cfg(), b0.cuda())):
+        step = make_device_step_detect(net, model, cfg)
+        st = init_stream_states(b + 1, cfg, "cuda")
+        ticks[label] = (step, st)
+    rng = np.random.default_rng(SEED + 5)
+    frames = torch.from_numpy(np.stack([_synthetic_frame(rng, i % 2 == 0, i % 12)
+                                        for i in range(b)])).cuda()
+    active = torch.ones(b, dtype=torch.bool, device="cuda")
+    slot_idx = torch.arange(b, dtype=torch.int32, device="cuda")
+    out = {}
+    for label in list(ticks) * 2:
+        step, st = ticks[label]
+        tick = functools.partial(step, frames, active, slot_idx, st)
+        for _ in range(2):
+            tick()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            tick()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        wall, busy, acts, top = profile_device(tick, 5)
+        out.setdefault(label, []).append({
+            "median_tick_ms": statistics.median(times), "wall_ms": wall,
+            "device_busy_ms": busy,
+            "device_idle_share": None if busy is None else 1 - busy / wall,
+            "device_activities": acts, "top": top[:5]})
+    return out
+
+
+def phase_clip(ctx):
+    """BASELINE config 5: the ViT-B/16 and Xception backbones and the
+    clip-attention head in the serving tick."""
+    info = {name: _clip_backbone_parity(ctx, name) for name in ("vit_b16", "xception")}
+    info["tick_vit_b16"] = _clip_tick_parity(ctx, "vit_b16")
+    info["tick_xception"] = _clip_tick_parity(ctx, "xception")
+    info["tick_bucket64"] = _clip_tick_timing(ctx)
+    info["serve"] = _detect_serve(ctx, backbone="vit_b16", clip_window=64,
+                                  clip_head_params=_decisive_clip_head(ctx, "vit_b16")[0])
+    return info
+
+
 def phase_bench(ctx):
     """The port's serving benchmark (cli/bench.py): its main with the timed
     windows cut to 4 (from 6-12), its one JSON line checked for the MTCNN
@@ -2298,7 +2609,7 @@ PHASES = (("device", phase_device), ("build", phase_build),
           ("parity", phase_parity), ("detect-serve", phase_detect_serve),
           ("detect-parity", phase_detect_parity), ("decode", phase_decode),
           ("http", phase_http), ("wire", phase_wire), ("haar", phase_haar),
-          ("mtcnn", phase_mtcnn), ("bench", phase_bench))
+          ("mtcnn", phase_mtcnn), ("clip", phase_clip), ("bench", phase_bench))
 
 
 def main() -> int:

@@ -1,4 +1,4 @@
-"""Face classification: preprocessing + EfficientNet + sigmoid.
+"""Face classification: preprocessing + backbone + sigmoid.
 
 Port of real_time_video_deepfake_detection_tpu/pipeline/classify.py: the
 reference's `_single_prediction` tensor chain (deepfake_detection.py:
@@ -44,23 +44,33 @@ def _bf16_model(model):
 
 
 @torch.no_grad()
-def classify_batch(model, faces_rgb_raw: torch.Tensor, size: int = 224,
-                   bf16: bool = False, pallas_preproc: bool = False) -> torch.Tensor:
-    """(B, H, W, 3) raw-RGB aligned faces -> (B,) fake probabilities.
-    `model` is the backbone module (models/backbones.build_model).
-    bf16=True runs the backbone in bfloat16 (the sigmoid in f32).
-    pallas_preproc=True takes the resize + normalize from the preprocess
-    kernel (kernels/preproc.py, csrc/preproc.cu on a CUDA tensor)."""
+def classify_features(model, faces_rgb_raw: torch.Tensor, size: int = 224,
+                      bf16: bool = False, pallas_preproc: bool = False):
+    """(B, H, W, 3) raw-RGB aligned faces -> ((B,) fake probabilities,
+    (B, feature_dim) float32 pooled features). `model` is the backbone
+    module (models/backbones.build_model: EfficientNet, ViT or Xception).
+    bf16=True runs the backbone in bfloat16; the sigmoid and the features
+    handed back are float32. pallas_preproc=True takes the resize +
+    normalize from the preprocess kernel (kernels/preproc.py,
+    csrc/preproc.cu on a CUDA tensor)."""
     if pallas_preproc:
         from ..kernels.preproc import preprocess_faces
         x = preprocess_faces(faces_rgb_raw, size)
     else:
         x = preprocess_aligned(faces_rgb_raw, size)
     if bf16:
-        m = _bf16_model(model)
-        logits = m.apply_head(m.extract_features(x.to(torch.bfloat16)))
-        return torch.sigmoid(logits[:, 0].to(torch.float32))
-    return torch.sigmoid(model.apply_head(model.extract_features(x))[:, 0])
+        model = _bf16_model(model)
+        x = x.to(torch.bfloat16)
+    feats = model.extract_features(x)
+    logits = model.apply_head(feats)
+    return (torch.sigmoid(logits[:, 0].to(torch.float32)), feats.to(torch.float32))
+
+
+def classify_batch(model, faces_rgb_raw: torch.Tensor, size: int = 224,
+                   bf16: bool = False, pallas_preproc: bool = False) -> torch.Tensor:
+    """(B, H, W, 3) raw-RGB aligned faces -> (B,) fake probabilities
+    (classify_features without the features)."""
+    return classify_features(model, faces_rgb_raw, size, bf16, pallas_preproc)[0]
 
 
 def apply_small_face_heuristic(prob, face_h: int, face_w: int,

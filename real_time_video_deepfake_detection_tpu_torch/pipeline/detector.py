@@ -7,7 +7,8 @@ backend_server.py:117-238):
   frame (BGR u8) -> [host] resize to the analysis frame -> [device]
   forensic signals (full every `full_forensic_interval`-th frame) ->
   [host] face detection -> CLAHE on the crop's Lab L channel -> align ->
-  [device] classify (EfficientNet) -> sigmoid -> [host] calibration and
+  [device] classify (the backbone: EfficientNet, ViT or Xception) ->
+  sigmoid -> [host] calibration and
   small-face heuristic -> [device] tracker update -> verdict.
 
 Contracts kept: full forensics iff frame_count % interval == 0, with the

@@ -4,10 +4,13 @@ Port of real_time_video_deepfake_detection_tpu/serving/batcher.py (the
 host-prep tick): one call serves every stream of the batch.
 
   frames (N,256,256,3 u8 BGR) -> six forensic signals
-  faces  (N,160,160,3 f32|u8 RGB) -> resize 224 + normalize -> EfficientNet
-         -> sigmoid -> calibrator -> small-face boost
+  faces  (N,160,160,3 f32|u8 RGB) -> resize 224 + normalize -> backbone
+         (EfficientNet, ViT or Xception) -> sigmoid -> calibrator ->
+         small-face boost
   vote = face prob if face else forensic prob
   tracker ring-buffer update + verdict
+  [clip mode: the backbone's pooled features into a per-stream ring, the
+   temporal-attention head over it, its verdict in place of the vote's]
 
 Padded entries carry active=False: their state update is a no-op. The
 kernels of this tick are selected by DetectorConfig.use_pallas_preproc
@@ -26,8 +29,12 @@ make_device_step_detect_wire feeds the same tick from a wire plane of the
 JPEG ingest (quantised coefficients, or the 4:2:0 planes after the inverse
 DCT), finishing the decode in the tick. DetectorConfig.mtcnn_device puts
 the MTCNN P/R/O cascade (models/mtcnn.py) between the crop and the
-classifier, and ssd_bf16 runs the SSD in bfloat16. Clip attention comes
-with a later slice.
+classifier, and ssd_bf16 runs the SSD in bfloat16.
+
+Clip mode (BASELINE config 5, DetectorConfig.clip_window > 0): every tick
+takes `model` as {"backbone": module, "clip_head": TemporalHead}, the JAX
+tick's params; the ring is StreamStates.clip, (N, clip_window,
+clip_feature_dim), and (N, 1, 1) when clip mode is off.
 """
 
 from __future__ import annotations
@@ -42,17 +49,19 @@ from torch import nn
 
 from ..core.config import DetectorConfig
 from ..models.caffe_net import CaffeNet
-from ..models.efficientnet import EfficientNet
 from ..models.ssd_res10 import detect_postprocess_batch, ssd_input
+from ..models.temporal_head import (
+    ClipState, TemporalHeadSpec, clip_state_init, clip_state_push, clip_verdict,
+)
 from ..ops import forensics
 from ..ops.color import lab_to_rgb_u8, rgb_to_lab_u8
 from ..ops.jpeg_decode import bgr_from_coefs_420, bgr_from_ycbcr420
 from ..ops.resize import crop_resize_u8_cv2, resize_bilinear_u8_cv2
-from ..pipeline.classify import classify_batch
+from ..pipeline.classify import classify_features
 from ..state.forensic_state import ForensicState, forensic_state_init_batch
 from ..state.tracker import (
-    TrackerState, tracker_init_batch, tracker_stability,
-    tracker_temporal_average, tracker_update, tracker_verdict,
+    VERDICT_FAKE, VERDICT_REAL, VERDICT_UNCERTAIN, TrackerState, tracker_init_batch,
+    tracker_stability, tracker_temporal_average, tracker_update, tracker_verdict,
 )
 from ..state.tree import tree_map
 
@@ -62,14 +71,24 @@ class StreamStates:
     forensic: ForensicState   # batched (leading stream axis)
     tracker: TrackerState     # batched
     frame_count: torch.Tensor  # i32[N] server-semantics per-stream frame count
+    # clip mode: per-stream ring of backbone features; (N, 1, 1) when off
+    clip: ClipState
+
+
+def clip_head_spec(cfg: DetectorConfig) -> TemporalHeadSpec:
+    return TemporalHeadSpec(feature_dim=cfg.clip_feature_dim,
+                            window=max(cfg.clip_window, 1))
 
 
 def init_stream_states(n_streams: int, cfg: DetectorConfig = DetectorConfig(),
                        device: Union[str, torch.device] = "cpu") -> StreamStates:
+    clip = cfg.clip_window > 0
     return StreamStates(
         forensic=forensic_state_init_batch(n_streams, cfg.forensic, device),
         tracker=tracker_init_batch(n_streams, cfg.tracker, device),
-        frame_count=torch.zeros((n_streams,), dtype=torch.int32, device=device))
+        frame_count=torch.zeros((n_streams,), dtype=torch.int32, device=device),
+        clip=clip_state_init(n_streams, max(cfg.clip_window, 1),
+                             cfg.clip_feature_dim if clip else 1, device))
 
 
 def reset_streams(states: StreamStates, mask: torch.Tensor) -> StreamStates:
@@ -98,27 +117,22 @@ def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
     return torch.where(x > xp[-1], fp[-1], f)
 
 
-def _unported(cfg: DetectorConfig) -> None:
-    if cfg.clip_window > 0:
-        raise NotImplementedError(
-            "clip_window > 0: the clip-attention head comes with a later slice")
-
-
 @torch.no_grad()
-def _step_core(model: EfficientNet, cfg: DetectorConfig,
+def _step_core(model, cfg: DetectorConfig,
                frames_u8: torch.Tensor, faces_raw: torch.Tensor,
                has_face: torch.Tensor, face_hw: torch.Tensor,
                active: torch.Tensor, states: StreamStates
                ) -> Tuple[Dict[str, torch.Tensor], StreamStates]:
     """One tick over all streams.
 
+    model: the backbone module, or in clip mode (cfg.clip_window > 0)
+        {"backbone": module, "clip_head": models.temporal_head.TemporalHead}
     frames_u8: (N,256,256,3) u8 analysis-size BGR frames
     faces_raw: (N,160,160,3) f32 or u8 aligned face crops, raw RGB 0-255
         (zeros for streams without faces)
     has_face:  bool[N]; face_hw: i32[N,2] original crop size (h, w)
     active:    bool[N] padded-slot mask
     """
-    _unported(cfg)
     n = frames_u8.shape[0]
     dev = frames_u8.device
     # server off-by-one: forensics scheduled on the PRE-increment count
@@ -156,8 +170,9 @@ def _step_core(model: EfficientNet, cfg: DetectorConfig,
         L = clahe_u8(lab[..., 0].contiguous())
         faces_raw = lab_to_rgb_u8(torch.stack([L, lab[..., 1], lab[..., 2]], dim=-1))
 
-    face_prob = classify_batch(model, faces_raw, cfg.model_input_size,
-                               cfg.bf16_inference, cfg.use_pallas_preproc)
+    backbone = model["backbone"] if cfg.clip_window > 0 else model
+    face_prob, feats = classify_features(backbone, faces_raw, cfg.model_input_size,
+                                         cfg.bf16_inference, cfg.use_pallas_preproc)
     if cfg.calibrator_knots is not None:
         # isotonic calibration between sigmoid and the small-face heuristic
         # (deepfake_detection.py:535-538)
@@ -176,22 +191,42 @@ def _step_core(model: EfficientNet, cfg: DetectorConfig,
 
     new_tracker = tracker_update(states.tracker, vote_prob, active,
                                  cfg.detection_threshold)
+    verdict = tracker_verdict(new_tracker)
+
+    new_clip = states.clip
+    if cfg.clip_window > 0:
+        # clip-attention verdict: this frame's features (float32, also in
+        # bf16 inference) into the ring of each stream with a face, the
+        # head over every stream's window, its verdict in place of the vote
+        new_clip = clip_state_push(states.clip, feats, has_face & active)
+        clip_prob = clip_verdict(model["clip_head"], new_clip)
+        # the ring caps n at clip_window, so a window below clip_min_frames
+        # must still leave UNCERTAIN
+        min_frames = min(cfg.clip_min_frames, cfg.clip_window)
+        decided = torch.where(clip_prob > cfg.detection_threshold,
+                              VERDICT_FAKE, VERDICT_REAL).to(verdict.dtype)
+        verdict = torch.where(new_clip.n >= min_frames, decided,
+                              torch.full_like(verdict, VERDICT_UNCERTAIN))
+
     new_counts = states.frame_count + active.to(torch.int32)
     out = {
         "fake_probability": torch.where(has_face, face_prob, forensic_prob),
         "face_probability": face_prob,
         "frame_forensic_probability": forensic_prob,
-        "verdict": tracker_verdict(new_tracker),
+        "verdict": verdict,
         "temporal_average": tracker_temporal_average(new_tracker),
         "stability_score": tracker_stability(new_tracker),
         "frame_count": new_counts,
         "full_forensic": full,
     }
-    return out, StreamStates(new_forensic, new_tracker, new_counts)
+    if cfg.clip_window > 0:
+        out["clip_probability"] = clip_prob
+        out["clip_frames"] = new_clip.n
+    return out, StreamStates(new_forensic, new_tracker, new_counts, new_clip)
 
 
 @torch.no_grad()
-def device_step_from_capture(model: EfficientNet, cfg: DetectorConfig,
+def device_step_from_capture(model, cfg: DetectorConfig,
                              frames_capture_u8: torch.Tensor, faces_raw: torch.Tensor,
                              has_face: torch.Tensor, face_hw: torch.Tensor,
                              active: torch.Tensor, states: StreamStates
@@ -205,7 +240,7 @@ def device_step_from_capture(model: EfficientNet, cfg: DetectorConfig,
 
 
 @torch.no_grad()
-def device_step_compact(model: EfficientNet, cfg: DetectorConfig,
+def device_step_compact(model, cfg: DetectorConfig,
                         frames_u8: torch.Tensor, faces_raw: torch.Tensor,
                         has_face: torch.Tensor, face_hw: torch.Tensor,
                         active: torch.Tensor, slot_idx: torch.Tensor,
@@ -285,7 +320,7 @@ def _make_detect_prep(net: CaffeNet, cfg: DetectorConfig,
 
 
 @torch.no_grad()
-def _detect_tick(detect_prep, model: EfficientNet, cfg: DetectorConfig,
+def _detect_tick(detect_prep, model, cfg: DetectorConfig,
                  frames_capture_u8: torch.Tensor, active: torch.Tensor,
                  slot_idx: torch.Tensor, states: StreamStates
                  ) -> Tuple[Dict[str, torch.Tensor], StreamStates]:
@@ -302,7 +337,7 @@ def _detect_tick(detect_prep, model: EfficientNet, cfg: DetectorConfig,
     return out, new_full
 
 
-def make_device_step_detect(net: CaffeNet, model: EfficientNet, cfg: DetectorConfig,
+def make_device_step_detect(net: CaffeNet, model, cfg: DetectorConfig,
                             mtcnn_nets: Optional[Dict[str, nn.Module]] = None):
     """The capture-to-verdict tick of device-detect serving, one call per
     tick on the device of `net` and `model`:
@@ -323,7 +358,7 @@ def make_device_step_detect(net: CaffeNet, model: EfficientNet, cfg: DetectorCon
     return step
 
 
-def make_device_step_detect_wire(net: CaffeNet, model: EfficientNet, cfg: DetectorConfig,
+def make_device_step_detect_wire(net: CaffeNet, model, cfg: DetectorConfig,
                                  wire: str, capture_hw: Tuple[int, int],
                                  mtcnn_nets: Optional[Dict[str, nn.Module]] = None):
     """The detect tick fed by a wire plane of the JPEG ingest

@@ -30,8 +30,12 @@ Per-stream session state lives in the batched StreamStates on the device,
 with one extra dummy row for padded entries; /reset with a stream id resets
 only that slot. An MTCNNAligner (models/mtcnn.py) aligns faces on the host
 in host-prep mode, or lends its nets to the tick with
-DetectorConfig.mtcnn_device in device-detect mode. Not in this slice (each
-raises NotImplementedError): scaled decode and clip attention. The JAX
+DetectorConfig.mtcnn_device in device-detect mode. With
+DetectorConfig.clip_window > 0 (BASELINE config 5) every tick pushes the
+backbone's pooled features into a per-stream ring and the clip-attention
+head's verdict replaces the majority vote; responses then carry
+clip_probability and clip_frames. Not in this slice (it raises
+NotImplementedError): the scaled decode. The JAX
 engine's one-call native prep of host-prep mode (libjpeg plus host C) is
 not ported: `analyze_jpeg` decodes with the port's decoder and calls
 `analyze`.
@@ -57,6 +61,7 @@ from ..core.device import resolve_device
 from ..models import backbones
 from ..models.caffe_net import CaffeNet
 from ..models.mtcnn import MTCNNAligner
+from ..models.temporal_head import TemporalHead
 from ..ops.resize import resize_bilinear_u8_cv2
 from ..pipeline.detector import _ResizeAligner, preprocess_face_quality
 from ..pipeline.faces import FaceDetector
@@ -71,8 +76,8 @@ from ..utils.jpeg_ingest import (
     reconstruct, wire_buffer, wire_views,
 )
 from .batcher import (
-    StreamStates, device_step_compact, init_stream_states, make_device_step_detect,
-    make_device_step_detect_wire, reset_streams,
+    StreamStates, clip_head_spec, device_step_compact, init_stream_states,
+    make_device_step_detect, make_device_step_detect_wire, reset_streams,
 )
 from .wsgi import App, Request, jsonify
 
@@ -185,7 +190,10 @@ class MultiStreamEngine:
 
     `params`: a state dict for the backbone module (utils/convert.
     params_from_jax makes one from JAX parameters); None draws parameters
-    from a torch.Generator seeded with `seed`. `device`: None means CUDA
+    from a torch.Generator seeded with `seed`. With cfg.clip_window > 0,
+    cfg.clip_feature_dim follows the backbone, and `clip_head_params` is a
+    state dict of the temporal head (params_from_jax of a JAX head); None
+    draws it from a generator seeded with `seed + 1`. `device`: None means CUDA
     (raising when it is absent); pass "cpu" to run on the CPU.
     Device-detect mode needs the SSD: `ssd_net` (a models/caffe_net.CaffeNet,
     moved to the engine's device) or a `face_detector` built with a
@@ -198,12 +206,16 @@ class MultiStreamEngine:
                  params: Optional[Dict[str, torch.Tensor]] = None, spec=None,
                  device: Optional[Union[str, torch.device]] = None, seed: int = 0,
                  face_detector: Optional[FaceDetector] = None,
-                 ssd_net: Optional[CaffeNet] = None, aligner=None):
+                 ssd_net: Optional[CaffeNet] = None, aligner=None,
+                 clip_head_params: Optional[Dict[str, torch.Tensor]] = None):
         _unported(cfg, server_cfg)
         _check_ingest_plane(server_cfg)
         self.device = resolve_device(device)
         self.server_cfg = server_cfg
         self.spec = spec if spec is not None else backbones.make("b0")
+        if cfg.clip_window > 0:
+            # the temporal head consumes whatever the backbone pools to
+            cfg = dataclasses.replace(cfg, clip_feature_dim=backbones.feature_dim(self.spec))
         if cfg.calibrator_knots is None:
             # the optional weights/calibrator.pkl, applied inside the tick
             from ..train.calibration import load_default
@@ -217,6 +229,16 @@ class MultiStreamEngine:
         if params is not None:
             model.load_state_dict(params)
         self.model = model.to(self.device).eval()
+        # what the tick takes: the backbone, or in clip mode the backbone
+        # and the temporal head, as the JAX tick's params
+        self.tick_model = self.model
+        if cfg.clip_window > 0:
+            head = TemporalHead(clip_head_spec(cfg),
+                                generator=torch.Generator().manual_seed(seed + 1))
+            if clip_head_params is not None:
+                head.load_state_dict(clip_head_params)
+            self.tick_model = {"backbone": self.model,
+                               "clip_head": head.to(self.device).eval()}
         self.face_detector = face_detector or FaceDetector(
             confidence_threshold=cfg.ssd_confidence_threshold,
             min_face_px=cfg.min_face_px, backend=cfg.face_backend)
@@ -266,11 +288,13 @@ class MultiStreamEngine:
                     "device_detect requires SSD weights: pass ssd_net= or "
                     "construct the FaceDetector with a caffemodel")
             net = net.to(self.device).eval()
-            self._detect_steps = {c: make_device_step_detect(net, self.model, c, mtcnn_nets)
+            self._detect_steps = {c: make_device_step_detect(net, self.tick_model, c,
+                                                             mtcnn_nets)
                                   for c in dict.fromkeys(self._tick_cfgs)}
             if server_cfg.ingest_plane != "bgr":
                 self._wire_steps = {
-                    c: make_device_step_detect_wire(net, self.model, c, server_cfg.ingest_plane,
+                    c: make_device_step_detect_wire(net, self.tick_model, c,
+                                                    server_cfg.ingest_plane,
                                                     tuple(server_cfg.detect_capture_hw),
                                                     mtcnn_nets)
                     for c in dict.fromkeys(self._tick_cfgs)}
@@ -335,7 +359,7 @@ class MultiStreamEngine:
         dev = [torch.as_tensor(a, device=self.device) for a in arrays]
         if self._detect_steps is not None:   # (frames_capture, active, slot_idx)
             return self._detect_steps[cfg](*dev, states)
-        return device_step_compact(self.model, cfg, *dev[:5], dev[5], states)
+        return device_step_compact(self.tick_model, cfg, *dev[:5], dev[5], states)
 
     def _dispatch_wire(self, cfg: DetectorConfig, arrays, states: StreamStates):
         """A wire step: arrays are the plane's device tensors, then active
@@ -808,6 +832,9 @@ class MultiStreamEngine:
                     fh = max(1, min(int(round(fh * oh / ch)), oh - y))
                 resp["face_bbox"] = {"x": int(x), "y": int(y),
                                      "width": int(fw), "height": int(fh)}
+            if "clip_probability" in out:   # clip-attention mode
+                resp["clip_probability"] = float(out["clip_probability"][i])
+                resp["clip_frames"] = int(out["clip_frames"][i])
             p.result = resp
             p.event.set()
 

@@ -222,8 +222,9 @@ _UNPORTED = {
     "weights": "--weights: checkpoint loading comes with the training slices "
                "(the JAX trainer's .npz holds a JAX treedef); the port serves "
                "random weights drawn from a seed",
-    "clip_window": "--clip-window: the clip-attention head comes with the clip-head slice",
-    "clip_head": "--clip-head: the clip-attention head comes with the clip-head slice",
+    "clip_head": "--clip-head: the JAX trainer's checkpoint format (a pickled JAX treedef) "
+                 "is read with the training slices; --clip-window serves a temporal head "
+                 "drawn from a seed",
     "scaled_decode": "--scaled-decode: libjpeg's DCT-scaled decode is not ported",
 }
 
@@ -235,9 +236,11 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (cuda, cuda:1, cpu)")
     p.add_argument("--weights", default=None, help="not ported yet")
-    p.add_argument("--backbone", default="b0",
-                   help="classifier backbone: EfficientNet b0..b7 (ViT and "
-                        "Xception are not ported yet)")
+    from ..models import backbones
+    p.add_argument("--backbone", default="b0", choices=backbones.backbone_names(),
+                   help="classifier backbone: EfficientNet b0..b7, vit_s16/b16/l16 or "
+                        "xception; with --clip-window the temporal head's feature dim "
+                        "follows it")
     p.add_argument("--threshold", type=float, default=0.55)
     p.add_argument("--batched", action="store_true",
                    help="multi-stream dynamic-batching engine: clients may send "
@@ -250,8 +253,13 @@ def main(argv=None):
                    help="facenet-pytorch MTCNN weights (a directory of pnet.pt/rnet.pt/"
                         "onet.pt, or one .pt with prefixed keys): the MTCNN aligner in "
                         "the face path")
-    p.add_argument("--clip-window", type=int, default=0, help="not ported yet")
-    p.add_argument("--clip-head", default=None, help="not ported yet")
+    p.add_argument("--clip-window", type=int, default=0,
+                   help="batched mode: the temporal-attention head over the last N "
+                        "backbone feature vectors of a stream replaces the majority "
+                        "vote (BASELINE config 5); 0 = off")
+    p.add_argument("--clip-head", default=None,
+                   help="temporal-head weights in the JAX trainer's checkpoint format: "
+                        "not read yet (the training slices)")
     p.add_argument("--face-backend", default="auto",
                    choices=["auto", "ssd", "haar", "haar_native", "heuristic"],
                    help="pin a detector-ladder rung (pipeline/faces.py)")
@@ -279,13 +287,9 @@ def main(argv=None):
             raise SystemExit(msg)
     if args.ingest_plane != "bgr" and not args.device_detect:
         raise SystemExit("--ingest-plane requires --device-detect")
-    from ..models import backbones
-    try:
-        spec = backbones.make(args.backbone)
-    except (NotImplementedError, ValueError, KeyError) as e:
-        raise SystemExit(f"--backbone {args.backbone}: {e}")
+    spec = backbones.make(args.backbone)
     cfg = dataclasses.replace(DetectorConfig().with_threshold(args.threshold),
-                              face_backend=args.face_backend)
+                              face_backend=args.face_backend, clip_window=args.clip_window)
     if args.mtcnn_device:
         if not (args.device_detect and args.mtcnn_weights):
             raise SystemExit("--mtcnn-device requires --device-detect and --mtcnn-weights")

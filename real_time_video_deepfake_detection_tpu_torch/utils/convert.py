@@ -1,12 +1,16 @@
 """Carry the JAX package's parameter pytree into the port's modules.
 
-`params_from_jax` takes the nested dict/list tree of numpy arrays that
-real_time_video_deepfake_detection_tpu.models.efficientnet.init_params (or
-a checkpoint of it) holds, and returns the state dict of
-models.efficientnet.EfficientNet. Convolution kernels go from HWIO
-(kh, kw, in, out) to torch's (out, in, kh, kw); a depthwise kernel
-(k, k, 1, C) becomes (C, 1, k, k) for groups=C. Every other leaf keeps its
-shape (linear weights stay (in, out)).
+`params_from_jax` takes the nested dict/list tree of numpy arrays that an
+init_params of the JAX package (or a checkpoint of it) holds, and returns
+the state dict of the port's module: models.efficientnet.EfficientNet,
+models.vit.ViT, models.xception.Xception or models.temporal_head.
+TemporalHead. Convolution kernels go from HWIO (kh, kw, in, out) to
+torch's (out, in, kh, kw); a depthwise kernel (k, k, 1, C) becomes
+(C, 1, k, k) for groups=C. The ViT's qkv kernel (dim, 3, heads, hd) and
+bias (3, heads, hd) are flattened to (dim, 3 * dim) and (3 * dim,), their
+output axis kept in (3, heads, hd) order. Every other leaf keeps its shape
+(linear weights stay (in, out); the ViT's patch kernel keeps its
+(py, px, c) row order, which models/vit.py patchifies in).
 
 `mtcnn_state_dicts_from_jax` takes the JAX package's MTCNN parameter tree
 ({"pnet", "rnet", "onet"}, as models/mtcnn.init_random_mtcnn or
@@ -43,6 +47,10 @@ def params_from_jax(tree, model: Optional[nn.Module] = None) -> Dict[str, torch.
     _flatten(tree, "", flat)
     sd = {}
     for k, v in flat.items():
+        if k.endswith("qkv.w") and v.ndim == 4:     # ViT (dim, 3, heads, hd)
+            v = v.reshape(v.shape[0], -1)
+        elif k.endswith("qkv.b") and v.ndim == 3:   # ViT (3, heads, hd)
+            v = v.reshape(-1)
         a = np.ascontiguousarray(v.transpose(3, 2, 0, 1) if v.ndim == 4 else v)
         sd[k] = torch.from_numpy(a.astype(np.float32, copy=False).copy())
     if model is not None:

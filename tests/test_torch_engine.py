@@ -136,16 +136,32 @@ def test_engine_admit_rate_limits_a_stream(engine):
     ({"device_detect": True}, {"mtcnn_device": True}), ({}, {"mtcnn_device": True}),
     ({}, {"clip_window": 8})])
 def test_engine_unported_modes_raise(server_kw, cfg_kw):
-    """The scaled decode and clip attention are still refused. The SSD in
-    bf16 and in-tick MTCNN are ported (tests/test_torch_mtcnn_tick.py): the
-    engine now raises JAX's ValueErrors for what they lack, the SSD's
-    weights and the MTCNN aligner."""
+    """The scaled decode is still refused. The SSD in bf16 and in-tick MTCNN
+    are ported (tests/test_torch_mtcnn_tick.py): the engine now raises JAX's
+    ValueErrors for what they lack, the SSD's weights and the MTCNN aligner.
+    Clip attention is ported (tests/test_torch_clip_tick.py): the engine
+    takes clip_feature_dim from the backbone and its responses carry
+    clip_probability and clip_frames."""
     ported = {"ssd_bf16": "SSD weights", "mtcnn_device": "requires an MTCNNAligner"}
     for k, match in ported.items():
         if k in cfg_kw and server_kw.get("device_detect"):
             with pytest.raises(ValueError, match=match):
                 TEngine(TDC(**cfg_kw), TSC(**server_kw), device="cpu")
             return
+    if "clip_window" in cfg_kw:
+        _, spec_t = small_specs()
+        e = TEngine(TDC(forensic=TFC(analysis_size=(32, 32)), face_backend="heuristic",
+                        model_input_size=64, **cfg_kw),
+                    TSC(max_streams=2, max_batch=2), spec=spec_t, device="cpu")
+        try:
+            r = e.analyze(_frame("face", 0), "s")
+        finally:
+            e.shutdown()
+        assert e.cfg.clip_feature_dim == spec_t.head_filters
+        assert tuple(e.states.clip.feats.shape) == (3, 8, spec_t.head_filters)
+        assert r["clip_frames"] == 1 and 0.0 <= r["clip_probability"] <= 1.0
+        assert r["confidence_level"] == "UNCERTAIN"
+        return
     if cfg_kw == {"mtcnn_device": True}:
         # outside device detect the flag is inert, as in the JAX engine
         _, spec_t = small_specs()

@@ -431,10 +431,10 @@ def test_classify_batch_matches_jax(pallas_preproc):
 
 @pytest.mark.parametrize("argv,want", [
     (["--weights", "w.npz"], "--weights"), (["--mtcnn-weights", "d"], "--mtcnn-weights"),
-    (["--mtcnn-device"], "--mtcnn-device"), (["--clip-window", "8"], "--clip-window"),
-    (["--clip-head", "h.npz"], "--clip-head"), (["--ingest-plane", "coef"], "--ingest-plane"),
-    (["--scaled-decode"], "--scaled-decode"), (["--backbone", "vit_b16"], "not ported"),
-    (["--backbone", "xception"], "not ported"), (["--device-detect"], "--batched"),
+    (["--mtcnn-device"], "--mtcnn-device"),
+    (["--clip-head", "h.npz"], "--clip-head: the JAX trainer's checkpoint format"),
+    (["--ingest-plane", "coef"], "--ingest-plane"),
+    (["--scaled-decode"], "--scaled-decode"), (["--device-detect"], "--batched"),
     (["--device-detect", "--batched"], "--ssd-weights"),
     (["--device-detect", "--batched", "--ssd-weights", "x.caffemodel",
       "--face-backend", "haar"], "cannot honor"),
@@ -442,6 +442,40 @@ def test_classify_batch_matches_jax(pallas_preproc):
 def test_main_flag_checks_exit(argv, want):
     with pytest.raises(SystemExit, match=want.replace("-", "[-]")):
         TS.main(argv)
+
+
+@pytest.mark.parametrize("argv,backbone,window", [
+    (["--clip-window", "8"], "b0", 8), (["--backbone", "vit_b16", "--clip-window", "8"],
+                                        "vit_b16", 8),
+    (["--backbone", "xception"], "xception", 0)])
+def test_main_serves_config5_flags(argv, backbone, window, monkeypatch):
+    """--clip-window and the ViT and Xception backbones serve (BASELINE
+    config 5): the batched engine gets the backbone's spec and the window,
+    in clip mode clip_feature_dim follows the backbone, and one posted frame is answered
+    (with the clip ring's count in clip mode)."""
+    from real_time_video_deepfake_detection_tpu_torch.models import backbones
+    seen = {}
+
+    class FakeServer:   # serve_forever posts one frame, then stops as Ctrl-C would
+        def __init__(self, app):
+            self.app = app
+
+        def serve_forever(self):
+            seen["app"] = self.app
+            seen["r"] = _post(self.app, "/analyze", _read(FACE_FRAMES[0]), header_sid="s")
+            raise KeyboardInterrupt
+
+    monkeypatch.setattr(TS, "make_server", lambda host, port, app, *a, **kw: FakeServer(app))
+    TS.main(argv + ["--device", "cpu", "--batched", "--max-streams", "2", "--max-batch", "2",
+                    "--face-backend", "heuristic"])
+    engine = seen["app"].engine
+    spec = backbones.make(backbone)
+    assert engine.spec == spec and engine.cfg.clip_window == window
+    if window:
+        assert engine.cfg.clip_feature_dim == backbones.feature_dim(spec)
+    r = seen["r"].get_json()
+    assert seen["r"].status_code == 200 and r["success"], r
+    assert ("clip_frames" in r) == (window > 0)
 
 
 def _mtcnn_weights(tmp_path):

@@ -87,10 +87,13 @@ def test_reset_streams_zeroes_only_masked_rows():
 @pytest.mark.parametrize("field,value", [("clip_window", 4), ("ssd_bf16", True),
                                          ("mtcnn_device", True)])
 def test_unported_tick_options_raise(field, value, tmp_path):
-    """clip_window is still refused. The detect tick's options are ported
-    (tests/test_torch_mtcnn_tick.py holds them to JAX): mtcnn_device raises
-    JAX's error without the cascade's nets, and ssd_bf16 builds its tick on
-    a bfloat16 copy of the SSD, leaving the SSD it was given in float32."""
+    """Each option is ported now. clip_window (tests/test_torch_clip_tick.py
+    holds it to JAX): the tick takes {"backbone", "clip_head"}, pushes a face
+    frame into its stream's ring and stays UNCERTAIN below clip_min_frames.
+    The detect tick's options (tests/test_torch_mtcnn_tick.py): mtcnn_device
+    raises JAX's error without the cascade's nets, and ssd_bf16 builds its
+    tick on a bfloat16 copy of the SSD, leaving the SSD it was given in
+    float32."""
     cfg = dataclasses.replace(TDC(forensic=TFC(analysis_size=(32, 32))), **{field: value})
     if field == "mtcnn_device":
         with pytest.raises(ValueError, match="requires mtcnn_nets"):
@@ -104,10 +107,18 @@ def test_unported_tick_options_raise(field, value, tmp_path):
         assert callable(TB.make_device_step_detect(net, None, cfg))
         assert all(b.dtype == torch.float32 for b in net.buffers())
         return
+    from real_time_video_deepfake_detection_tpu_torch.models.temporal_head import (
+        TemporalHead)
+    _, _, model = small_models(seed=4)
+    cfg = dataclasses.replace(cfg, model_input_size=64, clip_feature_dim=32)
+    head = TemporalHead(TB.clip_head_spec(cfg), torch.Generator().manual_seed(1)).eval()
     st = TB.init_stream_states(2, cfg)
+    assert tuple(st.clip.feats.shape) == (2, 4, 32)
     z = torch.zeros
-    with pytest.raises(NotImplementedError):
-        TB.device_step_compact(None, cfg, z((1, 32, 32, 3), dtype=torch.uint8),
-                               z((1, 160, 160, 3), dtype=torch.uint8),
-                               z(1, dtype=torch.bool), z((1, 2), dtype=torch.int32),
-                               z(1, dtype=torch.bool), torch.tensor([1]), st)
+    out, st = TB.device_step_compact(
+        {"backbone": model, "clip_head": head}, cfg, z((1, 32, 32, 3), dtype=torch.uint8),
+        torch.full((1, 160, 160, 3), 128, dtype=torch.uint8), torch.tensor([True]),
+        torch.tensor([[200, 200]], dtype=torch.int32), torch.tensor([True]),
+        torch.tensor([0]), st)
+    assert out["clip_frames"].tolist() == [1] and st.clip.n.tolist() == [1, 0]
+    assert out["verdict"].tolist() == [-1] and torch.isfinite(out["clip_probability"]).all()

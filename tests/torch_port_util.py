@@ -1,7 +1,8 @@
 """Shared fixtures of the PyTorch-port parity tests (tests/test_torch_*.py):
 a small EfficientNet spec built identically in both packages, parameters
 made in JAX (with randomized BN statistics so features are not degenerate)
-and carried into the port, and state-leaf helpers."""
+and carried into the port, a tiny ViT and the clip-attention head likewise,
+and state-leaf helpers."""
 
 from __future__ import annotations
 
@@ -12,7 +13,11 @@ import numpy as np
 import torch
 
 from real_time_video_deepfake_detection_tpu.models import efficientnet as JE
+from real_time_video_deepfake_detection_tpu.models import temporal_head as JT
+from real_time_video_deepfake_detection_tpu.models import vit as JV
 from real_time_video_deepfake_detection_tpu_torch.models import efficientnet as TE
+from real_time_video_deepfake_detection_tpu_torch.models import temporal_head as TT
+from real_time_video_deepfake_detection_tpu_torch.models import vit as TV
 from real_time_video_deepfake_detection_tpu_torch.utils.convert import params_from_jax
 
 # 3 blocks: expand-1 with a skip, a stride-2 k5 block, an expand-6 skip block
@@ -75,13 +80,53 @@ def small_models(seed: int = 0, head_dims=(512, 256, 1)):
     return spec_j, pj, model.eval()
 
 
+def draw_params(shapes, seed: int):
+    """Numpy leaves for a JAX parameter layout (jax.eval_shape of an
+    init_params): He-normal 4-d kernels over kh * kw * in, normal(0,
+    1/sqrt(rows)) matrices, normal(0, 0.2) vectors (biases and LN affine
+    terms, so every leaf matters)."""
+    rng = np.random.default_rng(seed)
+
+    def draw(s):
+        if len(s.shape) == 4:
+            kh, kw, cin, _ = s.shape
+            return rng.normal(0, (2.0 / (kh * kw * cin)) ** 0.5, s.shape)
+        if len(s.shape) >= 2:
+            return rng.normal(0, 1.0 / s.shape[0] ** 0.5, s.shape)
+        return rng.normal(0, 0.2, s.shape)
+    return jax.tree.map(lambda s: draw(s).astype(np.float32), shapes)
+
+
+def vit_models(seed: int = 0, use_cls: bool = False, ln_eps: float = 1e-6):
+    """(spec_j, params_j as numpy, the port's ViT with the same parameters):
+    a tiny ViT, depth 2, dim 64, heads 2, patch 16, image 64."""
+    kw = dict(variant="custom", depth=2, dim=64, heads=2, mlp_ratio=4, patch=16,
+              image_size=64, use_cls=use_cls, ln_eps=ln_eps)
+    spec_j = JV.ViTSpec(**kw)
+    shapes = jax.eval_shape(lambda k: JV.init_params(k, spec_j), jax.random.PRNGKey(0))
+    pj = draw_params(shapes, seed)
+    model = TV.ViT(TV.ViTSpec(**kw))
+    model.load_state_dict(params_from_jax(pj, model))
+    return spec_j, pj, model.eval()
+
+
+def clip_head_models(spec_j, seed: int = 0):
+    """(params_j as numpy, the port's TemporalHead with the same
+    parameters) for a JAX TemporalHeadSpec."""
+    shapes = jax.eval_shape(lambda k: JT.init_params(k, spec_j), jax.random.PRNGKey(0))
+    pj = draw_params(shapes, seed)
+    head = TT.TemporalHead(TT.TemporalHeadSpec(**dataclasses.asdict(spec_j)))
+    head.load_state_dict(params_from_jax(pj, head))
+    return pj, head.eval()
+
+
 def jax_state_leaves(states):
-    """The JAX StreamStates leaves in the port's field order (the clip ring
-    has no counterpart in this slice's port)."""
-    f, t = states.forensic, states.tracker
+    """The JAX StreamStates leaves in the port's field order."""
+    f, t, c = states.forensic, states.tracker, states.clip
     out = [getattr(f, x.name) for x in dataclasses.fields(f)]
     out += [getattr(t, x.name) for x in dataclasses.fields(t)]
-    return [np.asarray(v) for v in out] + [np.asarray(states.frame_count)]
+    out += [states.frame_count] + [getattr(c, x.name) for x in dataclasses.fields(c)]
+    return [np.asarray(v) for v in out]
 
 
 def assert_same(a: np.ndarray, b, atol: float, what: str = ""):
