@@ -120,7 +120,28 @@ in phases, each printing one JSON line:
               clip frames and both REAL and FAKE above, all four
               kernels launched, a /reset empties a stream's ring; frames/s
               and request p50/p99
- 14. bench    the port's serving benchmark (cli/bench.py): its main, the
+ 14. train    the trainer (train/): (a) three fused steps of a small
+              EfficientNet (B0's first 4 blocks at 64 px, batch 8, head
+              dropout 0) on the card and the CPU from the same parameters
+              and draws: losses within 1e-4, weight deltas within 1e-3
+              (relative norm; a bias whose gradient is rounding noise, just
+              before a train-mode batch norm, within its Adam step bound),
+              statistics within 1e-5, frozen leaves unchanged; (b) full-size
+              B0 at 224, batch 32, fp32 and bf16: step wall ms (median of 20
+              after 5), device-busy ms, activities and idle share
+              (torch.profiler), the augment / forward+backward / update
+              split (CUDA events), images/s, peak memory, FLOPs
+              (torch.utils.flop_counter) and the bound at the fp32 and bf16
+              rates; one step each of vit_b16 and xception; (c) the
+              BatchLoader, 8 decode threads, over copies of the 480x640
+              and 720x405 fixtures, reconstructing on the card and on the
+              host (byte-equal): images/s beside the step's; (d) trainer.main
+              on a dataset of the baseline fixtures (2 epochs, a third that
+              resumes, --fit-calibrator), then the batched app serving its
+              best_model.pt (each face_probability against a direct forward
+              of the EMA weights, 1e-5) and with a clip head trained and
+              saved by train/clip_head.py
+ 15. bench    the port's serving benchmark (cli/bench.py): its main, the
               timed windows cut to 4, prints its one JSON line (the MTCNN
               core and the SSD-bf16 guard in it); each function's dict on a
               line of its own, every kernel launched, all four in every
@@ -139,6 +160,7 @@ runs only the named phases and prints no contract lines.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import hashlib
 import json
@@ -2501,6 +2523,382 @@ def phase_clip(ctx):
     return info
 
 
+# ----------------------------------------------------------------- train
+
+TRAIN_FIXTURES = ("frame_640x480_q85_420.jpg", "frame_720x405_q85_420.jpg",
+                  "q50_640x480_420.jpg", "q50_720x405_420.jpg", "q95_640x480_420.jpg",
+                  "q95_720x405_420.jpg")
+LOADER_BATCHES = 24   # of 32 images, in each epoch that (c) times
+
+
+def _decoded_rgb(name):
+    from real_time_video_deepfake_detection_tpu_torch.utils.jpeg_ingest import decode_jpeg
+    with open(os.path.join(JPEG_DIR, name), "rb") as f:
+        return decode_jpeg(f.read())[..., ::-1].copy()
+
+
+def _train_crops(n: int, side: int, seed: int):
+    """(n, side, side, 3) RGB u8 crops of the decoded 480x640 fixtures at
+    seeded offsets: the loader's canvases."""
+    import numpy as np
+    frames = [_decoded_rgb(x) for x in TRAIN_FIXTURES if "640x480" in x]
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        f = frames[i % len(frames)]
+        y, x = rng.integers(0, f.shape[0] - side), rng.integers(0, f.shape[1] - side)
+        out.append(f[y:y + side, x:x + side])
+    return np.ascontiguousarray(np.stack(out))
+
+
+def _train_dataset(root: str, per_class: int, val_per_class: int) -> str:
+    """train/{real,fake} and val/{real,fake} of copies of the baseline
+    fixtures, per_class (val_per_class) files each."""
+    for split, n in (("train", per_class), ("val", val_per_class)):
+        for c, label in enumerate(("real", "fake")):
+            d = os.path.join(root, split, label)
+            os.makedirs(d)
+            for i in range(n):
+                name = TRAIN_FIXTURES[(i + c) % len(TRAIN_FIXTURES)]
+                shutil.copy(os.path.join(JPEG_DIR, name), os.path.join(d, f"{i:03d}_{name}"))
+    return root
+
+
+def _train_card_vs_cpu(ctx):
+    """(a) Three fused steps on the card and on the CPU, same draws."""
+    import copy
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.core.config import TrainConfig
+    from real_time_video_deepfake_detection_tpu_torch.models.efficientnet import (
+        EfficientNet, EfficientNetSpec)
+    from real_time_video_deepfake_detection_tpu_torch.train import steps
+    b0 = EfficientNetSpec.make("b0")
+    spec = dataclasses.replace(b0, blocks=b0.blocks[:4], resolution=64)
+    cfg = TrainConfig(image_size=64, batch_size=8, head_dropout=0.0, lr=1e-3)
+    model = EfficientNet(spec, generator=torch.Generator().manual_seed(SEED))
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    states = {dev: steps.init_train_state(copy.deepcopy(model).to(dev), spec, cfg, 10, SEED)
+              for dev in ("cpu", "cuda")}
+    imgs = torch.from_numpy(_train_crops(8, 84, SEED))
+    labels = torch.tensor([0.0, 1.0] * 4)
+    draws = [steps.draw_step(states["cpu"], 8, 84) for _ in range(3)]
+    losses, null = {"cpu": [], "cuda": []}, set()
+    for k in range(3):
+        for dev, st in states.items():
+            m = steps.fused_train_step(st, imgs.to(dev), labels.to(dev),
+                                       steps.draws_to(draws[k], dev))
+            losses[dev].append(float(m["loss"]))
+        if k == 0:
+            null = {n for n, p in states["cpu"].model.named_parameters()
+                    if p.grad is not None and float(p.grad.norm()) < 1e-6}
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    if loss_rel > 1e-4:
+        raise AssertionError(f"train (a): losses card {losses['cuda']} CPU {losses['cpu']}")
+    lr_sum = sum(states["cpu"].sched(i) for i in range(3))
+    card = {k: v.cpu() for k, v in states["cuda"].model.state_dict().items()}
+    cpu = states["cpu"].model.state_dict()
+    frozen = {n for n, p in states["cpu"].model.named_parameters() if not p.requires_grad}
+    worst_delta, worst_stat, worst_fed, worst_key = 0.0, 0.0, 0.0, None
+    for k, v in cpu.items():
+        if k.endswith(".mean") or k.endswith(".var"):
+            diff = float((card[k] - v).abs().max())
+            # the head's batch means follow the noise-driven fc biases
+            # (momentum 0.1): held to 0.3 of the Adam steps' sum instead
+            if k.startswith("fc.bn") and k.endswith(".mean") and \
+                    k.replace("bn", "fc").replace(".mean", ".b") in null:
+                if diff > 0.3 * lr_sum:
+                    raise AssertionError(f"train (a): {k} differs by {diff}")
+                worst_fed = max(worst_fed, diff)
+            elif diff > worst_stat:
+                worst_stat, worst_key = diff, k
+        elif k in frozen:
+            if not (torch.equal(card[k], init[k]) and torch.equal(v, init[k])):
+                raise AssertionError(f"train (a): frozen leaf {k} moved")
+        elif k in null:
+            if max(float((card[k] - init[k]).abs().max()),
+                   float((v - init[k]).abs().max())) > 1.5 * lr_sum:
+                raise AssertionError(f"train (a): {k} moved past its Adam bound")
+        else:
+            d_cpu, d_card = v - init[k], card[k] - init[k]
+            rel = float((d_card - d_cpu).norm() / d_cpu.norm().clamp_min(1e-30))
+            worst_delta = max(worst_delta, rel)
+    if worst_delta > 1e-3 or worst_stat > 1e-5:
+        raise AssertionError(f"train (a): weight delta {worst_delta}, statistics "
+                             f"{worst_stat} ({worst_key})")
+    return {"losses_card": losses["cuda"], "losses_cpu": losses["cpu"],
+            "loss_max_rel_diff": loss_rel, "weight_delta_max_rel": worst_delta,
+            "stat_max_abs_diff": worst_stat, "stat_worst": worst_key,
+            "noise_fed_mean_max_abs_diff": worst_fed, "frozen_leaves": len(frozen),
+            "noise_gradient_leaves": sorted(null), "count": states["cuda"].count}
+
+
+def _conv_backward_flop(grad_out_shape, x_shape, w_shape, *args, out_shape=None, **kw):
+    """FLOPs of aten.convolution_backward with the groups counted: each of
+    grad_input and grad_weight costs the forward's 2 * out * (in / groups)
+    * kh * kw. torch.utils.flop_counter's own formula drops the groups, so
+    it counts a depthwise backward as a dense one (x C)."""
+    import math
+    transposed, output_mask = args[4], args[7]
+    fwd = 2 * math.prod(x_shape if transposed else grad_out_shape) * math.prod(w_shape[1:])
+    return fwd * (int(bool(output_mask[0])) + int(bool(output_mask[1])))
+
+
+def _train_full(ctx, bf16: bool, imgs, labels):
+    """(b) Full-size B0, 224, batch 32: the step's times and FLOPs."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from real_time_video_deepfake_detection_tpu_torch.cli.bench import _bf16_peak_tflops
+    from real_time_video_deepfake_detection_tpu_torch.core.config import TrainConfig
+    from real_time_video_deepfake_detection_tpu_torch.models import backbones
+    from real_time_video_deepfake_detection_tpu_torch.train import augment, steps
+    spec = backbones.make("b0")
+    cfg = TrainConfig(bf16_compute=bf16)
+    model = backbones.build_model(spec, torch.Generator().manual_seed(SEED)).cuda()
+    state = steps.init_train_state(model, spec, cfg, total_steps=1000, seed=SEED)
+    torch.cuda.reset_peak_memory_stats()
+
+    def step():
+        return steps.fused_train_step(state, imgs, labels)
+
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        m = step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    if not bool(torch.isfinite(m["loss"])):
+        raise AssertionError(f"train (b): loss {float(m['loss'])}")
+    wall, busy, acts, top = profile_device(step, 5)
+    # the split: each part alone, timed with CUDA events
+    parts = {}
+
+    def aug():
+        d = steps.draw_step(state, 32, 244)
+        x = augment.apply_augment(imgs, d["augment"], 224)
+        parts["x"], parts["d"] = augment.apply_mixup(x, labels, d["mixup"])[0], d
+
+    def fwd_bwd():
+        logits, stats = steps.forward_mixed(model, parts["x"], bf16, parts["d"]["masks"])
+        loss = steps._focal(cfg, logits[:, 0], labels)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        parts["stats"] = stats
+
+    def update():
+        steps.apply_update(state, parts["stats"])
+
+    split = {"augment_ms": time_cuda(aug, n=10, warmup=2),
+             "forward_backward_ms": time_cuda(fwd_bwd, n=10, warmup=2),
+             "update_ms": time_cuda(update, n=10, warmup=2)}
+    with FlopCounterMode(display=False) as fc:
+        step()
+    flops_torch = fc.get_total_flops()
+    with FlopCounterMode(display=False, custom_mapping={
+            torch.ops.aten.convolution_backward: _conv_backward_flop}) as fc:
+        step()
+    flops = fc.get_total_flops()
+    peak_bf16 = _bf16_peak_tflops(ctx["name"]) * 1e12
+    med = statistics.median(walls)
+    return {"precision": "bf16" if bf16 else "fp32", "step_wall_ms_median": med,
+            "step_wall_ms_min": min(walls), "profiled_wall_ms": wall, "busy_ms": busy,
+            "activities_per_step": acts,
+            "idle_share": None if busy is None else max(0.0, 1.0 - busy / wall),
+            "top_device": top[:5], **split, "images_per_s": 32 / (med / 1e3),
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "gflop_per_step": flops / 1e9, "gflop_per_step_flop_counter": flops_torch / 1e9,
+            "bound_ms_fp32": flops / ctx["peaks"][2] * 1e3,
+            "bound_ms_bf16": flops / peak_bf16 * 1e3 if peak_bf16 > 0 else None,
+            "loss": float(m["loss"]), "count": state.count}
+
+
+def _train_other_backbones(imgs, labels):
+    """(b) One step each of vit_b16 and xception at batch 32."""
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.core.config import TrainConfig
+    from real_time_video_deepfake_detection_tpu_torch.models import backbones
+    from real_time_video_deepfake_detection_tpu_torch.train import steps
+    out = {}
+    for name in ("vit_b16", "xception"):
+        spec = backbones.make(name)
+        model = backbones.build_model(spec, torch.Generator().manual_seed(SEED)).cuda()
+        before = {k: p.detach().clone() for k, p in model.named_parameters()}
+        state = steps.init_train_state(model, spec, TrainConfig(), total_steps=100, seed=SEED)
+        t0 = time.perf_counter()
+        m = steps.fused_train_step(state, imgs, labels)
+        torch.cuda.synchronize()
+        moved = sum(1 for k, p in model.named_parameters()
+                    if p.requires_grad and not torch.equal(p, before[k]))
+        if not bool(torch.isfinite(m["loss"])) or moved == 0 or state.count != 1:
+            raise AssertionError(f"train (b) {name}: loss {float(m['loss'])}, {moved} moved")
+        out[name] = {"loss": float(m["loss"]), "leaves_moved": moved,
+                     "first_step_s": time.perf_counter() - t0}
+        del model, state
+    return out
+
+
+def _train_loader(root: str):
+    """(c) BatchLoader images/s over copies of the 480x640 and 720x405
+    fixtures at the trainer's canvas (244): reconstructing on the card (the
+    trainer's loader) and on the host CPU; the two give the same bytes.
+    A first batch on each device builds the entropy decoder; then whole
+    epochs are timed from iter() to the last batch, as the trainer meets
+    them (3 on the card, 1 on the host), each of LOADER_BATCHES batches."""
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.train.data import (
+        BatchLoader, DeepfakeDataset)
+    ds = DeepfakeDataset(root, "train", 224)
+    out, first = {}, {}
+    for dev, epochs in (("cuda", 3), ("cpu", 1)):
+        loader = BatchLoader(ds, 32, shuffle=True, seed=SEED, balanced=True, num_workers=8,
+                             device=dev)
+        it = iter(loader)
+        first[dev] = next(it)[0].cpu()
+        it.close()
+        rates, n = [], 0
+        for _ in range(epochs):
+            t0 = time.perf_counter()
+            n = sum(len(imgs) for imgs, _ in loader)
+            torch.cuda.synchronize()
+            rates.append(n / (time.perf_counter() - t0))
+        out[dev] = {"images_per_epoch": n, "epochs": epochs, "images_per_s": rates,
+                    "images_per_s_median": statistics.median(rates)}
+    if not torch.equal(first["cuda"], first["cpu"]):
+        raise AssertionError("train (c): the card's batch differs from the host's")
+    return {"card": out["cuda"], "host": out["cpu"], "workers": 8,
+            "batches_per_epoch": len(ds) // 32, "card_equals_host": True}
+
+
+def _train_end_to_end(ctx, root: str):
+    """(d) trainer.main for 2 epochs, a resumed third with the calibrator,
+    then the batched app serving best_model.pt, and a clip head."""
+    import numpy as np
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.core.config import (
+        DetectorConfig, ServerConfig)
+    from real_time_video_deepfake_detection_tpu_torch.models import backbones
+    from real_time_video_deepfake_detection_tpu_torch.models.temporal_head import (
+        TemporalHeadSpec)
+    from real_time_video_deepfake_detection_tpu_torch.pipeline.classify import (
+        preprocess_aligned)
+    from real_time_video_deepfake_detection_tpu_torch.pipeline.detector import (
+        preprocess_face_quality)
+    from real_time_video_deepfake_detection_tpu_torch.serving.multi import (
+        MultiStreamEngine, create_batched_app)
+    from real_time_video_deepfake_detection_tpu_torch.serving.server import _load_clip_head
+    from real_time_video_deepfake_detection_tpu_torch.train import clip_head, trainer
+    from real_time_video_deepfake_detection_tpu_torch.utils.jpeg_ingest import decode_jpeg
+    from real_time_video_deepfake_detection_tpu_torch.utils.weights import load_params_and_meta
+    ds = _train_dataset(os.path.join(root, "ds"), 16, 8)
+    out = os.path.join(root, "out")
+    argv = ["--dataset", ds, "--output-dir", out, "--batch-size", "8", "--num-workers", "8"]
+    t0 = time.perf_counter()
+    r2 = trainer.main(argv + ["--epochs", "2"])
+    t2 = time.perf_counter()
+    r3 = trainer.main(argv + ["--epochs", "3", "--fit-calibrator"])
+    t3 = time.perf_counter()
+    files = sorted(os.listdir(out))
+    if files != ["best_model.pt", "calibrator.pkl", "resume_checkpoint.pt",
+                 "training_log.json"] or [e["epoch"] for e in r3["log"]] != [0, 1, 2]:
+        raise AssertionError(f"train (d): files {files}, log {r3['log']}")
+    if r3["state"].step != 3 * r2["state"].step // 2:
+        raise AssertionError("train (d): the third epoch did not resume the step count")
+
+    spec = backbones.make("b0")
+    weights = os.path.join(out, "best_model.pt")
+    params, meta = load_params_and_meta(weights, spec)
+    ema = backbones.build_model(spec).cuda().eval()
+    ema.load_state_dict(params)
+    cfg = DetectorConfig(use_pallas_preproc=True, use_pallas_color=True,
+                         face_backend="haar_native")
+    scfg = ServerConfig(max_streams=8, max_batch=8)
+    engine = MultiStreamEngine(cfg, scfg, params=params, device="cuda")
+    names = [os.path.join(HAAR_DIR, HAAR_PHOTO)] + [os.path.join(JPEG_DIR, x)
+                                                      for x in TRAIN_FIXTURES[:2]]
+    compared, worst = 0, 0.0
+    opener = _client()
+    try:
+        with _serving(create_batched_app(engine, scfg)) as url:
+            for i, path in enumerate(names * 2):
+                with open(path, "rb") as f:
+                    data = f.read()
+                status, body, _ = _http(opener, url + "/analyze", data, sid=f"s{i % 3}")
+                if status != 200:
+                    raise AssertionError(f"train (d): status {status} {body}")
+                if "face_probability" not in body:
+                    continue
+                frame = decode_jpeg(data)
+                x, y, fw, fh = engine.face_detector(frame)[0]
+                face = engine.aligner(preprocess_face_quality(frame[y:y + fh, x:x + fw]))
+                with torch.no_grad():
+                    xin = preprocess_aligned(torch.from_numpy(face)[None].cuda().float())
+                    direct = float(torch.sigmoid(ema(xin))[0, 0])
+                worst = max(worst, abs(direct - body["face_probability"]))
+                compared += 1
+    finally:
+        engine.shutdown()
+    if compared == 0 or worst > 1e-5:
+        raise AssertionError(f"train (d): {compared} faces, max diff {worst}")
+
+    # a clip head trained on the EMA backbone's features, saved, served
+    rng = np.random.default_rng(SEED)
+    clips = torch.from_numpy(rng.integers(0, 256, (8, 8, 160, 160, 3), dtype=np.uint8))
+    feats = clip_head.extract_clip_features(ema, clips)
+    labels = torch.tensor([0.0, 1.0] * 4, device=feats.device)
+    head, log = clip_head.train_clip_head(feats, labels, TemporalHeadSpec(
+        feature_dim=1280, window=8), epochs=5)
+    head_path = os.path.join(root, "clip_head.pt")
+    clip_head.save_head(head, head_path, log)
+    ccfg = dataclasses.replace(cfg, clip_window=8)
+    head_sd = _load_clip_head(head_path, ccfg, spec)
+    engine = MultiStreamEngine(ccfg, scfg, params=params, device="cuda",
+                               clip_head_params=head_sd)
+    clip_frames = []
+    try:
+        if not all(torch.equal(v.cpu(), head.state_dict()[k].cpu())
+                   for k, v in engine.tick_model["clip_head"].state_dict().items()):
+            raise AssertionError("train (d): the engine's clip head is not the saved one")
+        with _serving(create_batched_app(engine, scfg)) as url:
+            with open(names[0], "rb") as f:
+                data = f.read()
+            for _ in range(3):
+                status, body, _ = _http(opener, url + "/analyze", data, sid="clip")
+                if status != 200 or "clip_frames" not in body:
+                    raise AssertionError(f"train (d): clip response {status} {body}")
+                clip_frames.append(body["clip_frames"])
+    finally:
+        engine.shutdown()
+    return {"epochs_2_s": t2 - t0, "resume_epoch_s": t3 - t2, "files": files,
+            "best": r3["best"], "best_meta": meta, "faces_compared": compared,
+            "face_probability_max_abs_diff": worst, "clip_head_loss": [e["loss"] for e in log],
+            "clip_frames": clip_frames}
+
+
+def phase_train(ctx):
+    """The trainer on the card: (a) card against CPU, (b) the full-size step
+    in fp32 and bf16 and one step of the config-5 backbones, (c) the
+    loader, (d) main end to end and serving its files."""
+    import torch
+    os.environ["HAARCASCADE_DIR"] = HAAR_DIR
+    info = {"card_vs_cpu": _train_card_vs_cpu(ctx)}
+    imgs = torch.from_numpy(_train_crops(32, 244, SEED + 1)).cuda()
+    labels = torch.tensor([0.0, 1.0] * 16, device="cuda")
+    info["b0_fp32"] = _train_full(ctx, False, imgs, labels)
+    info["b0_bf16"] = _train_full(ctx, True, imgs, labels)
+    info["other_backbones"] = _train_other_backbones(imgs, labels)
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        info["loader"] = _train_loader(_train_dataset(os.path.join(root, "loader"),
+                                                      16 * LOADER_BATCHES, 0))
+        info["loader"]["step_images_per_s_fp32"] = info["b0_fp32"]["images_per_s"]
+        info["end_to_end"] = _train_end_to_end(ctx, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return info
+
+
 def phase_bench(ctx):
     """The port's serving benchmark (cli/bench.py): its main with the timed
     windows cut to 4 (from 6-12), its one JSON line checked for the MTCNN
@@ -2609,7 +3007,8 @@ PHASES = (("device", phase_device), ("build", phase_build),
           ("parity", phase_parity), ("detect-serve", phase_detect_serve),
           ("detect-parity", phase_detect_parity), ("decode", phase_decode),
           ("http", phase_http), ("wire", phase_wire), ("haar", phase_haar),
-          ("mtcnn", phase_mtcnn), ("clip", phase_clip), ("bench", phase_bench))
+          ("mtcnn", phase_mtcnn), ("clip", phase_clip), ("train", phase_train),
+          ("bench", phase_bench))
 
 
 def main() -> int:

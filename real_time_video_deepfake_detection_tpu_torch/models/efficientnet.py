@@ -8,7 +8,13 @@ Port of real_time_video_deepfake_detection_tpu/models/efficientnet.py
   pool -> head: Linear(1280,512) BN1d(eps 1e-5) ReLU Linear(512,256) BN1d
   ReLU Linear(256,1)
 
-Inference only (the dropouts of the head are identities there). The public
+Inference by default. Training (models/backbones.forward_train): batch
+norms normalise with the batch statistics while `collect_bn_stats` is
+active and hand back their new running statistics, which
+backbones.update_bn_stats writes into the buffers after the optimizer
+step (the JAX package's order); drop-connect in the skip blocks and the
+head's three dropouts apply masks drawn by `draw_masks` from an explicit
+generator. The public
 boundary is NHWC, as in the JAX package: `extract_features` takes
 (B, H, W, 3) normalized RGB. Inside, convolutions run NCHW through
 F.conv2d with TF-style SAME padding applied explicitly (asymmetric on
@@ -53,7 +59,10 @@ _SCALING = {
 
 _BN_EPS = 1e-3          # backbone BN (efficientnet convention)
 _HEAD_BN_EPS = 1e-5     # torch BatchNorm1d default (reference head)
+_BN_MOMENTUM = 0.01     # efficientnet_pytorch's batch_norm_momentum=0.99
+_HEAD_BN_MOMENTUM = 0.1  # torch BatchNorm1d default (reference head)
 _SE_RATIO = 0.25
+_DROP_CONNECT = 0.2
 
 
 def round_filters(filters: int, width: float) -> int:
@@ -122,13 +131,29 @@ def conv2d_same(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     return F.conv2d(x, w, stride=stride, groups=groups)
 
 
-class BatchNorm(nn.Module):
-    """Inference batch norm with the JAX package's formula and leaf names:
-    (x - mean) * rsqrt(var + eps) * scale + bias over `channel_dim`."""
+class BNStats(list):
+    """The new running statistics a training forward collects, in forward
+    order: (batch norm module, mean, var), detached. `momentum` overrides
+    every site's own (TrainConfig.bn_momentum)."""
 
-    def __init__(self, c: int, eps: float):
+    def __init__(self, momentum: Optional[float] = None):
+        super().__init__()
+        self.momentum = momentum
+
+
+class BatchNorm(nn.Module):
+    """Batch norm with the JAX package's formula and leaf names:
+    (x - mean) * rsqrt(var + eps) * scale + bias over `channel_dim`. While
+    `stats` holds a BNStats (models/backbones.collect_bn_stats) it
+    normalises with the batch statistics (the biased variance) and appends
+    the new running statistics, (1 - m) * old + m * batch with the unbiased
+    variance, as torch's BatchNorm does."""
+
+    def __init__(self, c: int, eps: float, momentum: float = _BN_MOMENTUM):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
+        self.stats: Optional[BNStats] = None
         self.scale = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("mean", torch.zeros(c))
@@ -137,8 +162,17 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, channel_dim: int = 1) -> torch.Tensor:
         shape = [1] * x.ndim
         shape[channel_dim] = -1
-        inv = torch.rsqrt(self.var + self.eps)
-        return ((x - self.mean.view(shape)) * inv.view(shape)
+        if self.stats is None:
+            mean, var = self.mean, self.var
+        else:
+            dims = [d for d in range(x.ndim) if d != channel_dim % x.ndim]
+            mean, var = x.mean(dims), x.var(dims, correction=0)
+            n = x.numel() // x.shape[channel_dim]
+            m = self.momentum if self.stats.momentum is None else self.stats.momentum
+            self.stats.append((self, ((1 - m) * self.mean + m * mean).detach(),
+                               ((1 - m) * self.var + m * (var * n / max(n - 1, 1))).detach()))
+        inv = torch.rsqrt(var + self.eps)
+        return ((x - mean.view(shape)) * inv.view(shape)
                 * self.scale.view(shape) + self.bias.view(shape))
 
 
@@ -194,7 +228,8 @@ class MBConv(nn.Module):
         self.project = nn.Parameter(_conv_init(1, 1, cexp, b.cout, 1, generator))
         self.bn2 = BatchNorm(b.cout, _BN_EPS)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, drop=None) -> torch.Tensor:
+        """`drop`: (keep mask (B,), rate) of drop-connect, or None."""
         inp = x
         if self.spec.expand != 1:
             x = swish(self.bn0(F.conv2d(x, self.expand_conv)))
@@ -204,9 +239,16 @@ class MBConv(nn.Module):
         se = self.se_expand(swish(self.se_reduce(se)))
         x = torch.sigmoid(se) * x
         x = self.bn2(F.conv2d(x, self.project))
-        if self.spec.stride == 1 and self.spec.cin == self.spec.cout:
+        if self.has_skip:
+            if drop is not None:
+                mask, rate = drop
+                x = x * mask.to(x.dtype).view(-1, 1, 1, 1) / (1.0 - rate)
             x = x + inp
         return x
+
+    @property
+    def has_skip(self) -> bool:
+        return self.spec.stride == 1 and self.spec.cin == self.spec.cout
 
 
 class _Stem(nn.Module):
@@ -228,14 +270,21 @@ class _FC(nn.Module):
         super().__init__()
         d0, d1, d2 = dims
         self.fc1 = Dense(cin, d0, generator)
-        self.bn1 = BatchNorm(d0, _HEAD_BN_EPS)
+        self.bn1 = BatchNorm(d0, _HEAD_BN_EPS, _HEAD_BN_MOMENTUM)
         self.fc2 = Dense(d0, d1, generator)
-        self.bn2 = BatchNorm(d1, _HEAD_BN_EPS)
+        self.bn2 = BatchNorm(d1, _HEAD_BN_EPS, _HEAD_BN_MOMENTUM)
         self.fc3 = Dense(d1, d2, generator)
 
 
+def _drop(x: torch.Tensor, drop) -> torch.Tensor:
+    if drop is None:
+        return x
+    mask, rate = drop
+    return x * mask.to(x.dtype) / (1.0 - rate)
+
+
 class EfficientNet(nn.Module):
-    """Backbone + the reference's custom head, inference mode. Parameters
+    """Backbone + the reference's custom head. Parameters
     are drawn from `generator` with the JAX package's init laws (He-normal
     convs over fan_out, uniform(+-1/sqrt(fan_in)) linears, unit BN); they
     are not JAX's numbers — load converted parameters to match a JAX
@@ -250,24 +299,51 @@ class EfficientNet(nn.Module):
         self.blocks = nn.ModuleList(MBConv(b, generator) for b in spec.blocks)
         self.fc = _FC(spec.head_filters, head_dims, generator)
 
-    def extract_features(self, x_nhwc: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) normalized RGB -> (B, head_filters) pooled features."""
+    def extract_features(self, x_nhwc: torch.Tensor, drop_connect=None) -> torch.Tensor:
+        """(B, H, W, 3) normalized RGB -> (B, head_filters) pooled features.
+        `drop_connect`: draw_masks' per-block entries (training)."""
         x = x_nhwc.permute(0, 3, 1, 2)
         x = swish(self.stem.bn(conv2d_same(x, self.stem.conv, 2)))
-        for blk in self.blocks:
-            x = blk(x)
+        for i, blk in enumerate(self.blocks):
+            x = blk(x, None if drop_connect is None else drop_connect[i])
         x = swish(self.head.bn(F.conv2d(x, self.head.conv)))
         return x.mean(dim=(2, 3))
 
-    def apply_head(self, feats: torch.Tensor) -> torch.Tensor:
-        """(B, head_filters) -> (B, 1) logits (model.py:50-61, inference)."""
+    def apply_head(self, feats: torch.Tensor, drops=None) -> torch.Tensor:
+        """(B, head_filters) -> (B, 1) logits (model.py:50-61). `drops`:
+        draw_masks' three head dropouts (training); identities without."""
         fc = self.fc
-        x = torch.relu(fc.bn1(fc.fc1(feats)))
-        x = torch.relu(fc.bn2(fc.fc2(x)))
-        return fc.fc3(x)
+        drops = drops or (None, None, None)
+        x = torch.relu(fc.bn1(fc.fc1(_drop(feats, drops[0]))))
+        x = torch.relu(fc.bn2(fc.fc2(_drop(x, drops[1]))))
+        return fc.fc3(_drop(x, drops[2]))
 
-    def forward(self, x_nhwc: torch.Tensor) -> torch.Tensor:
-        return self.apply_head(self.extract_features(x_nhwc))
+    def forward(self, x_nhwc: torch.Tensor, masks=None) -> torch.Tensor:
+        masks = masks or {}
+        return self.apply_head(self.extract_features(x_nhwc, masks.get("drop_connect")),
+                               masks.get("head"))
+
+    def draw_masks(self, n: int, generator: torch.Generator, dropout: float) -> dict:
+        """Training masks for a batch of n from `generator` (on its
+        device): drop-connect keep masks (n,) of the skip blocks at rate
+        0.2 * i / len(blocks), and the head's dropouts at `dropout`,
+        0.7 * dropout and 0.5 * dropout; a mask is kept with probability
+        1 - rate (torch.rand >= rate) and scaled by 1 / (1 - rate). Entries
+        are (mask, rate), or None where the rate is 0."""
+        dev = generator.device
+
+        def mask(shape, rate):
+            if rate <= 0.0:
+                return None
+            return torch.rand(shape, generator=generator, device=dev) >= rate, rate
+
+        nb = len(self.blocks)
+        dc = [mask((n,), _DROP_CONNECT * i / nb) if blk.has_skip else None
+              for i, blk in enumerate(self.blocks)]
+        d0, d1 = self.fc.fc1.w.shape[1], self.fc.fc2.w.shape[1]
+        head = [mask((n, self.fc.fc1.w.shape[0]), dropout),
+                mask((n, d0), dropout * 0.7), mask((n, d1), dropout * 0.5)]
+        return {"drop_connect": dc, "head": head}
 
 
 def param_count(model: nn.Module) -> int:

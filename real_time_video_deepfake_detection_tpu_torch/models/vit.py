@@ -56,9 +56,9 @@ class ViTSpec:
     ln_eps: float = 1e-6
 
     @staticmethod
-    def make(variant: str) -> "ViTSpec":
-        """The named size at 224x224, mean pool, eps 1e-6."""
-        return ViTSpec(variant, *_SIZES[variant])
+    def make(variant: str, image_size: int = 224) -> "ViTSpec":
+        """The named size, mean pool, eps 1e-6."""
+        return ViTSpec(variant, *_SIZES[variant], image_size=image_size)
 
     @property
     def n_tokens(self) -> int:

@@ -287,10 +287,15 @@ def _from_blocks(blocks: torch.Tensor) -> torch.Tensor:
     return blocks.transpose(-3, -2).reshape(lead + (hb * 8, wb * 8))
 
 
-def _roundtrip_plane(plane: torch.Tensor, qtab: np.ndarray) -> torch.Tensor:
-    """plane (int32 sample range) -> DCT, quantize, dequantize, IDCT."""
+def _roundtrip_plane(plane: torch.Tensor, qtab) -> torch.Tensor:
+    """plane (int32 sample range) -> DCT, quantize, dequantize, IDCT.
+    `qtab` is one (8, 8) table, or a (B, 8, 8) int tensor with one table
+    per sample of a (B, h, w) plane (the training augmentation's
+    per-sample qualities)."""
     dct = fdct_islow(_to_blocks(plane.to(torch.int32) - 128))
     qt = torch.as_tensor(qtab, device=plane.device)
+    if qt.ndim == 3:
+        qt = qt[:, None, None]   # (B, 1, 1, 8, 8) over the block grid
     q = qt << 3          # divisors are qval*8 (jcdctmgr.c)
     # quantize: round-half-away division
     a = torch.abs(dct)
@@ -299,13 +304,28 @@ def _roundtrip_plane(plane: torch.Tensor, qtab: np.ndarray) -> torch.Tensor:
     return _from_blocks(spatial)
 
 
-def jpeg_roundtrip_bgr(bgr: torch.Tensor, quality: int = 90) -> torch.Tensor:
-    """Encode+decode BGR u8 (..., H, W, 3) at the given JPEG quality (4:2:0,
-    baseline, libjpeg defaults) — cv2.imdecode(cv2.imencode('.jpg', img,
-    [IMWRITE_JPEG_QUALITY, q])[1]). H and W must be divisible by 16."""
-    qlum, qchr = quant_table(quality, False), quant_table(quality, True)
+def jpeg_roundtrip_bgr_tables(bgr: torch.Tensor, qlum, qchr) -> torch.Tensor:
+    """JPEG round trip with explicit quant tables: (8, 8) tables for any
+    (..., H, W, 3) batch, or (B, 8, 8) tables, one per sample of a
+    (B, H, W, 3) batch. H and W must be divisible by 16."""
     y, cb, cr = bgr_to_ycbcr_jpeg(bgr)
     y2 = _roundtrip_plane(y, qlum)
     cb2 = _roundtrip_plane(h2v2_downsample(cb), qchr)
     cr2 = _roundtrip_plane(h2v2_downsample(cr), qchr)
     return ycbcr_to_bgr_jpeg(y2, h2v2_fancy_upsample(cb2), h2v2_fancy_upsample(cr2))
+
+
+def jpeg_roundtrip_bgr(bgr: torch.Tensor, quality: int = 90) -> torch.Tensor:
+    """Encode+decode BGR u8 (..., H, W, 3) at the given JPEG quality (4:2:0,
+    baseline, libjpeg defaults) — cv2.imdecode(cv2.imencode('.jpg', img,
+    [IMWRITE_JPEG_QUALITY, q])[1]). H and W must be divisible by 16."""
+    return jpeg_roundtrip_bgr_tables(bgr, quant_table(quality, False),
+                                     quant_table(quality, True))
+
+
+def quality_table_stack(q_lo: int, q_hi: int):
+    """(Nq, 8, 8) int32 luma and chroma tables for qualities q_lo..q_hi
+    inclusive: indexed on the device, one quality per sample."""
+    lum = np.stack([quant_table(q, False) for q in range(q_lo, q_hi + 1)])
+    chr_ = np.stack([quant_table(q, True) for q in range(q_lo, q_hi + 1)])
+    return lum.astype(np.int32), chr_.astype(np.int32)

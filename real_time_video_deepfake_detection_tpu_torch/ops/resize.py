@@ -27,7 +27,7 @@ _COEF_SCALE = 1 << _COEF_BITS  # 2048
 
 
 @functools.lru_cache(maxsize=None)
-def _linear_tables(src: int, dst: int):
+def _linear_tables(src: int, dst: int, clamp: bool = True):
     """OpenCV's per-axis sample indices and short coefficients.
 
     The residual is FLOAT32 end-to-end, exactly as resize.cpp computes it:
@@ -39,14 +39,15 @@ def _linear_tables(src: int, dst: int):
     fx = np.float32((x + 0.5) * scale - 0.5)   # double product, f32 cast
     sx = np.floor(fx).astype(np.int64)
     fx = (fx - sx.astype(np.float32)).astype(np.float32)
-    fx = np.where(sx < 0, np.float32(0), fx)
-    sx = np.maximum(sx, 0)
-    fx = np.where(sx >= src - 1, np.float32(0), fx)
-    sx = np.minimum(sx, src - 1)
+    if clamp:
+        fx = np.where(sx < 0, np.float32(0), fx)
+        sx = np.maximum(sx, 0)
+        fx = np.where(sx >= src - 1, np.float32(0), fx)
     # saturate_cast<short>(f * 2048) with cvRound (half-to-even)
     a1 = np.rint(fx * np.float32(_COEF_SCALE)).astype(np.int32)
     a0 = np.rint((np.float32(1) - fx) * np.float32(_COEF_SCALE)).astype(np.int32)
-    sx1 = np.minimum(sx + 1, src - 1)
+    sx1 = np.clip(sx + 1, 0, src - 1)
+    sx = np.clip(sx, 0, src - 1)
     return sx, sx1, a0, a1
 
 
@@ -69,9 +70,16 @@ def _t(a: np.ndarray, device, dtype=None) -> torch.Tensor:
     return torch.as_tensor(a, device=device, dtype=dtype)
 
 
-def resize_bilinear_u8_cv2(img: torch.Tensor, dst_h: int, dst_w: int) -> torch.Tensor:
+def resize_bilinear_u8_cv2(img: torch.Tensor, dst_h: int, dst_w: int,
+                           cv2_rows: bool = False) -> torch.Tensor:
     """cv2.resize(img, (dst_w, dst_h), interpolation=INTER_LINEAR) for uint8
-    (..., H, W, C) or (H, W), bit-exact."""
+    (..., H, W, C) or (H, W), bit-exact as the JAX package computes it.
+    On a vertical upscale that copy zeroes the weights of the first and
+    last output rows, where OpenCV keeps them and only clips the source
+    rows (resize.cpp clamps the x offsets, not the y ones), which moves
+    those rows by one level; `cv2_rows=True` keeps OpenCV's weights and
+    equals cv2.resize everywhere (the trainer's loader, which the JAX
+    package feeds with cv2 itself)."""
     squeeze = img.ndim == 2
     if squeeze:
         img = img[..., None]
@@ -89,7 +97,7 @@ def resize_bilinear_u8_cv2(img: torch.Tensor, dst_h: int, dst_w: int) -> torch.T
         out = ((s + 2) >> 2).to(torch.uint8)
     else:
         sx, sx1, ax0, ax1 = _linear_tables(src_w, dst_w)
-        sy, sy1, ay0, ay1 = _linear_tables(src_h, dst_h)
+        sy, sy1, ay0, ay1 = _linear_tables(src_h, dst_h, not cv2_rows)
         x = img.to(torch.int32)
         P = x.index_select(-2, _t(sx, dev))
         Q = x.index_select(-2, _t(sx1, dev))

@@ -108,9 +108,12 @@ class DeepfakeDetector:
     """Reference-compatible orchestrator (deepfake_detection.py:292-726).
 
     `params`: a state dict of the backbone module (utils/convert.
-    params_from_jax makes one from JAX parameters); None draws parameters
-    from a torch.Generator seeded with `seed`. `device`: None means CUDA
-    (raising when it is absent); pass "cpu" to run on the CPU."""
+    params_from_jax makes one from JAX parameters); without it an existing
+    `weights_path` is loaded (utils/weights: the reference .pth, a JAX
+    trainer .npz or the port trainer's .pt; its metadata lands in
+    `checkpoint_meta`), else parameters are drawn from a torch.Generator
+    seeded with `seed`. `device`: None means CUDA (raising when it is
+    absent); pass "cpu" to run on the CPU."""
 
     def __init__(self, cfg: DetectorConfig = DetectorConfig(),
                  params: Optional[Dict[str, torch.Tensor]] = None, spec=None,
@@ -123,9 +126,6 @@ class DeepfakeDetector:
                  face_weight: Optional[float] = None,
                  forensic_weight: Optional[float] = None,
                  device: Optional[Union[str, torch.device]] = None, seed: int = 0):
-        if weights_path:
-            raise NotImplementedError(
-                "weights_path: checkpoint loading comes with the training slices")
         if enable_gradcam:
             raise NotImplementedError("enable_gradcam: GradCAM comes with a later slice")
         if cfg.use_tta if use_tta is None else use_tta:
@@ -151,6 +151,10 @@ class DeepfakeDetector:
         model = backbones.build_model(self.spec, generator=torch.Generator().manual_seed(seed))
         # without parameters the reference falls back to ImageNet weights
         # (deepfake_detection.py:78-81); none ship here, so random ones, flagged
+        self.checkpoint_meta = {}
+        if params is None and weights_path and os.path.exists(weights_path):
+            from ..utils.weights import load_params_and_meta
+            params, self.checkpoint_meta = load_params_and_meta(weights_path, self.spec)
         self.model_loaded = params is not None
         if params is not None:
             model.load_state_dict(params)

@@ -37,8 +37,11 @@ import numpy as np
 import torch
 
 from ..core.config import DetectorConfig, ServerConfig
+from ..models import backbones
+from ..models.temporal_head import TemporalHead
 from ..pipeline.detector import DeepfakeDetector
 from ..utils.jpeg_ingest import decode_jpeg
+from .batcher import clip_head_spec
 from .wsgi import App, Request, Response, jsonify
 
 logger = logging.getLogger(__name__)
@@ -219,14 +222,24 @@ def serve(host: str = "0.0.0.0", port: int = 5000,
 
 # flags of the JAX server whose slices are still to come
 _UNPORTED = {
-    "weights": "--weights: checkpoint loading comes with the training slices "
-               "(the JAX trainer's .npz holds a JAX treedef); the port serves "
-               "random weights drawn from a seed",
-    "clip_head": "--clip-head: the JAX trainer's checkpoint format (a pickled JAX treedef) "
-                 "is read with the training slices; --clip-window serves a temporal head "
-                 "drawn from a seed",
     "scaled_decode": "--scaled-decode: libjpeg's DCT-scaled decode is not ported",
 }
+
+
+def _load_or_exit(flag: str, path: Optional[str], load, *args):
+    """load(*args), or an exit naming the flag and the file when it fails."""
+    try:
+        return load(*args)
+    except (OSError, RuntimeError, KeyError, ValueError, pickle.UnpicklingError) as e:
+        raise SystemExit(f"{flag} {path}: {e}")
+
+
+def _load_clip_head(path: str, cfg: DetectorConfig, spec):
+    """--clip-head: the temporal head's state dict from a JAX trainer .npz
+    (train/clip_head.py's params) or the port's .pt."""
+    from ..utils.weights import read_state_dict
+    hcfg = dataclasses.replace(cfg, clip_feature_dim=backbones.feature_dim(spec))
+    return read_state_dict(path, TemporalHead(clip_head_spec(hcfg)))[0]
 
 
 def main(argv=None):
@@ -235,8 +248,10 @@ def main(argv=None):
     p.add_argument("--port", type=int, default=5000)
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (cuda, cuda:1, cpu)")
-    p.add_argument("--weights", default=None, help="not ported yet")
-    from ..models import backbones
+    p.add_argument("--weights", default=None,
+                   help="classifier weights: best_model.pth (reference torch format, "
+                        "EfficientNet only), a JAX trainer .npz or the port trainer's "
+                        ".pt (any backbone; a resume checkpoint serves its EMA weights)")
     p.add_argument("--backbone", default="b0", choices=backbones.backbone_names(),
                    help="classifier backbone: EfficientNet b0..b7, vit_s16/b16/l16 or "
                         "xception; with --clip-window the temporal head's feature dim "
@@ -258,8 +273,8 @@ def main(argv=None):
                         "backbone feature vectors of a stream replaces the majority "
                         "vote (BASELINE config 5); 0 = off")
     p.add_argument("--clip-head", default=None,
-                   help="temporal-head weights in the JAX trainer's checkpoint format: "
-                        "not read yet (the training slices)")
+                   help="temporal-head weights (a JAX .npz or the port's .pt, as "
+                        "train/clip_head.py saves them); drawn from a seed when omitted")
     p.add_argument("--face-backend", default="auto",
                    choices=["auto", "ssd", "haar", "haar_native", "heuristic"],
                    help="pin a detector-ladder rung (pipeline/faces.py)")
@@ -318,8 +333,10 @@ def main(argv=None):
             aligner = MTCNNAligner.from_weights(args.mtcnn_weights, device=args.device)
         except (OSError, RuntimeError, KeyError, ValueError, pickle.UnpicklingError) as e:
             raise SystemExit(f"--mtcnn-weights {args.mtcnn_weights}: {e}")
-    logger.warning("serving random classifier weights drawn from seed 0 "
-                   "(checkpoint loading is not ported yet)")
+    from ..utils.weights import load_params_any
+    params = _load_or_exit("--weights", args.weights, load_params_any, args.weights, spec)
+    if params is None:
+        logger.warning("serving random classifier weights drawn from seed 0 (no --weights)")
 
     if args.batched:
         from ..pipeline.faces import FaceDetector
@@ -335,8 +352,11 @@ def main(argv=None):
                               confidence_threshold=cfg.ssd_confidence_threshold,
                               min_face_px=cfg.min_face_px, backend=args.face_backend,
                               device=args.device)
-        engine = MultiStreamEngine(cfg, scfg, spec=spec, device=args.device, face_detector=fd,
-                                   aligner=aligner)
+        clip_head = (_load_or_exit("--clip-head", args.clip_head, _load_clip_head,
+                                   args.clip_head, cfg, spec) if args.clip_head else None)
+        engine = MultiStreamEngine(cfg, scfg, params=params, spec=spec, device=args.device,
+                                   face_detector=fd, aligner=aligner,
+                                   clip_head_params=clip_head)
         httpd = make_server(args.host, args.port, create_batched_app(engine, scfg))
         logger.info("batched deepfake server (%d streams) on http://%s:%d",
                     args.max_streams, args.host, args.port)
@@ -347,7 +367,7 @@ def main(argv=None):
         finally:
             engine.shutdown()
         return
-    det = DeepfakeDetector(cfg, spec=spec, ssd_weights_path=args.ssd_weights,
+    det = DeepfakeDetector(cfg, params=params, spec=spec, ssd_weights_path=args.ssd_weights,
                            mtcnn_weights_path=args.mtcnn_weights, device=args.device)
     serve(args.host, args.port, det)
 

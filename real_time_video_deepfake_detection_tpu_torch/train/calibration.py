@@ -1,16 +1,19 @@
-"""The optional isotonic probability calibrator: loading and applying.
+"""The optional isotonic probability calibrator: fitting, saving, loading
+and applying.
 
-Port of those halves of real_time_video_deepfake_detection_tpu/train/
-calibration.py: knots stored as an .npz payload (two float arrays x, y),
-applied with np.interp through sklearn's `predict_proba` surface. Pickled
-calibrators are never loaded here. Fitting comes with the training slice.
+Port of real_time_video_deepfake_detection_tpu/train/calibration.py:
+isotonic regression by pool-adjacent-violators, knots stored as an .npz
+payload (two float arrays x, y; the file keeps the reference's name
+calibrator.pkl), applied with np.interp through sklearn's `predict_proba`
+surface. The two packages read each other's files. Pickled calibrators are
+never loaded here.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -21,6 +24,28 @@ class IsotonicCalibrator:
     def __init__(self, x: Optional[np.ndarray] = None, y: Optional[np.ndarray] = None):
         self.x_ = x
         self.y_ = y
+
+    def fit(self, probs: Sequence[float], labels: Sequence[int]) -> "IsotonicCalibrator":
+        """Pool adjacent violators over the probabilities sorted (stably)."""
+        p = np.asarray(probs, np.float64)
+        t = np.asarray(labels, np.float64)
+        order = np.argsort(p, kind="stable")
+        vals = []    # [level y, weight, lowest x, highest x]
+        for xi, yi in zip(p[order], t[order]):
+            vals.append([yi, 1.0, xi, xi])
+            while len(vals) > 1 and vals[-2][0] >= vals[-1][0]:
+                y2, w2, _, hi2 = vals.pop()
+                y1, w1, lo1, _ = vals.pop()
+                w = w1 + w2
+                vals.append([(y1 * w1 + y2 * w2) / w, w, lo1, hi2])
+        self.x_ = np.array([v[2] for v in vals] + [vals[-1][3]])
+        self.y_ = np.array([v[0] for v in vals] + [vals[-1][0]])
+        return self
+
+    def save(self, path: str) -> None:
+        """Write the knots as an .npz payload, whatever the file's name."""
+        with open(path, "wb") as f:
+            np.savez(f, x=np.asarray(self.x_), y=np.asarray(self.y_))
 
     def transform(self, probs) -> np.ndarray:
         if self.x_ is None:
@@ -63,3 +88,21 @@ def load_default() -> Optional[IsotonicCalibrator]:
                     "ALL face probabilities", os.path.abspath(cal))
         return loaded
     return None
+
+
+def fit_calibrator_from_validation(model, params, loader, out_path: str) -> IsotonicCalibrator:
+    """Fit on the fake probabilities of `model` with `params` (the EMA
+    state dict) over `loader`'s batches and save to `out_path` (usable as
+    the detector's weights/calibrator.pkl)."""
+    # the training step stays out of the serving side's import of load_default
+    from .augment import eval_preprocess_batch
+    from .steps import eval_step
+    dev = next(model.parameters()).device
+    probs, labels = [], []
+    for imgs, lab in loader:
+        x = eval_preprocess_batch(imgs.to(dev))
+        probs.append(eval_step(model, params, x).cpu().numpy())
+        labels.append(lab)
+    cal = IsotonicCalibrator().fit(np.concatenate(probs), np.concatenate(labels))
+    cal.save(out_path)
+    return cal

@@ -1,0 +1,151 @@
+"""Training checkpoints: the port's own single-file format, and the JAX
+trainer's .npz read without JAX.
+
+Port of real_time_video_deepfake_detection_tpu/train/checkpoint.py
+(reference train.py:685-756: every epoch, model / optimizer / EMA state,
+best metrics, a config snapshot and every RNG state, written to a temporary
+file and renamed so that a kill at any point leaves a loadable file).
+
+The port's format is `torch.save` of a plain dict of tensors, numbers,
+strings, lists and dicts (the JAX package's .npz holds a pickled JAX
+treedef, which the port cannot build), read back with
+torch.load(weights_only=True): no object outside that closed set is ever
+constructed, the analogue of the JAX package's closed unpickler.
+
+The JAX trainer's .npz is read too: `leaf_i` arrays plus a pickled
+`__meta__` blob, unpickled here with a closed unpickler that admits only
+numpy's array and scalar reconstructors; the pickled treedef inside it is
+left unopened. The leaves are named by the order in which jax.tree_util
+flattens a dict tree (keys sorted, lists in order), over the port module's
+state-dict names, which follow the JAX tree (utils/convert.params_from_jax).
+A params-only file (best_model.npz, a clip head) maps directly; a resume
+TrainState (params, opt_state, ema_params, step, rng) yields its
+ema_params, the n_params leaves before the last two.
+"""
+
+from __future__ import annotations
+
+import io
+import os
+import pickle
+import random
+import tempfile
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..utils.convert import params_from_jax
+
+FORMAT = "rtvdd-torch-checkpoint-1"
+
+
+def save_checkpoint(path: str, payload: dict) -> None:
+    """Atomically write `payload` (+ the format tag) to `path`."""
+    d = os.path.dirname(os.path.abspath(path)) or "."
+    os.makedirs(d, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            torch.save({"format": FORMAT, **payload}, f)
+        os.replace(tmp, path)   # atomic (train.py:711-715)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+
+
+def load_checkpoint(path: str) -> dict:
+    """The dict save_checkpoint wrote, on the CPU; anything else raises."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(ckpt, dict) or ckpt.get("format") != FORMAT:
+        raise ValueError(f"{path}: not a checkpoint of the port's trainer")
+    return ckpt
+
+
+def host_rng_state() -> dict:
+    """Python's, numpy's legacy, torch's CPU and (when present) CUDA RNG
+    states, as weights_only-loadable values."""
+    np_state = np.random.get_state(legacy=False)
+    out = {"python": random.getstate(),
+           "numpy": {**np_state, "state": {"key": np_state["state"]["key"].tolist(),
+                                           "pos": int(np_state["state"]["pos"])}},
+           "torch": torch.get_rng_state()}
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        out["cuda"] = torch.cuda.get_rng_state_all()
+    return out
+
+
+def restore_host_rng_state(s: dict) -> None:
+    v, internal, gauss = s["python"]
+    random.setstate((v, tuple(internal), gauss))
+    st = dict(s["numpy"])
+    st["state"] = {"key": np.asarray(st["state"]["key"], np.uint32),
+                   "pos": st["state"]["pos"]}
+    np.random.set_state(st)
+    torch.set_rng_state(s["torch"])
+    if "cuda" in s and torch.cuda.is_available():
+        torch.cuda.set_rng_state_all(s["cuda"])
+
+
+# ------------------------------------------------------- the JAX trainer's .npz
+
+_NUMPY_GLOBALS = {
+    ("numpy", "ndarray"), ("numpy", "dtype"),
+    ("numpy.core.multiarray", "_reconstruct"), ("numpy._core.multiarray", "_reconstruct"),
+    ("numpy.core.multiarray", "scalar"), ("numpy._core.multiarray", "scalar"),
+}
+
+
+class _NumpyOnlyUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if (module, name) in _NUMPY_GLOBALS or (
+                module == "numpy.dtypes" and name.endswith("DType")):
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            f"checkpoint metadata references {module}.{name}, outside numpy's array "
+            "reconstructors: refusing to deserialize it")
+
+
+def read_jax_npz(path: str) -> Tuple[List[np.ndarray], dict]:
+    """(leaves in flattening order, the outer metadata dict: 'metadata',
+    'n_leaves', the RNG captures; 'treedef' stays pickled bytes)."""
+    with np.load(path, allow_pickle=False) as z:
+        meta = _NumpyOnlyUnpickler(io.BytesIO(z["__meta__"].tobytes())).load()
+        leaves = [np.asarray(z[f"leaf_{i}"]) for i in range(int(meta["n_leaves"]))]
+    return leaves, meta
+
+
+def jax_leaf_order(names) -> List[str]:
+    """State-dict names in jax.tree_util's flattening order of the tree
+    they name: dict keys sorted as strings, list indices in order."""
+    return sorted(names, key=lambda n: tuple((0, int(p), "") if p.isdigit() else (1, 0, p)
+                                             for p in n.split(".")))
+
+
+def params_from_jax_npz(path: str, model: nn.Module, part: str = "ema_params"
+                        ) -> Tuple[Dict[str, torch.Tensor], dict]:
+    """(`model`'s state dict, metadata) from a JAX trainer .npz: a params
+    tree saved alone, or from a resume TrainState its `part` ("ema_params",
+    what serving uses, or "params", what --warm-start uses). Leaves that
+    do not map onto the model raise."""
+    leaves, meta = read_jax_npz(path)
+    names = jax_leaf_order(model.state_dict().keys())
+    n = len(names)
+    if len(leaves) == n:
+        chosen = leaves
+    elif len(leaves) > 2 * n + 2:
+        # TrainState leaves: params, opt_state, ema_params, step, rng
+        ema = leaves[-(n + 2):-2]
+        for i, (a, b) in enumerate(zip(leaves[:n], ema)):
+            if a.shape != b.shape:
+                raise ValueError(f"{path}: leaf {i} of params {a.shape} and of "
+                                 f"ema_params {b.shape} differ; not a TrainState of this model")
+        chosen = ema if part == "ema_params" else leaves[:n]
+    else:
+        raise ValueError(f"{path}: {len(leaves)} leaves, the model has {n} "
+                         "(neither its params nor a TrainState of them)")
+    sd = params_from_jax(dict(zip(names, chosen)), model)
+    md = meta.get("metadata")
+    return sd, (md if isinstance(md, dict) else {})

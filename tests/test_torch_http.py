@@ -432,7 +432,7 @@ def test_classify_batch_matches_jax(pallas_preproc):
 @pytest.mark.parametrize("argv,want", [
     (["--weights", "w.npz"], "--weights"), (["--mtcnn-weights", "d"], "--mtcnn-weights"),
     (["--mtcnn-device"], "--mtcnn-device"),
-    (["--clip-head", "h.npz"], "--clip-head: the JAX trainer's checkpoint format"),
+    (["--clip-head", "h.npz", "--batched"], "--clip-head h.npz"),
     (["--ingest-plane", "coef"], "--ingest-plane"),
     (["--scaled-decode"], "--scaled-decode"), (["--device-detect"], "--batched"),
     (["--device-detect", "--batched"], "--ssd-weights"),

@@ -40,6 +40,24 @@ def test_every_port_module_imports_without_jax():
     assert r.returncode == 0, r.stderr[-2000:]
 
 
+def test_serving_imports_no_training_module():
+    """The server, the engine and the detector load checkpoints and the
+    calibrator lazily: importing them pulls in no module of train/."""
+    code = (
+        "import sys\n"
+        "import real_time_video_deepfake_detection_tpu_torch.serving.server\n"
+        "import real_time_video_deepfake_detection_tpu_torch.serving.multi\n"
+        "import real_time_video_deepfake_detection_tpu_torch.pipeline.detector\n"
+        "p = 'real_time_video_deepfake_detection_tpu_torch.'\n"
+        "bad = [m for m in sys.modules if m.startswith(p + 'train.')\n"
+        "       or m in (p + 'utils.weights', p + 'utils.torch_convert')]\n"
+        "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=REPO))
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
 _JAX_PKG_IMPORT = re.compile(
     r"^\s*(from|import)\s+(jax\b|real_time_video_deepfake_detection_tpu(?!_torch)\b"
     r"|cv2\b|PIL\b)", re.MULTILINE)
