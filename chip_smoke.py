@@ -141,7 +141,19 @@ in phases, each printing one JSON line:
               best_model.pt (each face_probability against a direct forward
               of the EMA weights, 1e-5) and with a clip head trained and
               saved by train/clip_head.py
- 15. bench    the port's serving benchmark (cli/bench.py): its main, the
+ 15. detector the one-call host prep of host-prep serving
+              (utils/native_prep.prep_frame) byte for byte against the
+              Python route (decode, resize, heuristic detection, the native
+              Lab rung's CLAHE, the resize aligner) on every fixture, and
+              the host ms of each; at B0's full width (seeded), card
+              against CPU: GradCAM of 8 aligned faces (1e-3) and its ms,
+              DeepfakeDetector with 4 TTA augmentations from one seed (the
+              probability within 1e-4) and its ms per face with and
+              without TTA, the frequency maps (1e-4) and their ms; then
+              cli/bench.bench_e2e in host-prep mode at 64 clients through
+              the one-call prep and through decode -> analyze, in turns
+              (the preprocess and hue kernels launched in each)
+ 16. bench    the port's serving benchmark (cli/bench.py): its main, the
               timed windows cut to 4, prints its one JSON line (the MTCNN
               core and the SSD-bf16 guard in it); each function's dict on a
               line of its own, every kernel launched, all four in every
@@ -2899,6 +2911,209 @@ def phase_train(ctx):
     return info
 
 
+def _prep_python_route(jpeg: bytes):
+    """The host prep that the one-call route replaces: decode_jpeg ->
+    resize_analysis -> detect_heuristic -> preprocess_face_quality with the
+    native Lab rung -> the resize aligner; (frame, aligned u8 or None, box
+    or None), None when the decoder refuses the stream."""
+    import numpy as np
+    from real_time_video_deepfake_detection_tpu_torch.models.heuristic_face import (
+        detect_heuristic)
+    from real_time_video_deepfake_detection_tpu_torch.pipeline.detector import (
+        _ResizeAligner, preprocess_face_quality)
+    from real_time_video_deepfake_detection_tpu_torch.utils.host_resize import resize_analysis
+    from real_time_video_deepfake_detection_tpu_torch.utils.jpeg_ingest import decode_jpeg
+    frame = decode_jpeg(jpeg)
+    if frame is None:
+        return None
+    small = resize_analysis(frame, 256, 256)
+    faces = detect_heuristic(frame)
+    if not faces:
+        return small, None, None
+    x, y, w, h = faces[0]
+    crop = preprocess_face_quality(frame[y:y + h, x:x + w], lab_backend="native")
+    return small, _ResizeAligner()(crop).astype(np.uint8), tuple(faces[0])
+
+
+def _one_call_prep(jpegs):
+    """(a) utils/native_prep.prep_frame on every committed fixture against
+    the Python route, byte for byte; host ms of each on one thread."""
+    import numpy as np
+    from real_time_video_deepfake_detection_tpu_torch.utils.native_prep import prep_frame
+    faces, refused, aligned = 0, [], []
+    for name, jpeg in sorted(jpegs.items()):
+        got, want = prep_frame(jpeg, (256, 256), 160), _prep_python_route(jpeg)
+        if want is None or got is None:
+            if not (want is None and got is None):
+                raise AssertionError(f"{name}: one route refused the stream, the other not")
+            refused.append(name)
+            continue
+        same = (np.array_equal(got[0], want[0]) and got[2] == want[2]
+                and (got[1] is None if want[1] is None else np.array_equal(got[1], want[1])))
+        if not same:
+            raise AssertionError(f"{name}: the one-call prep differs from the Python route")
+        if got[1] is not None:
+            faces += 1
+            aligned.append(got[1])
+    if faces < 8:
+        raise AssertionError(f"only {faces} fixtures hold a face")
+    jpeg = jpegs["frame_720x405_q85_420.jpg"]
+    times = {"one_call": [], "python_route": []}
+    for _ in range(15):
+        for k, fn in (("one_call", lambda: prep_frame(jpeg, (256, 256), 160)),
+                      ("python_route", lambda: _prep_python_route(jpeg))):
+            t0 = time.perf_counter()
+            fn()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    return ({"fixtures_equal": len(jpegs) - len(refused), "faces": faces, "refused": refused,
+             "host_ms_720x405": {k: statistics.median(v) for k, v in times.items()}},
+            np.stack(aligned[:8]))
+
+
+def _detector_gradcam(ctx, aligned):
+    """(b) GradCAM of full-size B0 on 8 aligned faces, card against CPU."""
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.models import backbones
+    from real_time_video_deepfake_detection_tpu_torch.models.gradcam import gradcam
+    from real_time_video_deepfake_detection_tpu_torch.pipeline.classify import preprocess_aligned
+    models = {}
+    for dev in ("cpu", "cuda"):
+        m = backbones.build_model(backbones.make("b0")).eval()
+        m.load_state_dict(backbone_state(ctx, "b0"))
+        models[dev] = m.to(dev)
+    x = preprocess_aligned(torch.from_numpy(aligned).to(torch.float32), 224)
+    xg = x.cuda()
+    hc, hg = gradcam(models["cpu"], x), gradcam(models["cuda"], xg).cpu()
+    err, tol = float((hc - hg).abs().max()), 1e-3
+    if not err <= tol:
+        raise AssertionError(f"gradcam: card against CPU {err} > {tol}")
+    peaks = hc.amax(dim=(1, 2))
+    if not (float(peaks.min()) > 0.5 and float(hc.amin()) >= 0.0 and float(peaks.max()) <= 1.0):
+        raise AssertionError(f"gradcam: heatmaps not spread over [0, 1]: peaks {peaks.tolist()}")
+    if any(p.grad is not None for p in models["cuda"].parameters()):
+        raise AssertionError("gradcam left a gradient on the model")
+    ms = time_cuda(lambda: gradcam(models["cuda"], xg), n=20)
+    wall, busy, acts, _ = profile_device(lambda: gradcam(models["cuda"], xg), 5)
+    return {"faces": list(x.shape), "max_abs_err": err, "tolerance": tol, "ms": ms,
+            "device_busy_ms": busy, "device_activities": acts,
+            "mean_heat": float(hc.mean())}
+
+
+def _detector_tta(ctx, crops):
+    """(c) DeepfakeDetector(use_tta, 4 augmentations) on the card against
+    the CPU from the same seed: each face's averaged probability, then ms
+    per face on the card with and without TTA."""
+    from real_time_video_deepfake_detection_tpu_torch.core.config import DetectorConfig
+    from real_time_video_deepfake_detection_tpu_torch.pipeline.detector import DeepfakeDetector
+    dets = {dev: DeepfakeDetector(DetectorConfig(), params=backbone_state(ctx, "b0"),
+                                  device=dev, use_tta=True, num_tta_augmentations=4, seed=SEED)
+            for dev in ("cpu", "cuda")}
+    errs, probs = [], []
+    for crop in crops:
+        pc, pg = (dets[d].analyze_face(crop)[0] for d in ("cpu", "cuda"))
+        if pc is None or pg is None:
+            raise AssertionError("TTA: a face gave no probability")
+        errs.append(abs(pc - pg))
+        probs.append(pc)
+    tol = 1e-4
+    if not max(errs) <= tol:
+        raise AssertionError(f"TTA: card against CPU {max(errs)} > {tol}")
+    if dets["cpu"]._tta_rng.random() != dets["cuda"]._tta_rng.random():
+        raise AssertionError("TTA: the two detectors drew different augmentations")
+    det = dets["cuda"]
+    times = {"tta4": [], "single": []}
+    for crop in crops * 3:
+        for k, on in (("tta4", True), ("single", False)):
+            det.use_tta = on
+            t0 = time.perf_counter()
+            det.analyze_face(crop)
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    return {"faces": len(crops), "max_abs_err": max(errs), "tolerance": tol,
+            "probabilities": probs,
+            "ms_per_face": {k: statistics.median(v) for k, v in times.items()}}
+
+
+def _detector_freq(jpegs):
+    """(d) compute_frequency_features of a fixture on the card against the
+    CPU."""
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.ops.freq_features import (
+        compute_frequency_features)
+    from real_time_video_deepfake_detection_tpu_torch.utils.jpeg_ingest import decode_jpeg
+    img = torch.from_numpy(decode_jpeg(jpegs["frame_720x405_q85_420.jpg"]))
+    fc = compute_frequency_features(img)
+    ig = img.cuda()
+    fg = compute_frequency_features(ig).cpu()
+    err, tol = float((fc - fg).abs().max()), 1e-4
+    if not err <= tol or fc.shape != (2, 224, 224):
+        raise AssertionError(f"frequency features: {tuple(fc.shape)}, card against CPU {err}")
+    return {"max_abs_err": err, "tolerance": tol,
+            "ms": time_cuda(lambda: compute_frequency_features(ig), n=20)}
+
+
+def _host_prep_e2e(ctx, one_call: bool):
+    """(e) cli/bench.bench_e2e in host-prep mode (the heuristic rung), 64
+    clients x 5 frames: through the one-call prep, or with the engine's
+    rule forced off, through decode -> analyze (the cv2 Lab rung). The
+    kernels' counts are set to 0 just before and read just after."""
+    from real_time_video_deepfake_detection_tpu_torch.cli import bench as B
+    from real_time_video_deepfake_detection_tpu_torch.serving import multi
+    calls, prep = [0], multi.prep_frame
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return prep(*a, **kw)
+
+    saved = multi.MultiStreamEngine._native_prep_eligible
+    multi.prep_frame = counted
+    if not one_call:
+        multi.MultiStreamEngine._native_prep_eligible = lambda self: False
+    _reset_launches()
+    try:
+        r = B.bench_e2e(n_streams=64, frames_per_stream=5, device_detect=False, device="cuda")
+    finally:
+        launches = _read_launches()
+        multi.prep_frame = prep
+        multi.MultiStreamEngine._native_prep_eligible = saved
+    if r["device"] != ctx["name"]:
+        raise AssertionError(f"bench_e2e ran on {r['device']}")
+    # the warm-up stream's frames come through the same route
+    want = r["requests"] + 5 if one_call else 0
+    if calls[0] != want:
+        raise AssertionError(f"one_call={one_call}: {calls[0]} one-call preps, want {want}")
+    missing = [k for k in ("preprocess_faces", "unique_hue_count") if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"host-prep e2e: kernels {missing} were not launched")
+    return {k: r[k] for k in ("mode", "requests", "fps", "req_ms_p50", "req_ms_p95", "ticks",
+                              "ewma_batch_size", "ewma_host_prep_ms")} | {
+        "one_call_preps": calls[0], "launches": launches}
+
+
+def phase_detector(ctx):
+    """The detector's off-path features and the one-call host prep on the
+    card: (a) the one-call prep against the Python route on every fixture;
+    (b) GradCAM, (c) TTA and (d) the frequency maps, card against CPU at
+    B0's full width; (e) host-prep serving end to end through the one-call
+    prep and through decode -> analyze, in turns."""
+    from real_time_video_deepfake_detection_tpu_torch.models.heuristic_face import (
+        detect_heuristic)
+    from real_time_video_deepfake_detection_tpu_torch.utils.jpeg_ingest import decode_jpeg
+    jpegs, _ = _jpegs()
+    prep, aligned = _one_call_prep(jpegs)
+    crops = []
+    for name in ("frame_720x405_q85_420.jpg", "frame_640x480_q85_420.jpg",
+                 "s422_319x241_q85.jpg", "q50_720x405_420.jpg"):
+        frame = decode_jpeg(jpegs[name])
+        x, y, w, h = detect_heuristic(frame)[0]
+        crops.append(frame[y:y + h, x:x + w].copy())
+    out = {"card": ctx["smi"], "one_call_prep": prep,
+           "gradcam": _detector_gradcam(ctx, aligned), "tta": _detector_tta(ctx, crops),
+           "frequency_features": _detector_freq(jpegs)}
+    out["host_prep_e2e"] = [dict(route="one_call" if on else "decode_then_analyze",
+                                 **_host_prep_e2e(ctx, on)) for on in (True, False, True, False)]
+    return out
+
+
 def phase_bench(ctx):
     """The port's serving benchmark (cli/bench.py): its main with the timed
     windows cut to 4 (from 6-12), its one JSON line checked for the MTCNN
@@ -3008,7 +3223,7 @@ PHASES = (("device", phase_device), ("build", phase_build),
           ("detect-parity", phase_detect_parity), ("decode", phase_decode),
           ("http", phase_http), ("wire", phase_wire), ("haar", phase_haar),
           ("mtcnn", phase_mtcnn), ("clip", phase_clip), ("train", phase_train),
-          ("bench", phase_bench))
+          ("detector", phase_detector), ("bench", phase_bench))
 
 
 def main() -> int:

@@ -299,15 +299,19 @@ class EfficientNet(nn.Module):
         self.blocks = nn.ModuleList(MBConv(b, generator) for b in spec.blocks)
         self.fc = _FC(spec.head_filters, head_dims, generator)
 
-    def extract_features(self, x_nhwc: torch.Tensor, drop_connect=None) -> torch.Tensor:
-        """(B, H, W, 3) normalized RGB -> (B, head_filters) pooled features.
+    def feature_map(self, x_nhwc: torch.Tensor, drop_connect=None) -> torch.Tensor:
+        """(B, H, W, 3) normalized RGB -> (B, head_filters, H', W'), the map
+        after the head conv, batch norm and swish (GradCAM's target layer).
         `drop_connect`: draw_masks' per-block entries (training)."""
         x = x_nhwc.permute(0, 3, 1, 2)
         x = swish(self.stem.bn(conv2d_same(x, self.stem.conv, 2)))
         for i, blk in enumerate(self.blocks):
             x = blk(x, None if drop_connect is None else drop_connect[i])
-        x = swish(self.head.bn(F.conv2d(x, self.head.conv)))
-        return x.mean(dim=(2, 3))
+        return swish(self.head.bn(F.conv2d(x, self.head.conv)))
+
+    def extract_features(self, x_nhwc: torch.Tensor, drop_connect=None) -> torch.Tensor:
+        """(B, H, W, 3) normalized RGB -> (B, head_filters) pooled features."""
+        return self.feature_map(x_nhwc, drop_connect).mean(dim=(2, 3))
 
     def apply_head(self, feats: torch.Tensor, drops=None) -> torch.Tensor:
         """(B, head_filters) -> (B, 1) logits (model.py:50-61). `drops`:

@@ -27,15 +27,23 @@ directory or one prefixed file) the MTCNN aligner (models/mtcnn.py) aligns
 the crops on the detector's device; a path that does not exist keeps the
 resize aligner, as in the JAX package.
 
-Not in this slice (each raises NotImplementedError): checkpoint loading
-(`weights_path`; the training slices), test-time augmentation, GradCAM,
-and `predict` with its overlay drawing (the JAX package draws with cv2).
+`enable_gradcam` makes `analyze_face` return a GradCAM heatmap
+(models/gradcam.py) of an EfficientNet backbone's aligned face, None for
+the ViT and Xception backbones. `use_tta` averages the prediction over
+`num_tta_augmentations` faces: the face itself, then flips, brightness
+scales and small rotations drawn as the JAX package draws them, from a
+random.Random that the detector owns, seeded with `seed`, and applied
+cv2-exact on the host (ops/warp.py).
+
+Not in this slice (it raises NotImplementedError): `predict` with its
+overlay drawing (the JAX package draws with cv2).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import random
 import warnings
 from typing import Dict, Optional, Union
 
@@ -45,14 +53,15 @@ import torch
 from ..core.config import DetectorConfig
 from ..core.device import resolve_device
 from ..models import backbones
+from ..models.efficientnet import EfficientNet
 from ..models.mtcnn import MTCNNAligner
-from ..ops import forensics
+from ..ops import forensics, warp
 from ..ops.clahe import clahe_u8_numpy
 from ..ops.color import bgr_to_gray_u8, lab_to_rgb_u8_op_by_op, rgb_to_lab_u8_op_by_op
 from ..state.forensic_state import ForensicState, forensic_state_init_batch, forensic_state_reset
 from ..state.tracker import TemporalTracker
 from ..utils.host_resize import resize_analysis
-from .classify import apply_small_face_heuristic, classify_batch
+from .classify import apply_small_face_heuristic, classify_batch, preprocess_aligned
 from .faces import FaceDetector
 
 
@@ -126,11 +135,6 @@ class DeepfakeDetector:
                  face_weight: Optional[float] = None,
                  forensic_weight: Optional[float] = None,
                  device: Optional[Union[str, torch.device]] = None, seed: int = 0):
-        if enable_gradcam:
-            raise NotImplementedError("enable_gradcam: GradCAM comes with a later slice")
-        if cfg.use_tta if use_tta is None else use_tta:
-            raise NotImplementedError("use_tta: test-time augmentation comes with a "
-                                      "later slice")
         if detection_threshold is not None:
             cfg = cfg.with_threshold(detection_threshold)
         # the reference ctor takes the fusion weights; fold them into cfg, the
@@ -144,9 +148,11 @@ class DeepfakeDetector:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.spec = spec if spec is not None else backbones.make("b0")
-        self.use_tta = False
+        self.enable_gradcam = enable_gradcam
+        self.last_gradcams = []   # (bbox, heatmap) pairs, filled by predict
+        self.use_tta = cfg.use_tta if use_tta is None else use_tta
         self.num_tta_augmentations = num_tta_augmentations
-        self.enable_gradcam = False
+        self._tta_rng = random.Random(seed)
         self.detection_threshold = cfg.detection_threshold
         model = backbones.build_model(self.spec, generator=torch.Generator().manual_seed(seed))
         # without parameters the reference falls back to ImageNet weights
@@ -280,15 +286,22 @@ class DeepfakeDetector:
             fake_prob, h, w, self.cfg.small_face_px, self.cfg.small_face_boost)
 
     def analyze_face(self, face_bgr: np.ndarray):
-        """(fake_prob, fake_prob, None) or (None, None, None)
-        (deepfake_detection.py:517-550)."""
+        """(fake_prob, fake_prob, gradcam) or (None, None, None)
+        (deepfake_detection.py:517-550). `gradcam` is a (224, 224) float
+        heatmap in [0, 1] when `enable_gradcam` is set and the backbone is
+        an EfficientNet, else None."""
         try:
-            fake_prob = self._single_prediction(preprocess_face_quality(face_bgr))
+            preprocessed = preprocess_face_quality(face_bgr)
+            if self.use_tta:
+                fake_prob = self._tta_prediction(preprocessed)
+            else:
+                fake_prob = self._single_prediction(preprocessed)
             if fake_prob is None:
                 return None, None, None
             fake_prob = self.apply_calibration(fake_prob)
             fake_prob = self.apply_heuristics(fake_prob, face_bgr)
-            return fake_prob, fake_prob, None
+            cam = self._gradcam(preprocessed) if self.enable_gradcam else None
+            return fake_prob, fake_prob, cam
         except Exception as e:
             # the reference falls back to forensic-only (:548-550); a lasting
             # failure changes every verdict, so say so the first time
@@ -297,6 +310,45 @@ class DeepfakeDetector:
                 warnings.warn("face analysis failed; verdicts degrade to forensic-only "
                               f"until the cause clears: {e!r}", RuntimeWarning, stacklevel=2)
             return None, None, None
+
+    def _gradcam(self, preprocessed_bgr: np.ndarray) -> Optional[np.ndarray]:
+        """Heatmap over the aligned face the classifier saw; None for a
+        backbone that is not an EfficientNet (models/gradcam.py knows only
+        its layers) or when the aligner finds no face."""
+        if not isinstance(self.model, EfficientNet):
+            return None
+        aligned = self.aligner(preprocessed_bgr)
+        if aligned is None:
+            return None
+        from ..models.gradcam import gradcam
+        x = preprocess_aligned(torch.from_numpy(aligned)[None].to(self.device),
+                               self.cfg.model_input_size)
+        return gradcam(self.model, x)[0].cpu().numpy()
+
+    def _tta_prediction(self, face_bgr: np.ndarray) -> Optional[float]:
+        """Test-time augmentation (deepfake_detection.py:408-443): the mean
+        prediction over the face and num_tta_augmentations - 1 augmented
+        copies, each flipped with probability 1/2, scaled in brightness by
+        uniform(0.9, 1.1) and rotated about its centre by uniform(-3, 3)
+        degrees, drawn in the JAX package's order."""
+        preds = []
+        p = self._single_prediction(face_bgr)
+        if p is not None:
+            preds.append(p)
+        rng = self._tta_rng
+        for _ in range(self.num_tta_augmentations - 1):
+            aug = face_bgr
+            if rng.random() > 0.5:
+                aug = warp.flip_horizontal(aug)
+            aug = warp.convert_scale_abs(aug, rng.uniform(0.9, 1.1))
+            angle = rng.uniform(-3, 3)
+            h, w = aug.shape[:2]
+            aug = warp.warp_affine_linear(
+                aug, warp.rotation_matrix_2d((w / 2, h / 2), angle, 1.0), (w, h))
+            p = self._single_prediction(aug)
+            if p is not None:
+                preds.append(p)
+        return float(np.mean(preds)) if preds else None
 
     def predict(self, frame_bgr: np.ndarray):
         """The reference's library entry point draws its overlays with cv2;

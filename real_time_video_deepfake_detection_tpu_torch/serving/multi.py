@@ -34,11 +34,13 @@ DetectorConfig.mtcnn_device in device-detect mode. With
 DetectorConfig.clip_window > 0 (BASELINE config 5) every tick pushes the
 backbone's pooled features into a per-stream ring and the clip-attention
 head's verdict replaces the majority vote; responses then carry
-clip_probability and clip_frames. Not in this slice (it raises
-NotImplementedError): the scaled decode. The JAX
-engine's one-call native prep of host-prep mode (libjpeg plus host C) is
-not ported: `analyze_jpeg` decodes with the port's decoder and calls
-`analyze`.
+clip_probability and clip_frames. In host-prep mode
+`analyze_jpeg` takes the JAX engine's route: where the prep it would run
+is the heuristic face rung, the resize aligner and the host CLAHE
+(`_native_prep_eligible`), one GIL-free host call does the whole of it
+(utils/native_prep.prep_frame, csrc/prep_host.cpp); otherwise it decodes
+with the port's decoder and calls `analyze`. Not in this slice (it raises
+NotImplementedError): the scaled decode.
 """
 
 from __future__ import annotations
@@ -75,6 +77,7 @@ from ..utils.jpeg_ingest import (
     WIRE_PLANES, JpegError, decode_coefs_batch, decode_jpeg, decode_wire_into, log_refusal,
     reconstruct, wire_buffer, wire_views,
 )
+from ..utils.native_prep import prep_frame
 from .batcher import (
     StreamStates, clip_head_spec, device_step_compact, init_stream_states,
     make_device_step_detect, make_device_step_detect_wire, reset_streams,
@@ -247,6 +250,7 @@ class MultiStreamEngine:
         # the resize aligner's crops are integer-valued, so they travel as
         # u8; MTCNN's are fractional and keep float32
         self._faces_dtype = np.float32 if mtcnn else np.uint8
+        self._haar_probe = None   # the face ladder's effective rung, probed once
         if (cfg.clahe_device and mtcnn
                 and not (server_cfg.device_detect and cfg.mtcnn_device)):
             # (an mtcnn_device tick CLAHEs the crop before its cascade)
@@ -490,18 +494,52 @@ class MultiStreamEngine:
 
     # --------------------------------------------------------------- intake
 
+    def _native_prep_eligible(self) -> bool:
+        """The one-call host prep (utils/native_prep.prep_frame) reproduces
+        exactly: heuristic detection + resize aligner + host CLAHE. It is
+        used only when the ladder's effective rung is the heuristic (no SSD
+        weights and no cascade XML, or face_backend="heuristic"); otherwise
+        the Python path runs the real detector, so /analyze always behaves
+        as analyze does."""
+        if self._detect_steps is not None:   # detection runs in the tick
+            return False
+        if type(self.aligner) is not _ResizeAligner:
+            return False
+        if self.cfg.clahe_device:   # the one-call prep applies host CLAHE
+            return False
+        fd = self.face_detector
+        if not isinstance(fd, FaceDetector):
+            return False
+        if self._haar_probe is None:
+            self._haar_probe = fd.backend
+        return self._haar_probe == "heuristic"
+
     def analyze_jpeg(self, data: bytes, stream_id: str = "default",
                      timeout: float = 60.0) -> dict:
         """JPEG bytes in, response out. Device-detect mode: enqueue the raw
         bytes; the batcher decodes the whole tick's JPEGs in one pooled call
-        (request threads do no image work). Host-prep mode: decode here
-        (utils/jpeg_ingest.decode_jpeg), then analyze(). A stream the
-        decoder refuses gives {"error": "Invalid image format", "status":
-        400}."""
+        (request threads do no image work). Host-prep mode: decode, resize,
+        detect, CLAHE and align in one GIL-free host call when
+        `_native_prep_eligible`, else decode here (utils/jpeg_ingest.
+        decode_jpeg), then analyze(). A stream the decoder refuses gives
+        {"error": "Invalid image format", "status": 400}."""
         if self._detect_steps is None:
-            frame = decode_jpeg(data)
-            return dict(_INVALID_IMAGE) if frame is None else self.analyze(
-                frame, stream_id, timeout)
+            if not self._native_prep_eligible():
+                frame = decode_jpeg(data)
+                return dict(_INVALID_IMAGE) if frame is None else self.analyze(
+                    frame, stream_id, timeout)
+            t0 = time.time()
+            r = prep_frame(data, self.cfg.forensic.analysis_size, self.cfg.mtcnn_image_size)
+            if r is None:
+                return dict(_INVALID_IMAGE)
+            frame256, aligned, box = r
+            slot = self.slot_for(stream_id)
+            if aligned is not None and self._faces_dtype == np.float32:
+                aligned = aligned.astype(np.float32)
+            return self._enqueue(_Pending(
+                stream_slot=slot, stream_id=stream_id, frame_256=frame256, face_raw=aligned,
+                face_hw=(box[3], box[2]) if box else (0, 0), faces_detected=1 if box else 0,
+                bbox=box, t_start=t0), timeout)
         t0 = time.time()
         slot = self.slot_for(stream_id)
         dims = _jpeg_dims(data)

@@ -22,16 +22,23 @@ def csrc(name: str) -> str:
     return os.path.join(_PKG_DIR, "csrc", name)
 
 
-def build_host_library(src: str, flags: Sequence[str], stem: str) -> str:
+def build_host_library(src: str, flags: Sequence[str], stem: str,
+                       includes: Sequence[str] = ()) -> str:
     """Compile `src` with `g++ <flags>` (when needed) and return the path
-    of the shared library. A library built with -march=native is also keyed
-    by the host's name: a copy of the tree on another machine, whose CPU
-    may lack the instructions it uses, builds its own."""
+    of the shared library. `includes` names the sources that `src`
+    #includes, which key the library as `src` does. A library built with
+    -march=native is also keyed by the host's name: a copy of the tree on
+    another machine, whose CPU may lack the instructions it uses, builds
+    its own."""
     key = " ".join(flags)
     if "-march=native" in flags:
         key += " " + platform.node()
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + key.encode()).hexdigest()[:16]
+    h = hashlib.sha256()
+    for path in (src, *includes):
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    h.update(key.encode())
+    digest = h.hexdigest()[:16]
     out_dir = os.path.join(os.path.dirname(_PKG_DIR), ".build", f"{stem}_{digest}")
     lib_path = os.path.join(out_dir, f"lib{stem}.so")
     if os.path.exists(lib_path):

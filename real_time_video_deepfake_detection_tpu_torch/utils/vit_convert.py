@@ -12,8 +12,9 @@ Why the spec flips for donor weights:
     into the spec
   - HF hidden_act "gelu" is the exact erf GELU, as models/vit.py uses
 
-This module does not import transformers: `from_transformers` takes any
-object with `.config` and `.state_dict()`.
+`from_transformers` takes any object with `.config` and `.state_dict()`;
+only `from_pretrained`, which reads a local checkpoint directory, imports
+transformers.
 """
 
 from __future__ import annotations
@@ -95,3 +96,10 @@ def from_transformers(model) -> Tuple[Dict[str, torch.Tensor], ViTSpec]:
         num_layers=cfg.num_hidden_layers, num_heads=cfg.num_attention_heads,
         patch=cfg.patch_size, image_size=cfg.image_size, mlp_dim=cfg.intermediate_size,
         ln_eps=cfg.layer_norm_eps)
+
+
+def from_pretrained(path: str) -> Tuple[Dict[str, torch.Tensor], ViTSpec]:
+    """A local transformers ViT directory (save_pretrained) -> (state dict,
+    spec); transformers is imported here only."""
+    from transformers import ViTModel
+    return from_transformers(ViTModel.from_pretrained(path))

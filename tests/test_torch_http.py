@@ -260,9 +260,6 @@ def test_batched_app_matches_jax(models, ssd, jnp_lab, monkeypatch, mode):
     else:
         cj, ct = _cfgs(face_backend="heuristic")
         ekw_j, ekw_t = {}, {}
-        # the JAX engine's one-call native prep (libjpeg + native Lab) is not
-        # ported: take its decode-then-analyze route, the port's
-        monkeypatch.setattr(JM.MultiStreamEngine, "_native_prep_eligible", lambda self: False)
     je = JM.MultiStreamEngine(cj, JSC(**skw), params=pj, spec=spec_j, **ekw_j)
     te = TM.MultiStreamEngine(ct, TSC(**skw), params=params_from_jax(pj), spec=spec_t,
                               device="cpu", **ekw_t)

@@ -58,6 +58,38 @@ def test_serving_imports_no_training_module():
     assert r.returncode == 0, r.stderr[-2000:]
 
 
+def test_serving_and_detector_load_neither_keras_nor_transformers():
+    """The donor converters import keras and transformers inside their file
+    loaders only; serving and the detector never load them."""
+    code = (
+        "import sys\n"
+        "import real_time_video_deepfake_detection_tpu_torch.serving.server\n"
+        "import real_time_video_deepfake_detection_tpu_torch.serving.multi\n"
+        "import real_time_video_deepfake_detection_tpu_torch.pipeline.detector\n"
+        "import real_time_video_deepfake_detection_tpu_torch.models.gradcam\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('keras', 'tensorflow', 'transformers')]\n"
+        "assert not bad, bad[:5]\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=REPO))
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
+def test_every_port_module_imports_without_keras_or_transformers():
+    mods = _port_modules()
+    code = (
+        "import sys, importlib\n"
+        "for blocked in ('keras', 'tensorflow', 'transformers'):\n"
+        "    sys.modules[blocked] = None\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=REPO))
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
 _JAX_PKG_IMPORT = re.compile(
     r"^\s*(from|import)\s+(jax\b|real_time_video_deepfake_detection_tpu(?!_torch)\b"
     r"|cv2\b|PIL\b)", re.MULTILINE)
