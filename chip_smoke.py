@@ -153,14 +153,36 @@ in phases, each printing one JSON line:
               cli/bench.bench_e2e in host-prep mode at 64 clients through
               the one-call prep and through decode -> analyze, in turns
               (the preprocess and hue kernels launched in each)
- 16. bench    the port's serving benchmark (cli/bench.py): its main, the
+ 16. sharded  data parallelism on the one card: (a) the serving tick
+              sharded over the mesh [cuda:0, cuda:0]
+              (make_sharded_device_step) at 64 streams, full-size B0,
+              every kernel's flag on, against the unsharded dense tick:
+              outputs and states over 2 ticks (floats within 1e-4 of
+              their largest magnitude, the rest exactly), each kernel
+              launched once per shard and tick, both ticks timed in turns
+              and profiled; (b) make_sharded_device_step_detect on that
+              mesh with clahe_device, the coef plane of the 480x640
+              fixtures, the MTCNN cascade (seeded weights that do not
+              saturate) at 64 streams, and vit_b16 in clip mode at 16,
+              each against the unsharded compact tick with identity
+              slots, launches per shard and tick checked, the bgr pair
+              timed in turns; (c) make_sharded_train_step on 2 gloo ranks
+              spawned on cuda:0 (parallel/mesh.spawn, a timeout; nccl
+              refuses two ranks on one card), B0 at 224, global batch 32,
+              against the one-process fused_train_step from the same seed
+              and draws: losses within 1e-5, parameters, statistics and
+              EMA within atol 2e-5 and rtol 2e-4, the ranks alike bit for
+              bit; each version's step wall ms
+ 17. bench    the port's serving benchmark (cli/bench.py): its main, the
               timed windows cut to 4, prints its one JSON line (the MTCNN
               core and the SSD-bf16 guard in it); each function's dict on a
               line of its own, every kernel launched, all four in every
               detect tick (the hue kernel in every full-forensic one) and
               the f32 preprocess entry in every MTCNN tick
 
-then a `{"kernels": [...]}` line (launches: the wire phase's coef run) and, last, `{"ok": true, "device": ...}`.
+then a `{"kernels": [...]}` line (launches: the wire phase's coef run;
+launches_sharded_tick: one sharded serving tick of two shards) and, last,
+`{"ok": true, "device": ...}`.
 Any failed phase makes it exit non-zero without the last line. It needs a
 CUDA device and the repository checkout around it.
 
@@ -3217,13 +3239,342 @@ def phase_bench(ctx):
                     for r in by_name["bench_e2e"]]}
 
 
+# ------------------------------------------------------------ sharded
+
+SHARD_MESH = ("cuda:0", "cuda:0")   # two shards on the one card
+DP_BATCH, DP_STEPS, DP_TIMED = 32, 2, 5
+
+
+def _same_outputs(what, want, got, want_states, got_states, n, only_face=False):
+    """The unsharded tick's outputs (and the first n rows of its states)
+    against the sharded tick's, gathered: floats within _float_tol,
+    integers, flags and verdicts exactly; face_probability on face rows
+    alone when `only_face` (the cascade's rejects hold no face). Returns
+    the largest float difference."""
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.state.tree import tree_leaves
+    face = want["has_face"].cpu() if only_face else None
+    pairs = [(k, want[k], got[k]) for k in want]
+    pairs += [(f"state{i}", a[:n], g) for i, (a, g) in
+              enumerate(zip(tree_leaves(want_states), tree_leaves(got_states)))]
+    if set(want) != set(got):
+        raise AssertionError(f"{what}: keys {sorted(want)} against {sorted(got)}")
+    worst = 0.0
+    for k, a, g in pairs:
+        a, g = a.cpu(), g.cpu()
+        if k == "face_probability" and face is not None:
+            a, g = a[face], g[face]
+        if a.dtype.is_floating_point:
+            d = float((a - g).abs().max()) if a.numel() else 0.0
+            worst = max(worst, d)
+            if not d <= _float_tol(a):
+                raise AssertionError(f"{what} {k}: max abs diff {d} > {_float_tol(a)}")
+        elif not torch.equal(a, g):
+            raise AssertionError(f"{what} {k}: {int((a != g).sum())} values differ")
+    return worst
+
+
+def _check_sharded_launches(what, launches, entries, ticks, f32_entry=False):
+    """Each kernel launched once per shard and tick."""
+    want = len(SHARD_MESH) * ticks
+    got = dict(launches, **({"preprocess_faces_f32": entries["preprocess_faces_f32"]}
+                            if f32_entry else {}))
+    if any(v != want for v in got.values()):
+        raise AssertionError(f"{what}: launches {got}, want {want} of each "
+                             f"({len(SHARD_MESH)} shards x {ticks} ticks)")
+    return got
+
+
+def _in_turns(fns, n=10):
+    """Event ms of each named fn, in turns a, b, b, a: {name: [ms, ms]}."""
+    names = list(fns)
+    out = {k: [] for k in names}
+    for k in names + names[::-1]:
+        out[k].append(time_cuda(fns[k], n=n, warmup=2))
+    return out
+
+
+def _sharded_serving(ctx, b=64, ticks=2):
+    """(a) make_sharded_device_step over two shards of cuda:0 against the
+    unsharded dense tick (_step_core) at 64 streams, full-size B0 at 224,
+    every kernel's flag on (u8 faces, clahe_device): outputs and states
+    tick by tick; launches per shard; the two ticks' times in turns."""
+    import numpy as np
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.models import backbones
+    from real_time_video_deepfake_detection_tpu_torch.ops.resize import resize_bilinear_u8_cv2
+    from real_time_video_deepfake_detection_tpu_torch.parallel import mesh as P
+    from real_time_video_deepfake_detection_tpu_torch.serving.batcher import (
+        _step_core, init_stream_states, make_sharded_device_step)
+    cfg = _detect_cfg()
+    model = backbones.build_model(backbones.make("b0")).eval()
+    model.load_state_dict(backbone_state(ctx))
+    model = model.cuda()
+    rng = np.random.default_rng(SEED + 11)
+    ticks_in = []
+    for t in range(ticks):
+        cap = torch.from_numpy(np.stack([_synthetic_frame(rng, i % 2 == 0, t)
+                                         for i in range(b)])).cuda()
+        faces = cap[:, 160:320, 240:400].flip(-1).contiguous()
+        ticks_in.append((resize_bilinear_u8_cv2(cap, 256, 256), faces,
+                         torch.from_numpy(rng.random(b) < 0.7).cuda(),
+                         torch.from_numpy(rng.integers(60, 200, (b, 2)).astype(np.int32)).cuda(),
+                         torch.from_numpy(rng.random(b) < 0.9).cuda()))
+    mesh = P.Mesh(SHARD_MESH)
+    step = make_sharded_device_step(mesh, model, cfg)
+    st_one = init_stream_states(b, cfg, "cuda")
+    st_sh = P.shard_batch(mesh, init_stream_states(b, cfg, "cuda"))
+    worst = 0.0
+    for t, x in enumerate(ticks_in):
+        out_one, st_one = _step_core(model, cfg, *x, st_one)
+        torch.cuda.synchronize()
+        _reset_launches()
+        outs, st_sh = step(*x, st_sh)
+        torch.cuda.synchronize()
+        launches = _check_sharded_launches("serving tick", _read_launches(),
+                                           _read_entry_launches(), 1)
+        worst = max(worst, _same_outputs(f"serving tick {t}", out_one, P.gather(outs),
+                                         st_one, P.gather(st_sh), b))
+    x = ticks_in[-1]
+    shards = [P.shard_batch(mesh, a) for a in x]
+    fns = {"unsharded": lambda: _step_core(model, cfg, *x, st_one),
+           "sharded_2": lambda: step(*shards, st_sh)}
+    return {"streams": b, "ticks_compared": ticks, "max_float_diff": worst,
+            "tolerance": "1e-4 of each tensor's largest magnitude",
+            "launches_per_tick": launches, "tick_event_ms": _in_turns(fns),
+            "profiles": {k: _profiled(fn) for k, fn in fns.items()}}
+
+
+def _sharded_detect_form(ctx, form, net, b, ticks):
+    """One form of (b): the sharded detect tick over two shards of cuda:0
+    against the unsharded compact tick (make_device_step_detect, identity
+    slots) on the same inputs; launches per shard of the sharded ticks."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.models import backbones
+    from real_time_video_deepfake_detection_tpu_torch.models.mtcnn import build_nets
+    from real_time_video_deepfake_detection_tpu_torch.parallel import mesh as P
+    from real_time_video_deepfake_detection_tpu_torch.serving.batcher import (
+        init_stream_states, make_device_step_detect, make_device_step_detect_wire,
+        make_sharded_device_step_detect)
+    from real_time_video_deepfake_detection_tpu_torch.utils import jpeg_ingest as J
+    cfg, mtcnn, wire = _detect_cfg(), None, {}
+    if form == "mtcnn":
+        cfg = dataclasses.replace(cfg, mtcnn_device=True)
+        mtcnn = build_nets(_mtcnn_weights(), "cuda")
+    if form == "clip_vit_b16":
+        cfg = _clip_cfg("vit_b16")
+        model = _clip_models(ctx, "vit_b16", cfg, "cuda")
+    else:
+        model = backbones.build_model(backbones.make("b0")).eval()
+        model.load_state_dict(backbone_state(ctx))
+        model = model.cuda()
+    if form == "coef":
+        wire = {"wire": "coef", "capture_hw": (480, 640)}
+        datas = [_jpegs()[0][WIRE_JPEGS[i % 3]] for i in range(b)]
+        plane = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                 for a in J.decode_coefs_wire_batch(datas, 480, 640)[:3]]
+        inputs = [plane] * ticks
+        one = make_device_step_detect_wire(net, model, cfg, "coef", (480, 640), mtcnn)
+    else:
+        _, frames = _capture_frames(b, ticks, net)
+        inputs = [[torch.from_numpy(np.stack([frames[s][t] for s in range(b)])).cuda()]
+                  for t in range(ticks)]
+        one = make_device_step_detect(net, model, cfg, mtcnn)
+    sharded = make_sharded_device_step_detect(P.Mesh(SHARD_MESH), net, model, cfg, mtcnn,
+                                              **wire)
+    active = torch.ones(b, dtype=torch.bool, device="cuda")
+    slot_idx = torch.arange(b, dtype=torch.int32, device="cuda")
+    st_one = init_stream_states(b + 1, cfg, "cuda")
+    st_sh = init_stream_states(b, cfg, "cuda")
+    worst, faces, launches = 0.0, 0, {}
+    for t, x in enumerate(inputs):
+        out_one, st_one = one(*x, active, slot_idx, st_one)
+        torch.cuda.synchronize()
+        _reset_launches()
+        outs, st_sh = sharded(*x, active, st_sh)
+        torch.cuda.synchronize()
+        launches = _check_sharded_launches(f"{form} tick", _read_launches(),
+                                           _read_entry_launches(), 1, form == "mtcnn")
+        got = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+        worst = max(worst, _same_outputs(f"{form} tick {t}", out_one, got, st_one,
+                                         P.gather(st_sh), b, form == "mtcnn"))
+        faces += int(got["has_face"].sum())
+    res = {"streams": b, "ticks_compared": ticks, "max_float_diff": worst,
+           "face_rows": faces, "launches_per_tick": launches}
+    if form == "bgr_clahe":
+        x = inputs[-1]
+        res["tick_event_ms"] = _in_turns({
+            "unsharded": lambda: one(*x, active, slot_idx, st_one),
+            "sharded_2": lambda: sharded(*x, active, st_sh)})
+    return res
+
+
+def _sharded_detect(ctx):
+    """(b) The sharded detect tick in four forms, each against its
+    unsharded tick on the card."""
+    from real_time_video_deepfake_detection_tpu_torch.models.caffe_net import CaffeNet
+    net = CaffeNet(*_ssd_files(ctx)).cuda().eval()
+    out = {}
+    for form, b in (("bgr_clahe", 64), ("coef", 64), ("mtcnn", 64), ("clip_vit_b16", 16)):
+        out[form] = _sharded_detect_form(ctx, form, net, b, 2)
+    if out["bgr_clahe"]["face_rows"] == 0 or out["mtcnn"]["face_rows"] == 0:
+        raise AssertionError("the sharded detect ticks found no face")
+    return out
+
+
+def _dp_state(device):
+    """Full-size B0 at 224 with TrainConfig's defaults, seeded, its train
+    state on `device`."""
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.core.config import TrainConfig
+    from real_time_video_deepfake_detection_tpu_torch.models import backbones
+    from real_time_video_deepfake_detection_tpu_torch.train import steps
+    spec = backbones.make("b0")
+    model = backbones.build_model(spec, torch.Generator().manual_seed(SEED)).to(device)
+    return steps.init_train_state(model, spec, TrainConfig(batch_size=DP_BATCH),
+                                  total_steps=1000, seed=SEED)
+
+
+def _dp_steps(state, step, imgs, labels, device):
+    """DP_STEPS compared steps, then DP_TIMED timed ones: (metrics, wall ms
+    of each timed step, the state's leaves after the compared steps)."""
+    import torch
+    metrics = [{k: float(v) for k, v in step(state, imgs, labels).items()}
+               for _ in range(DP_STEPS)]
+    after = ({k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()},
+             {k: v.detach().cpu().clone() for k, v in state.ema.items()})
+    walls = []
+    for _ in range(DP_TIMED):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        step(state, imgs, labels)
+        torch.cuda.synchronize(device)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return metrics, walls, after
+
+
+def _dp_rank(device, crops):
+    """One rank of (c): its shard of the global batch `crops` (numpy)
+    through make_sharded_train_step(fused_train_step)."""
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.parallel import mesh as P
+    from real_time_video_deepfake_detection_tpu_torch.train import steps
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    state = _dp_state(device)
+    b = DP_BATCH // P.world_size()
+    rows = slice(P.rank() * b, (P.rank() + 1) * b)
+    imgs = torch.from_numpy(crops[rows]).to(device)
+    labels = torch.tensor([0.0, 1.0] * (DP_BATCH // 2))[rows].to(device)
+    metrics, walls, (model, ema) = _dp_steps(
+        state, steps.make_sharded_train_step(steps.fused_train_step), imgs, labels, device)
+    return {"rank": P.rank(), "device": str(device), "metrics": metrics, "walls_ms": walls,
+            "model": model, "ema": ema}
+
+
+def _dp_train(ctx):
+    """(c) make_sharded_train_step on 2 gloo ranks that both sit on cuda:0
+    (nccl refuses two ranks on one card) against the one-process
+    fused_train_step on the card, same seed and so the same draws: losses
+    within 1e-5, parameters, statistics and EMA within atol 2e-5 and rtol
+    2e-4 (a leaf of rounding-noise gradient within its Adam bound, the head
+    means it feeds within 0.3 of it), weight deltas within 1e-2; the ranks
+    alike bit for bit; then each version's step wall ms."""
+    import numpy as np
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.parallel import mesh as P
+    from real_time_video_deepfake_detection_tpu_torch.train import steps
+    crops = _train_crops(DP_BATCH, 244, SEED)
+    t0 = time.time()
+    # the ranks share the host's cores
+    ranks = P.spawn(_dp_rank, list(SHARD_MESH), args=(crops,), backend="gloo", timeout=600,
+                    num_threads=max(1, (os.cpu_count() or 2) // len(SHARD_MESH)))
+    spawn_s = time.time() - t0
+    state = _dp_state("cuda")
+    init = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+    imgs = torch.from_numpy(crops).cuda()
+    labels = torch.tensor([0.0, 1.0] * (DP_BATCH // 2)).cuda()
+    null = set()
+
+    def first(st, x, y):
+        m = steps.fused_train_step(st, x, y)
+        if not null:
+            null.update(n for n, p in st.model.named_parameters()
+                        if p.grad is not None and float(p.grad.norm()) < 1e-6)
+        return m
+
+    metrics, walls, (model, ema) = _dp_steps(state, first, imgs, labels, "cuda")
+    r0, r1 = ranks
+    for k in r0["model"]:
+        if not torch.equal(r0["model"][k], r1["model"][k]):
+            raise AssertionError(f"train (c): the ranks' {k} differ")
+    loss_diff = max(abs(a["loss"] - m["loss"]) for a, m in zip(r0["metrics"], metrics))
+    if loss_diff > 1e-5 or any(a["accuracy"] != m["accuracy"]
+                               for a, m in zip(r0["metrics"], metrics)):
+        raise AssertionError(f"train (c): DP {r0['metrics']} one process {metrics}")
+    lr_sum = sum(state.sched(i) for i in range(DP_STEPS))
+    worst = {"value": 0.0, "delta_rel": 0.0, "noise": 0.0}
+    for k, v in model.items():
+        got = r0["model"][k]
+        if k in null:
+            worst["noise"] = max(worst["noise"], float((got - init[k]).abs().max()))
+            if worst["noise"] > 1.5 * lr_sum:
+                raise AssertionError(f"train (c): {k} moved past its Adam bound")
+            continue
+        fed = (k.startswith("fc.bn") and k.endswith(".mean")
+               and k.replace("bn", "fc").replace(".mean", ".b") in null)
+        np.testing.assert_allclose(got.numpy(), v.numpy(), rtol=2e-4,
+                                   atol=0.3 * lr_sum if fed else 2e-5, err_msg=k)
+        worst["value"] = max(worst["value"], float((got - v).abs().max()))
+        if v.dtype.is_floating_point and not torch.equal(v, init[k]) and \
+                not (k.endswith(".mean") or k.endswith(".var")):
+            d, w = got - init[k], v - init[k]
+            rel = float((d - w).norm() / w.norm())
+            worst["delta_rel"] = max(worst["delta_rel"], rel)
+            if rel > 1e-2:
+                raise AssertionError(f"train (c): {k} delta differs by {rel} (relative)")
+    for k, v in ema.items():
+        tol = 1.5 * lr_sum if k in null else 2e-5
+        np.testing.assert_allclose(r0["ema"][k].numpy(), v.numpy(), rtol=2e-4, atol=tol,
+                                   err_msg=f"ema {k}")
+    return {"global_batch": DP_BATCH, "ranks": [r["device"] for r in ranks],
+            "backend": "gloo", "steps_compared": DP_STEPS, "loss_max_abs_diff": loss_diff,
+            "losses": [m["loss"] for m in metrics], "max_abs_diff": worst,
+            "noise_gradient_leaves": len(null),
+            "step_wall_ms": {"one_process": walls, "dp_rank0": r0["walls_ms"],
+                             "dp_rank1": r1["walls_ms"]},
+            "step_wall_ms_median": {"one_process": statistics.median(walls),
+                                    "dp": statistics.median(r0["walls_ms"])},
+            "spawn_and_run_seconds": spawn_s}
+
+
+def phase_sharded(ctx):
+    """The stream-sharded ticks and data-parallel training on the one card:
+    (a) the serving tick, (b) the detect tick in four forms, (c) the
+    2-rank training step."""
+    t0 = time.time()
+    serving = _sharded_serving(ctx)
+    t1 = time.time()
+    detect = _sharded_detect(ctx)
+    t2 = time.time()
+    train = _dp_train(ctx)
+    ctx["sharded_launches"] = serving["launches_per_tick"]
+    return {"mesh": list(SHARD_MESH), "card": ctx["smi"], "serving": serving,
+            "detect": detect, "train": train,
+            "part_seconds": {"serving": t1 - t0, "detect": t2 - t1,
+                             "train": time.time() - t2}}
+
+
 PHASES = (("device", phase_device), ("build", phase_build),
           ("kernels", phase_kernels), ("serve", phase_serve),
           ("parity", phase_parity), ("detect-serve", phase_detect_serve),
           ("detect-parity", phase_detect_parity), ("decode", phase_decode),
           ("http", phase_http), ("wire", phase_wire), ("haar", phase_haar),
           ("mtcnn", phase_mtcnn), ("clip", phase_clip), ("train", phase_train),
-          ("detector", phase_detector), ("bench", phase_bench))
+          ("detector", phase_detector), ("sharded", phase_sharded),
+          ("bench", phase_bench))
 
 
 def main() -> int:
@@ -3270,7 +3621,9 @@ def main() -> int:
     kernels = []
     for k, v in ctx["kernels"].items():
         kernels.append({key: v[key] for key in (
-            "name", "route", "source", "replaces")} | {"launches": ctx["launches"][k]}
+            "name", "route", "source", "replaces")} | {"launches": ctx["launches"][k],
+                                                        "launches_sharded_tick":
+                                                        ctx["sharded_launches"][k]}
             | {key: v[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")})
     emit({"kernels": kernels, "card": ctx["smi"]})

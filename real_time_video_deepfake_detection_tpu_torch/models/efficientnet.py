@@ -14,8 +14,10 @@ active and hand back their new running statistics, which
 backbones.update_bn_stats writes into the buffers after the optimizer
 step (the JAX package's order); drop-connect in the skip blocks and the
 head's three dropouts apply masks drawn by `draw_masks` from an explicit
-generator. The public
-boundary is NHWC, as in the JAX package: `extract_features` takes
+generator. Inside a torch.distributed group of more than one rank (data-
+parallel training, train/steps.make_sharded_train_step) the batch
+statistics are those of the global batch, as under JAX's sharded jit. The
+public boundary is NHWC, as in the JAX package: `extract_features` takes
 (B, H, W, 3) normalized RGB. Inside, convolutions run NCHW through
 F.conv2d with TF-style SAME padding applied explicitly (asymmetric on
 stride-2 convs: the extra row/column goes after, as XLA's "SAME" does).
@@ -33,6 +35,8 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..parallel.mesh import world_size
 
 # (num_repeat, kernel, stride, expand_ratio, in_filters, out_filters)
 _B0_BLOCKS = [
@@ -141,13 +145,26 @@ class BNStats(list):
         self.momentum = momentum
 
 
+def _global_moments(x: torch.Tensor, dims, shape, n: int):
+    """(mean, biased variance, count) over every rank's x, each rank holding
+    n values per channel: two all-reduces that carry gradients (their
+    backward sums the ranks' gradients), the sum, then the sum of squared
+    deviations from the global mean."""
+    from torch.distributed.nn.functional import all_reduce
+    n = n * world_size()
+    mean = all_reduce(x.sum(dims)) / n
+    d = x - mean.view(shape)
+    return mean, all_reduce((d * d).sum(dims)) / n, n
+
+
 class BatchNorm(nn.Module):
     """Batch norm with the JAX package's formula and leaf names:
     (x - mean) * rsqrt(var + eps) * scale + bias over `channel_dim`. While
     `stats` holds a BNStats (models/backbones.collect_bn_stats) it
     normalises with the batch statistics (the biased variance) and appends
     the new running statistics, (1 - m) * old + m * batch with the unbiased
-    variance, as torch's BatchNorm does."""
+    variance, as torch's BatchNorm does. In a process group of more than
+    one rank, the batch is the global one: the ranks' equal shards."""
 
     def __init__(self, c: int, eps: float, momentum: float = _BN_MOMENTUM):
         super().__init__()
@@ -166,8 +183,11 @@ class BatchNorm(nn.Module):
             mean, var = self.mean, self.var
         else:
             dims = [d for d in range(x.ndim) if d != channel_dim % x.ndim]
-            mean, var = x.mean(dims), x.var(dims, correction=0)
             n = x.numel() // x.shape[channel_dim]
+            if world_size() > 1:
+                mean, var, n = _global_moments(x, dims, shape, n)
+            else:
+                mean, var = x.mean(dims), x.var(dims, correction=0)
             m = self.momentum if self.stats.momentum is None else self.stats.momentum
             self.stats.append((self, ((1 - m) * self.mean + m * mean).detach(),
                                ((1 - m) * self.var + m * (var * n / max(n - 1, 1))).detach()))

@@ -35,12 +35,17 @@ Clip mode (BASELINE config 5, DetectorConfig.clip_window > 0): every tick
 takes `model` as {"backbone": module, "clip_head": TemporalHead}, the JAX
 tick's params; the ring is StreamStates.clip, (N, clip_window,
 clip_feature_dim), and (N, 1, 1) when clip mode is off.
+
+make_sharded_device_step and make_sharded_device_step_detect run the dense
+tick over a device mesh (parallel/mesh.py): one contiguous shard of streams
+per mesh entry, each on its device with a model replica bound there.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -57,6 +62,7 @@ from ..ops import forensics
 from ..ops.color import lab_to_rgb_u8, rgb_to_lab_u8
 from ..ops.jpeg_decode import bgr_from_coefs_420, bgr_from_ycbcr420
 from ..ops.resize import crop_resize_u8_cv2, resize_bilinear_u8_cv2
+from ..parallel.mesh import Mesh, as_mesh, replicated, shard_batch
 from ..pipeline.classify import classify_features
 from ..state.forensic_state import ForensicState, forensic_state_init_batch
 from ..state.tracker import (
@@ -320,21 +326,19 @@ def _make_detect_prep(net: CaffeNet, cfg: DetectorConfig,
 
 
 @torch.no_grad()
-def _detect_tick(detect_prep, model, cfg: DetectorConfig,
-                 frames_capture_u8: torch.Tensor, active: torch.Tensor,
-                 slot_idx: torch.Tensor, states: StreamStates
-                 ) -> Tuple[Dict[str, torch.Tensor], StreamStates]:
-    """Compact-layout detect tick: detection, forensics, crop/align (and
-    CLAHE), classification and the tracker; slot-indexed state gather and
-    scatter with a dummy row for padding, as device_step_compact."""
+def _detect_tick(detect_prep, tick, frames_capture_u8: torch.Tensor, active: torch.Tensor,
+                 *rest) -> Tuple[Dict[str, torch.Tensor], StreamStates]:
+    """Detection, forensics, crop/align (and CLAHE), classification and the
+    tracker: detect_prep's outputs through `tick`, device_step_compact
+    (rest: slot_idx, states) or the dense _step_core (rest: states), with
+    the model and cfg bound."""
     (frames_256, faces_raw, has_face, face_hw, box,
      n_faces) = detect_prep(frames_capture_u8, active)
-    out, new_full = device_step_compact(model, cfg, frames_256, faces_raw, has_face,
-                                        face_hw, active, slot_idx, states)
+    out, new_states = tick(frames_256, faces_raw, has_face, face_hw, active, *rest)
     out["face_bbox"] = box
     out["has_face"] = has_face
     out["faces_detected"] = n_faces
-    return out, new_full
+    return out, new_states
 
 
 def make_device_step_detect(net: CaffeNet, model, cfg: DetectorConfig,
@@ -350,10 +354,10 @@ def make_device_step_detect(net: CaffeNet, model, cfg: DetectorConfig,
     the SSD's Caffe graph (models/caffe_net.CaffeNet); `mtcnn_nets`, the
     cascade's modules for cfg.mtcnn_device (MTCNNAligner.nets)."""
     detect_prep, step_cfg = _make_detect_prep(net, cfg, mtcnn_nets)
+    tick = functools.partial(device_step_compact, model, step_cfg)
 
     def step(frames_capture_u8, active, slot_idx, states):
-        return _detect_tick(detect_prep, model, step_cfg, frames_capture_u8, active,
-                            slot_idx, states)
+        return _detect_tick(detect_prep, tick, frames_capture_u8, active, slot_idx, states)
 
     return step
 
@@ -378,18 +382,108 @@ def make_device_step_detect_wire(net: CaffeNet, model, cfg: DetectorConfig,
     integer only, its output is clamped, and active=False masks every
     state update. With cfg.mtcnn_device the cascade follows the decode
     unchanged."""
+    n_wire, decode = _wire_decode(wire, capture_hw)
     detect_prep, step_cfg = _make_detect_prep(net, cfg, mtcnn_nets)
-    hc, wc = capture_hw
+    tick = functools.partial(device_step_compact, model, step_cfg)
 
+    def step(*args):
+        return _detect_tick(detect_prep, tick, decode(*args[:n_wire]), *args[n_wire:])
+
+    return step
+
+
+def _wire_decode(wire: str, capture_hw: Tuple[int, int]):
+    """(number of wire tensors, their decode to (B, Hc, Wc, 3) u8 BGR
+    frames) for an ingest plane."""
+    hc, wc = capture_hw
     if wire == "coef":
-        def step(coef_y, coef_c, qtab, active, slot_idx, states):
-            frames = bgr_from_coefs_420(coef_y, coef_c, qtab.to(torch.int32) & 0xFFFF, hc, wc)
-            return _detect_tick(detect_prep, model, step_cfg, frames, active, slot_idx,
-                                states)
-        return step
+        return 3, lambda coef_y, coef_c, qtab: bgr_from_coefs_420(
+            coef_y, coef_c, qtab.to(torch.int32) & 0xFFFF, hc, wc)
     if wire == "ycbcr420":
-        def step(y, c, active, slot_idx, states):
-            return _detect_tick(detect_prep, model, step_cfg, bgr_from_ycbcr420(y, c),
-                                active, slot_idx, states)
-        return step
+        return 2, bgr_from_ycbcr420
     raise ValueError(f"unknown ingest wire plane: {wire!r}")
+
+
+def _shards(mesh: Mesh, x) -> list:
+    """x as the mesh's shards: already a list of them, or split here."""
+    return list(x) if isinstance(x, (list, tuple)) else shard_batch(mesh, x)
+
+
+def _run_sharded(mesh: Mesh, per_device: dict, body, args) -> Tuple[list, list]:
+    """body(per_device[shard's device], *shard i of every arg) for each
+    shard, from this thread in mesh order (each launch is asynchronous on
+    its device's current stream). Returns (outputs, new states), one per
+    shard, left on their devices."""
+    split = [_shards(mesh, a) for a in args]
+    outs, states = [], []
+    for i, dev in enumerate(mesh.devices):
+        out, st = body(per_device[dev], *(a[i] for a in split))
+        outs.append(out)
+        states.append(st)
+    return outs, states
+
+
+def make_sharded_device_step(mesh, model, cfg: DetectorConfig):
+    """The serving tick sharded over a mesh (JAX make_sharded_device_step,
+    :528-551): the stream axis is split into one contiguous shard per mesh
+    entry, and each shard runs _step_core on its device with the model
+    replica there (parallel/mesh.replicated). There is no dataflow between
+    shards and no collective. Dense layout: row i of the states belongs to
+    stream i, and n_streams must divide by the mesh size.
+
+      step(frames_u8, faces_raw, has_face, face_hw, active, states)
+        -> ([out of each shard], [new states of each shard])
+
+    Each argument is a whole tensor (StreamStates for `states`), split
+    here, or the list of its shards from parallel/mesh.shard_batch; the
+    shards' outputs and states stay on their devices (mesh.gather joins
+    them), so the states can feed the next tick as they are. `mesh`: a
+    parallel/mesh.Mesh or a device list. In clip mode `model` is {"backbone",
+    "clip_head"}. JAX binds `params` at each call; the replicas here are
+    bound when the step is built."""
+    mesh = as_mesh(mesh)
+    replicas = replicated(mesh, model)
+
+    def step(*args):
+        return _run_sharded(mesh, replicas,
+                            lambda m, *a: _step_core(m, cfg, *a), args)
+
+    return step
+
+
+def make_sharded_device_step_detect(mesh, net: CaffeNet, model, cfg: DetectorConfig,
+                                    mtcnn_nets: Optional[Dict[str, nn.Module]] = None,
+                                    wire: Optional[str] = None,
+                                    capture_hw: Optional[Tuple[int, int]] = None):
+    """The capture-to-verdict tick sharded over a mesh (JAX
+    make_sharded_device_step_detect, :450-525): each shard of streams runs
+    the SSD, the forensics, crop/align (CLAHE, the MTCNN cascade) and the
+    classifier on its device, with replicas of `net`, `model` and
+    `mtcnn_nets` there (the bf16 copy of the SSD made per device with
+    cfg.ssd_bf16). Dense layout as make_sharded_device_step:
+
+      step(frames_capture_u8, active, states)            wire None
+      step(coef_y, coef_c, qtab, active, states)         wire="coef"
+      step(y, c, active, states)                         wire="ycbcr420"
+        -> ([out of each shard], [new states of each shard])
+
+    `out` holds the keys of make_device_step_detect's; a wire plane
+    (capture_hw = (Hc, Wc)) is decoded per shard on its device."""
+    mesh = as_mesh(mesh)
+    nets, models = replicated(mesh, net), replicated(mesh, model)
+    mtcnn = replicated(mesh, mtcnn_nets)
+    per_device = {}
+    for d in mesh.distinct:
+        detect_prep, step_cfg = _make_detect_prep(nets[d], cfg, mtcnn[d])
+        per_device[d] = (detect_prep, functools.partial(_step_core, models[d], step_cfg))
+    n_wire, decode = (0, None) if wire is None else _wire_decode(wire, capture_hw)
+
+    def body(parts, *args):
+        detect_prep, tick = parts
+        frames = args[0] if decode is None else decode(*args[:n_wire])
+        return _detect_tick(detect_prep, tick, frames, *args[max(n_wire, 1):])
+
+    def step(*args):
+        return _run_sharded(mesh, per_device, body, args)
+
+    return step

@@ -323,23 +323,27 @@ def draw_mixup(rng: np.random.Generator, n: int, h: int, w: int,
     }
 
 
-def apply_mixup(x: torch.Tensor, y: torch.Tensor, d: Optional[dict]):
+def apply_mixup(x: torch.Tensor, y: torch.Tensor, d: Optional[dict], rows=slice(None)):
     """50%-of-batches mixup-or-cutmix (train.py:563-577) given draw_mixup's
-    draws. Returns (x, y_a, y_b, lam) with lam a float32 scalar tensor."""
+    draws. Returns (x, y_a, y_b, lam) with lam a float32 scalar tensor.
+    `rows` (a slice of the batch) builds only those rows of the mixed
+    batch, each from the whole batch x, y: a data-parallel rank's shard,
+    whose partner rows x[perm] lie on any rank."""
     one = torch.ones((), dtype=torch.float32, device=x.device)
+    x_own, y_own = x[rows], y[rows]
     if d is None or not d["use_mix"]:
-        return x, y, y, one
+        return x_own, y_own, y_own, one
     h, w = x.shape[1], x.shape[2]
-    perm = torch.tensor(d["perm"], device=x.device)
+    perm = torch.tensor(d["perm"], device=x.device)[rows]
     if d["use_mixup"]:
         lam = np.maximum(d["lam_m"], np.float32(1) - d["lam_m"])
-        x_out = float(lam) * x + float(np.float32(1) - lam) * x[perm]
+        x_out = float(lam) * x_own + float(np.float32(1) - lam) * x[perm]
     else:
         cut = np.sqrt(np.float32(1) - d["lam_c0"])
         ch, cw = int(np.float32(h) * cut), int(np.float32(w) * cut)
         y1, y2 = max(0, d["cy"] - ch // 2), min(h, d["cy"] + ch // 2)
         x1, x2 = max(0, d["cx"] - cw // 2), min(w, d["cx"] + cw // 2)
-        x_out = x.clone()
+        x_out = x_own.clone()
         x_out[:, y1:y2, x1:x2] = x[perm][:, y1:y2, x1:x2]
         lam = np.float32(1) - np.float32((y2 - y1) * (x2 - x1)) / np.float32(h * w)
-    return x_out, y, y[perm], one * float(lam)
+    return x_out, y_own, y[perm], one * float(lam)

@@ -126,17 +126,29 @@ class BatchLoader:
     """Prefetching batch iterator yielding (u8 RGB batch, a tensor on
     `device`; float32 labels, numpy), loaded by a producer thread
     (num_workers: its entropy-decode threads). Drops the last partial batch
-    in training."""
+    in training.
+
+    Data-parallel rank `rank` of `world_size` decodes only its contiguous
+    batch_size / world_size rows of each global batch of batch_size; every
+    rank draws the epoch order of one process from the same seed. A corrupt
+    file's substitute comes from the epoch generator in one process (as in
+    the JAX loader) and from a generator of the rank's own in a group, so
+    that the epoch orders stay in step on every rank."""
 
     def __init__(self, dataset: DeepfakeDataset, batch_size: int, shuffle: bool,
                  seed: int = 0, num_workers: int = 8, prefetch: int = 4,
                  balanced: bool = False, drop_last: Optional[bool] = None,
-                 device="cpu"):
+                 device="cpu", rank: int = 0, world_size: int = 1):
+        if batch_size % world_size:
+            raise ValueError(f"batch size {batch_size} does not divide over "
+                             f"{world_size} ranks")
         self.ds = dataset
         self.bs = batch_size
         self.shuffle = shuffle
         self.balanced = balanced
         self.rng = np.random.default_rng(seed)
+        self.sub_rng = self.rng if world_size == 1 else np.random.default_rng([seed, rank])
+        self.rank, self.world = rank, world_size
         self.workers = num_workers
         self.prefetch = prefetch
         self.drop_last = shuffle if drop_last is None else drop_last
@@ -150,7 +162,7 @@ class BatchLoader:
             if self.shuffle:
                 self.rng.shuffle(idx)
         nb = len(idx) // self.bs if self.drop_last else -(-len(idx) // self.bs)
-        batches = [idx[i * self.bs:(i + 1) * self.bs] for i in range(nb)]
+        batches = [self._own(idx[i * self.bs:(i + 1) * self.bs]) for i in range(nb)]
 
         q: Queue = Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -192,6 +204,17 @@ class BatchLoader:
                     pass
             t.join()
 
+    def _own(self, batch: np.ndarray) -> np.ndarray:
+        """This rank's contiguous rows of a global batch (a last partial
+        batch, which only evaluation keeps, must divide too)."""
+        if self.world == 1:
+            return batch
+        if len(batch) % self.world:
+            raise ValueError(f"a batch of {len(batch)} does not divide over "
+                             f"{self.world} ranks")
+        b = len(batch) // self.world
+        return batch[self.rank * b:(self.rank + 1) * b]
+
     def _safe_load(self, i: int) -> np.ndarray:
         # corrupt file -> random other sample (train.py:512-513)
         for _ in range(10):
@@ -200,7 +223,7 @@ class BatchLoader:
             except UnsupportedImage:
                 raise
             except Exception:
-                i = self.rng.integers(0, len(self.ds))
+                i = self.sub_rng.integers(0, len(self.ds))
         s = self.ds.load_size()
         return np.zeros((s, s, 3), np.uint8)
 

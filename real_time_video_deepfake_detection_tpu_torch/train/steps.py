@@ -29,6 +29,16 @@ Randomness: the state carries a CPU generator (augmentation scalars), a
 generator on the device (noise pixels, dropout masks) and a numpy
 Generator (mixup scalars); a step's draws can also be passed in, which the
 tests use to feed the JAX package's draws.
+
+Data parallelism (make_sharded_train_step, JAX :286-305): inside a
+torch.distributed group every rank holds the whole state, seeded alike,
+and its contiguous shard of the global batch. Each step draws for the
+global batch and takes its own rows, so the generators stay in step with
+each other and with a one-process run; mixup reads the partner rows of
+the gathered batch; batch norm takes global statistics
+(models/efficientnet.BatchNorm); after backward one all-reduce averages
+the trainable gradients, so apply_update sees the same values, and
+decides the same, on every rank. Outside a group nothing of this runs.
 """
 
 from __future__ import annotations
@@ -39,10 +49,12 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..core.config import TrainConfig
 from ..models import backbones
+from ..parallel.mesh import all_reduce_mean, gather_rows, rank, world_size
 from .augment import apply_augment, apply_mixup, draw_augment, draw_mixup
 from .losses import focal_loss_with_smoothing
 
@@ -203,20 +215,53 @@ def apply_update(state: TrainState, stats) -> torch.Tensor:
     return norm
 
 
+def _average_grads(state: TrainState) -> None:
+    """The trainable gradients averaged over the ranks, in one all-reduce
+    of their concatenation (DDP's hooks would not see the bf16 step's
+    functional_call)."""
+    w = world_size()
+    if w == 1:
+        return
+    grads = [p.grad for g in state.optimizer.param_groups for p in g["params"]
+             if p.grad is not None]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat)
+    flat /= w
+    torch._foreach_copy_(grads, [t.view_as(g) for t, g in
+                                 zip(flat.split([g.numel() for g in grads]), grads)])
+
+
 def _update(state: TrainState, loss_fn) -> Dict[str, torch.Tensor]:
     """Forward and loss (`loss_fn()` -> (loss, logits, stats)), backward,
-    apply_update."""
+    the ranks' gradients averaged, apply_update."""
     loss, logits, stats = loss_fn()
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    _average_grads(state)
     norm = apply_update(state, stats)
     return {"loss": loss.detach(), "logits": logits.detach(), "grad_norm": norm}
 
 
 def _metrics(out: dict, labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Loss and accuracy of the global batch: the ranks' means averaged
+    (equal shards)."""
     preds = (torch.sigmoid(out["logits"]) > 0.5).to(torch.float32)
-    return {"loss": out["loss"], "grad_norm": out["grad_norm"],
-            "accuracy": torch.mean((preds == labels.to(torch.float32)).to(torch.float32))}
+    acc = torch.mean((preds == labels.to(torch.float32)).to(torch.float32))
+    return {"loss": all_reduce_mean(out["loss"]), "grad_norm": out["grad_norm"],
+            "accuracy": all_reduce_mean(acc)}
+
+
+def _own_rows(b: int) -> slice:
+    """This rank's rows of the global batch, b per rank."""
+    return slice(rank() * b, (rank() + 1) * b)
+
+
+def _mask_rows(masks, rows: slice):
+    """draw_masks' masks of the global batch cut to `rows`."""
+    if masks is None:
+        return None
+    return {k: [None if m is None else (m[0][rows], m[1]) for m in v]
+            for k, v in masks.items()}
 
 
 def _focal(cfg: TrainConfig, logits, labels):
@@ -227,11 +272,15 @@ def _focal(cfg: TrainConfig, logits, labels):
 def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
                masks=None) -> Dict[str, torch.Tensor]:
     """One step on (B, H, W, 3) normalized float images (no augmentation);
-    `masks` from backbones.draw_masks (drawn from the state when None)."""
+    `masks` from backbones.draw_masks for the global batch (drawn from the
+    state when None). In a process group, `images` and `labels` are this
+    rank's shard."""
     cfg = state.cfg
+    b = images.shape[0]
     if masks is None:
-        masks = backbones.draw_masks(state.model, images.shape[0], state.gen_device,
+        masks = backbones.draw_masks(state.model, b * world_size(), state.gen_device,
                                      cfg.head_dropout)
+    masks = _mask_rows(masks, _own_rows(b))
 
     def loss_fn():
         logits, stats = forward_mixed(state.model, images, cfg.bf16_compute, masks,
@@ -242,8 +291,9 @@ def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
 
 
 def draw_step(state: TrainState, n: int, big: int) -> dict:
-    """The draws of one fused step, from the state's generators: the
-    augmentation's, the mixup's and the dropout masks."""
+    """The draws of one fused step over a (global) batch of n, from the
+    state's generators: the augmentation's, the mixup's and the dropout
+    masks."""
     cfg = state.cfg
     size = cfg.image_size
     return {"augment": draw_augment(n, big, size, state.gen_host, state.gen_device),
@@ -269,21 +319,41 @@ def fused_train_step(state: TrainState, imgs_u8: torch.Tensor, labels: torch.Ten
     """The trainer's step: the raw (B, size+20, size+20, 3) RGB u8 batch
     from the loader -> augmentation and mixup/cutmix on the device ->
     forward, focal loss on both label sets weighted by lam -> update.
-    `draws` from draw_step (drawn from the state when None)."""
+    `draws` from draw_step for the global batch (drawn from the state when
+    None). In a process group, `imgs_u8` and `labels` are this rank's
+    shard: it augments its rows, gathers the augmented batch and the
+    labels, and mixes its rows with their partners from any rank."""
     cfg = state.cfg
+    b = imgs_u8.shape[0]
     if draws is None:
-        draws = draw_step(state, imgs_u8.shape[0], imgs_u8.shape[1])
-    x = apply_augment(imgs_u8, draws["augment"], cfg.image_size)
-    x, y_a, y_b, lam = apply_mixup(x, labels, draws["mixup"])
+        draws = draw_step(state, b * world_size(), imgs_u8.shape[1])
+    rows = _own_rows(b)
+    x = apply_augment(imgs_u8, {k: v[rows] for k, v in draws["augment"].items()},
+                      cfg.image_size)
+    x, y_a, y_b, lam = apply_mixup(gather_rows(x), gather_rows(labels), draws["mixup"], rows)
+    masks = _mask_rows(draws["masks"], rows)
 
     def loss_fn():
-        logits, stats = forward_mixed(state.model, x, cfg.bf16_compute, draws["masks"],
+        logits, stats = forward_mixed(state.model, x, cfg.bf16_compute, masks,
                                       cfg.bn_momentum)
         l = logits[:, 0]
         loss = lam * _focal(cfg, l, y_a) + (1 - lam) * _focal(cfg, l, y_b)
         return loss, l, stats
 
     return _metrics(_update(state, loss_fn), labels)
+
+
+def make_sharded_train_step(step=fused_train_step):
+    """The data-parallel step (JAX make_sharded_train_step): `step`
+    (fused_train_step, or train_step on normalized images) called by every
+    rank of the process group with the same state and its equal shard of
+    the global batch. The steps of this module do the sharding themselves
+    in a group (see the module's docstring); this checks that one is up,
+    so that a run meant to be data-parallel fails without it."""
+    if world_size() < 2:
+        raise RuntimeError("make_sharded_train_step needs a process group of two or more "
+                           "ranks (parallel/mesh.init_process_group or spawn)")
+    return step
 
 
 @torch.no_grad()

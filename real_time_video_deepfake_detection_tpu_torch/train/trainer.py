@@ -14,9 +14,18 @@ DIR holds train/{real,fake}/*.jpg and val/{real,fake}/*.jpg. The trainer
 runs on the CUDA card unless given --device; without CUDA it raises. It
 writes best_model.pt (the EMA weights), resume_checkpoint.pt and
 training_log.json (the JAX trainer's keys) to --output-dir, and with
---fit-calibrator calibrator.pkl. One card: data-parallel training over
-several is not ported yet, and --num-devices exits when more than one is
-usable.
+--fit-calibrator calibrator.pkl.
+
+Data-parallel (JAX's mesh branch, trainer.py:215-236): when more than one
+device is usable (--num-devices, JAX's rule: the largest count up to it
+that divides the batch), main spawns one rank per device, each on its
+card with nccl (on the CPU, --device cpu --num-devices N: N gloo ranks),
+each loading its shard of every global batch (train/steps.py). A process
+that torchrun started joins torchrun's group instead. Rank 0 alone
+validates (unsharded, on the EMA weights; the metrics are broadcast, so
+the early stop agrees), writes the checkpoints, the log and the
+calibrator, and prints; a stop request is agreed on once a step. Resume
+reads the checkpoint on every rank.
 """
 
 from __future__ import annotations
@@ -31,11 +40,13 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.config import TrainConfig
 from ..core.device import resolve_device
 from ..models import backbones
 from ..models.efficientnet import EfficientNetSpec
+from ..parallel import mesh
 from ..utils import torch_convert
 from .augment import eval_preprocess_batch
 from .calibration import fit_calibrator_from_validation
@@ -133,7 +144,7 @@ def _pretrained_path(args, spec) -> str:
     return cands[0]
 
 
-def _initial_params(args, spec, model, seed: int) -> None:
+def _initial_params(args, spec, model, seed: int, say=print) -> None:
     """--pretrained (an ImageNet backbone + a fresh head) and --warm-start
     (the reference .pth, a JAX .npz or the port's .pt) into `model`."""
     if args.pretrained and not args.warm_start:
@@ -143,7 +154,7 @@ def _initial_params(args, spec, model, seed: int) -> None:
         path = _pretrained_path(args, spec)
         model.load_state_dict(torch_convert.load_imagenet_checkpoint(
             path, spec, torch.Generator().manual_seed(seed)))
-        print(f"  ImageNet-pretrained backbone from {path} "
+        say(f"  ImageNet-pretrained backbone from {path} "
               f"(fresh {spec.head_filters}->512->256->1 head)")
     if args.warm_start and os.path.exists(args.warm_start):
         ws = args.warm_start
@@ -158,14 +169,18 @@ def _initial_params(args, spec, model, seed: int) -> None:
             ckpt = load_checkpoint(ws)
             sd = ckpt["params"] if "params" in ckpt else ckpt["model"]
         model.load_state_dict(sd)
-        print(f"  Warm-started from {ws}")
+        say(f"  Warm-started from {ws}")
 
 
 def _usable_devices(args, device: torch.device) -> int:
-    """The JAX trainer's rule: the largest count up to --num-devices (0 =
-    all visible) that divides the batch."""
-    visible = torch.cuda.device_count() if device.type == "cuda" else 1
-    n_dev = min(args.num_devices or visible, visible)
+    """The JAX trainer's rule: the largest count up to --num-devices that
+    divides the batch. On CUDA 0 means every visible card; on the CPU,
+    where --num-devices N means N gloo ranks, 0 means 1."""
+    if device.type == "cuda":
+        visible = torch.cuda.device_count()
+        n_dev = min(args.num_devices or visible, visible)
+    else:
+        n_dev = max(args.num_devices, 1)
     while args.batch_size % n_dev:
         n_dev -= 1
     return n_dev
@@ -175,20 +190,65 @@ def train(args) -> dict:
     global _stop_requested
     _stop_requested = False
     device = resolve_device(args.device)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     n_dev = _usable_devices(args, device)
-    if n_dev > 1:
-        raise SystemExit(f"{n_dev} devices are usable: data-parallel training is not "
-                         "ported yet; pass --num-devices 1 to train on one card")
     previous = signal.signal(signal.SIGINT, _sigint_handler)
     try:
+        launched = mesh.torchrun_env()
+        if launched is not None:
+            r, world, local = launched
+            dev = mesh.init_process_group(
+                r, world, "env://",
+                torch.device("cuda", local) if device.type == "cuda" else device)
+            try:
+                return _train(args, dev)
+            finally:
+                dist.destroy_process_group()
+        if n_dev > 1:
+            devices = ([torch.device("cuda", i) for i in range(n_dev)]
+                       if device.type == "cuda" else [device] * n_dev)
+            print(f"  Data-parallel over {n_dev} devices "
+                  f"(per-device batch {args.batch_size // n_dev})")
+            # the ranks share this process's CPU threads
+            return mesh.spawn(_train_rank, devices, args=(args,),
+                              num_threads=max(1, torch.get_num_threads() // n_dev))[0]
         return _train(args, device)
     finally:
         signal.signal(signal.SIGINT, previous)
 
 
+def _train_rank(device: torch.device, args) -> Optional[dict]:
+    """One rank of a spawned data-parallel run: rank 0's best and log (its
+    state stays in its process)."""
+    global _stop_requested
+    _stop_requested = False
+    signal.signal(signal.SIGINT, _sigint_handler)
+    out = _train(args, device)
+    return {"best": out["best"], "log": out["log"], "state": None} if mesh.rank() == 0 else None
+
+
+def _any_rank(flag: bool, device: torch.device) -> bool:
+    """`flag` or'ed over the ranks (flag itself in one process)."""
+    if mesh.world_size() == 1:
+        return flag
+    t = torch.tensor([float(flag)], device=device)
+    dist.all_reduce(t)
+    return bool(t.item() > 0)
+
+
+def _from_rank0(obj):
+    """Rank 0's `obj` on every rank (obj itself in one process)."""
+    if mesh.world_size() == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
 def _train(args, device: torch.device) -> dict:
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lead = mesh.rank() == 0
+    say = print if lead else (lambda *a, **k: None)
     cfg = TrainConfig(
         epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
         image_size=args.image_size, seed=args.seed,
@@ -203,23 +263,25 @@ def _train(args, device: torch.device) -> dict:
     spec = backbones.make(args.backbone, image_size=cfg.image_size)
 
     out_dir = args.output_dir
-    os.makedirs(out_dir, exist_ok=True)
+    if lead:
+        os.makedirs(out_dir, exist_ok=True)
     resume_path = os.path.join(out_dir, "resume_checkpoint.pt")
     best_path = os.path.join(out_dir, "best_model.pt")
     log_path = os.path.join(out_dir, "training_log.json")
 
     train_ds = DeepfakeDataset(args.dataset, "train", cfg.image_size)
     val_ds = DeepfakeDataset(args.dataset, "val", cfg.image_size)
-    print(f"  [train] {len(train_ds)} samples {tuple(train_ds.class_counts)}; "
-          f"[val] {len(val_ds)} samples")
+    say(f"  [train] {len(train_ds)} samples {tuple(train_ds.class_counts)}; "
+        f"[val] {len(val_ds)} samples")
     train_loader = BatchLoader(train_ds, cfg.batch_size, shuffle=True, seed=cfg.seed,
-                               balanced=True, num_workers=args.num_workers, device=device)
+                               balanced=True, num_workers=args.num_workers, device=device,
+                               rank=mesh.rank(), world_size=mesh.world_size())
     val_loader = BatchLoader(val_ds, cfg.batch_size, shuffle=False, drop_last=False,
                              num_workers=args.num_workers, device=device)
     total_steps = max(len(train_loader), 1) * cfg.epochs
 
     model = backbones.build_model(spec, torch.Generator().manual_seed(cfg.seed))
-    _initial_params(args, spec, model, cfg.seed)
+    _initial_params(args, spec, model, cfg.seed, say)
     state = init_train_state(model.to(device), spec, cfg, total_steps, cfg.seed)
     start_epoch, best, training_log = 0, {"f1": -1.0, "acc": 0.0}, []
     if not args.fresh and os.path.exists(resume_path):
@@ -229,63 +291,69 @@ def _train(args, device: torch.device) -> dict:
         meta = ckpt["metadata"]
         start_epoch, best = meta["epoch"] + 1, meta["best"]
         training_log = meta.get("training_log", [])
-        print(f"  Resumed from epoch {meta['epoch']} (best F1 {best['f1']:.4f})")
+        say(f"  Resumed from epoch {meta['epoch']} (best F1 {best['f1']:.4f})")
 
-    epochs_no_improve = 0
+    epochs_no_improve, stop = 0, False
     for epoch in range(start_epoch, cfg.epochs):
         t0 = time.time()
         losses, accs = [], []
         for imgs, labels in train_loader:
-            if _stop_requested:
+            stop = _any_rank(_stop_requested, device)
+            if stop:
                 break
             m = fused_train_step(state, imgs, torch.from_numpy(labels).to(device))
             losses.append(float(m["loss"]))
             accs.append(float(m["accuracy"]))
+        # a request during the epoch's last step still stops after this epoch
+        stop = stop or _any_rank(_stop_requested, device)
         train_loss = float(np.mean(losses)) if losses else 0.0
         train_acc = float(np.mean(accs)) if accs else 0.0
 
-        # validate with the EMA weights (train.py:992-999)
+        # validate with the EMA weights (train.py:992-999), on rank 0 alone
         ema = state.ema_state_dict()
-        val = validate(state.model, ema, val_loader, cfg)
+        val = _from_rank0(validate(state.model, ema, val_loader, cfg) if lead else None)
         entry = {"epoch": epoch, "train_loss": train_loss, "train_acc": train_acc,
                  "epoch_seconds": time.time() - t0,
                  **{f"val_{k}": v for k, v in val.items()}}
         training_log.append(entry)
-        with open(log_path, "w") as f:
-            json.dump(training_log, f, indent=2)
-        print(f"Epoch {epoch}: loss {train_loss:.4f} acc {train_acc*100:.1f}% "
-              f"| val F1 {val['f1']:.4f} ({entry['epoch_seconds']:.0f}s)")
+        if lead:
+            with open(log_path, "w") as f:
+                json.dump(training_log, f, indent=2)
+        say(f"Epoch {epoch}: loss {train_loss:.4f} acc {train_acc*100:.1f}% "
+            f"| val F1 {val['f1']:.4f} ({entry['epoch_seconds']:.0f}s)")
 
         if val["f1"] > best["f1"]:
             best = {"f1": val["f1"], "acc": val["acc"], "epoch": epoch}
-            save_checkpoint(best_path, {
-                "params": {k: v.detach().cpu() for k, v in ema.items()},
-                "metadata": {"epoch": epoch, "val_acc": val["acc"], "val_f1": val["f1"],
-                             "config": vars(args)}})
+            if lead:
+                save_checkpoint(best_path, {
+                    "params": {k: v.detach().cpu() for k, v in ema.items()},
+                    "metadata": {"epoch": epoch, "val_acc": val["acc"],
+                                 "val_f1": val["f1"], "config": vars(args)}})
             epochs_no_improve = 0
         else:
             epochs_no_improve += 1
 
-        save_checkpoint(resume_path, {
-            **state.state_dict(), "rng": host_rng_state(),
-            "metadata": {"epoch": epoch, "best": best, "training_log": training_log,
-                         "args": vars(args)}})
+        if lead:
+            save_checkpoint(resume_path, {
+                **state.state_dict(), "rng": host_rng_state(),
+                "metadata": {"epoch": epoch, "best": best, "training_log": training_log,
+                             "args": vars(args)}})
 
-        if _stop_requested:
-            print("  Stopped by request; checkpoint saved.")
+        if stop:
+            say("  Stopped by request; checkpoint saved.")
             break
         if epochs_no_improve >= cfg.early_stop_patience:
-            print(f"  Early stopping after {epochs_no_improve} epochs without F1 "
-                  "improvement.")
+            say(f"  Early stopping after {epochs_no_improve} epochs without F1 "
+                "improvement.")
             break
 
-    if args.fit_calibrator:
+    if args.fit_calibrator and lead:
         # isotonic calibration on validation predictions of the final EMA
         # weights (the reference's optional weights/calibrator.pkl)
         cal_path = os.path.join(out_dir, "calibrator.pkl")
         fit_calibrator_from_validation(state.model, state.ema_state_dict(), val_loader,
                                        cal_path)
-        print(f"  Calibrator saved to {cal_path}")
+        say(f"  Calibrator saved to {cal_path}")
     return {"best": best, "log": training_log, "state": state}
 
 
@@ -344,8 +412,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bf16", action="store_true",
                    help="bf16 forward/backward with f32 master params, no loss scaler")
     p.add_argument("--num-devices", type=int, default=0,
-                   help="devices for data-parallel training (0 = all visible); more "
-                        "than one is not ported yet and exits")
+                   help="devices for data-parallel training, the largest count up to "
+                        "this that divides the batch (0 = every visible card; with "
+                        "--device cpu, N gloo ranks and 0 = 1)")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card, which must be present)")
     return p

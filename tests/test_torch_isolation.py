@@ -58,6 +58,25 @@ def test_serving_imports_no_training_module():
     assert r.returncode == 0, r.stderr[-2000:]
 
 
+def test_parallel_imports_neither_jax_nor_training():
+    """parallel/ (the mesh, the process group) imports no jax and no module
+    of train/, nor do the sharded ticks of serving/batcher.py that use it."""
+    code = (
+        "import sys\n"
+        "import real_time_video_deepfake_detection_tpu_torch.parallel.mesh\n"
+        "import real_time_video_deepfake_detection_tpu_torch.serving.batcher as b\n"
+        "assert callable(b.make_sharded_device_step_detect)\n"
+        "p = 'real_time_video_deepfake_detection_tpu_torch.'\n"
+        "bad = [m for m in sys.modules if m.startswith(p + 'train.')\n"
+        "       or m.split('.')[0] in ('jax', 'jaxlib')\n"
+        "       or m.startswith('real_time_video_deepfake_detection_tpu.')]\n"
+        "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=REPO))
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
 def test_serving_and_detector_load_neither_keras_nor_transformers():
     """The donor converters import keras and transformers inside their file
     loaders only; serving and the detector never load them."""

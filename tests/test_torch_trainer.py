@@ -3,7 +3,8 @@
 batches against the JAX package's BatchLoader (cv2) bit for bit, an
 unsupported image named, the CLI's flags and defaults against the JAX
 parser, the clip-head trainer from the JAX head's parameters, and the
-device rule (CUDA unless --device cpu; one card)."""
+device rule (CUDA unless --device cpu; a rank per card when several are
+usable)."""
 
 from __future__ import annotations
 
@@ -206,10 +207,23 @@ def test_trainer_needs_cuda_unless_given_the_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TT.main(["--dataset", ds, "--output-dir", str(tmp_path / "o")])
-    # with several usable cards it exits instead of training on one
+    # with several usable cards it spawns one nccl rank per card (JAX's
+    # rule: the largest count up to --num-devices that divides the batch);
+    # tests/test_torch_dp_train.py runs the ranks on the CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(SystemExit, match="data-parallel"):
-        TT.main(["--dataset", ds, "--output-dir", str(tmp_path / "o")])
-    with pytest.raises(SystemExit, match="data-parallel"):
-        TT.main(["--dataset", ds, "--output-dir", str(tmp_path / "o"), "--num-devices", "2"])
+    spawned = []
+
+    def spawn(fn, devices, args=(), **kw):
+        spawned.append((fn, [str(d) for d in devices], args[0].batch_size, kw))
+        return [{"best": {}, "log": [], "state": None}] + [None] * (len(devices) - 1)
+
+    monkeypatch.setattr(TT.mesh, "spawn", spawn)
+    TT.main(["--dataset", ds, "--output-dir", str(tmp_path / "o")])
+    TT.main(["--dataset", ds, "--output-dir", str(tmp_path / "o"), "--num-devices", "2"])
+    TT.main(["--dataset", ds, "--output-dir", str(tmp_path / "o"), "--batch-size", "6"])
+    assert [(fn, d, b) for fn, d, b, _ in spawned] == [
+        (TT._train_rank, ["cuda:0", "cuda:1", "cuda:2", "cuda:3"], 32),
+        (TT._train_rank, ["cuda:0", "cuda:1"], 32),
+        (TT._train_rank, ["cuda:0", "cuda:1", "cuda:2"], 6)]
+    assert all(kw.get("backend") is None for *_, kw in spawned)   # nccl on CUDA
