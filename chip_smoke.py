@@ -179,6 +179,28 @@ in phases, each printing one JSON line:
               line of its own, every kernel launched, all four in every
               detect tick (the hue kernel in every full-forensic one) and
               the f32 preprocess entry in every MTCNN tick
+ 18. video    video in (HAARCASCADE_DIR set to the committed XML), no
+              kernel on its path: (a) a 48-frame 480x640 Motion-JPEG AVI
+              (utils/video.VideoWriter) of the committed 640x480 fixture's
+              bytes and encode_jpeg(q95) frames with the photograph's face
+              moving through it, read back frame for frame equal to
+              decode_jpeg of what was written, seeks exact; encode ms of a
+              224x224 crop and of a frame, read ms per frame; (b)
+              cli/analyze.main on it with full-size B0 (backbone_state,
+              saved as a port checkpoint), --gradcam --output --json, on
+              the card and on the CPU: verdicts, faces and GradCAM boxes
+              equal, temporal averages within 1e-4, the annotated frames
+              equal outside the boxes wherever the labels are equal;
+              frames/s on the card; (c) cli/analyze.main over 4 such
+              videos through the batched engine on the card: no error,
+              max_batch_seen >= 2, frames/s; (d) train/clip_head.main on
+              the card over train/{real,fake} x 4 and val/{real,fake} x 1
+              (window 16, 160 px crops, B0, 30 epochs), its head served by
+              the batched engine with clip_probability; feature-extraction
+              ms per frame at batch_frames 256; (e)
+              data_tools/face_extract.preextract of the train videos with
+              the synthetic SSD on the card and on the CPU: the same JPEG
+              files byte for byte; crops/s
 
 then a `{"kernels": [...]}` line (launches: the wire phase's coef run;
 launches_sharded_tick: one sharded serving tick of two shards) and, last,
@@ -3474,28 +3496,21 @@ def _dp_rank(device, crops):
             "model": model, "ema": ema}
 
 
-def _dp_train(ctx):
-    """(c) make_sharded_train_step on 2 gloo ranks that both sit on cuda:0
-    (nccl refuses two ranks on one card) against the one-process
-    fused_train_step on the card, same seed and so the same draws: losses
-    within 1e-5, parameters, statistics and EMA within atol 2e-5 and rtol
-    2e-4 (a leaf of rounding-noise gradient within its Adam bound, the head
-    means it feeds within 0.3 of it), weight deltas within 1e-2; the ranks
-    alike bit for bit; then each version's step wall ms."""
-    import numpy as np
+def _dp_one_process(device, crops):
+    """The reference of (c), in a fresh process as the ranks are (in this
+    script's own process, the allocator's state after the earlier phases
+    can steer cuDNN to other algorithms, whose rounding noise flips the
+    sign of Adam's first steps on near-zero gradients): fused_train_step
+    on the whole batch; the leaves whose first gradient is rounding noise,
+    the parameters before and after, each step's wall ms."""
     import torch
-    from real_time_video_deepfake_detection_tpu_torch.parallel import mesh as P
     from real_time_video_deepfake_detection_tpu_torch.train import steps
-    crops = _train_crops(DP_BATCH, 244, SEED)
-    t0 = time.time()
-    # the ranks share the host's cores
-    ranks = P.spawn(_dp_rank, list(SHARD_MESH), args=(crops,), backend="gloo", timeout=600,
-                    num_threads=max(1, (os.cpu_count() or 2) // len(SHARD_MESH)))
-    spawn_s = time.time() - t0
-    state = _dp_state("cuda")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    state = _dp_state(device)
     init = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
-    imgs = torch.from_numpy(crops).cuda()
-    labels = torch.tensor([0.0, 1.0] * (DP_BATCH // 2)).cuda()
+    imgs = torch.from_numpy(crops).to(device)
+    labels = torch.tensor([0.0, 1.0] * (DP_BATCH // 2)).to(device)
     null = set()
 
     def first(st, x, y):
@@ -3505,7 +3520,34 @@ def _dp_train(ctx):
                         if p.grad is not None and float(p.grad.norm()) < 1e-6)
         return m
 
-    metrics, walls, (model, ema) = _dp_steps(state, first, imgs, labels, "cuda")
+    metrics, walls, (model, ema) = _dp_steps(state, first, imgs, labels, device)
+    return {"metrics": metrics, "walls_ms": walls, "model": model, "ema": ema, "init": init,
+            "null": sorted(null), "lr_sum": sum(state.sched(i) for i in range(DP_STEPS))}
+
+
+def _dp_train(ctx):
+    """(c) make_sharded_train_step on 2 gloo ranks that both sit on cuda:0
+    (nccl refuses two ranks on one card) against the one-process
+    fused_train_step on the card (in a fresh process too), same seed and so
+    the same draws: losses within 1e-5, parameters, statistics and EMA
+    within atol 2e-5 and rtol 2e-4 (a leaf of rounding-noise gradient
+    within its Adam bound, the head means it feeds within 0.3 of it),
+    weight deltas within 1e-2; the ranks alike bit for bit; then each
+    version's step wall ms."""
+    import numpy as np
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.parallel import mesh as P
+    crops = _train_crops(DP_BATCH, 244, SEED)
+    t0 = time.time()
+    # the ranks share the host's cores
+    threads = max(1, (os.cpu_count() or 2) // len(SHARD_MESH))
+    ranks = P.spawn(_dp_rank, list(SHARD_MESH), args=(crops,), backend="gloo", timeout=600,
+                    num_threads=threads)
+    spawn_s = time.time() - t0
+    ref, = P.spawn(_dp_one_process, [SHARD_MESH[0]], args=(crops,), backend="gloo",
+                   timeout=600, num_threads=threads)
+    metrics, walls, model, ema = ref["metrics"], ref["walls_ms"], ref["model"], ref["ema"]
+    init, null, lr_sum = ref["init"], set(ref["null"]), ref["lr_sum"]
     r0, r1 = ranks
     for k in r0["model"]:
         if not torch.equal(r0["model"][k], r1["model"][k]):
@@ -3514,7 +3556,6 @@ def _dp_train(ctx):
     if loss_diff > 1e-5 or any(a["accuracy"] != m["accuracy"]
                                for a, m in zip(r0["metrics"], metrics)):
         raise AssertionError(f"train (c): DP {r0['metrics']} one process {metrics}")
-    lr_sum = sum(state.sched(i) for i in range(DP_STEPS))
     worst = {"value": 0.0, "delta_rel": 0.0, "noise": 0.0}
     for k, v in model.items():
         got = r0["model"][k]
@@ -3567,6 +3608,347 @@ def phase_sharded(ctx):
                              "train": time.time() - t2}}
 
 
+# ------------------------------------------------------------------- video
+
+VIDEO_FRAMES = 48
+TREE_FRAMES = 24
+
+
+def _video_frames(n: int, seed: int):
+    """(JPEG bytes, decoded frame) of n 480x640 frames: every 8th the
+    committed fixture's own bytes, the others encode_jpeg(q95) of the
+    fixture with the photograph's face pasted in, moving 2 px down and 1
+    right a frame (and by `seed` more)."""
+    import numpy as np
+    from real_time_video_deepfake_detection_tpu_torch.utils.host_resize import resize_area_u8
+    from real_time_video_deepfake_detection_tpu_torch.utils.jpeg_encode import encode_jpeg
+    from real_time_video_deepfake_detection_tpu_torch.utils.jpeg_ingest import decode_jpeg
+    with open(os.path.join(JPEG_DIR, "frame_640x480_q85_420.jpg"), "rb") as fh:
+        fixture = fh.read()
+    with open(os.path.join(HAAR_DIR, HAAR_PHOTO), "rb") as fh:
+        photo = resize_area_u8(decode_jpeg(fh.read()), 320, 272)
+    base = decode_jpeg(fixture)
+    scene = base.copy()
+    scene[80:400, 300:572] = photo
+    out = []
+    for i in range(n):
+        if i % 8 == 0:
+            out.append((fixture, base))
+            continue
+        f = np.ascontiguousarray(np.roll(scene, (2 * (i + seed), i + seed), (0, 1)))
+        data = encode_jpeg(f, 95)
+        out.append((data, decode_jpeg(data)))
+    return out
+
+
+def _write_video(path: str, frames, fps: float = 25.0) -> None:
+    from real_time_video_deepfake_detection_tpu_torch.utils.video import VideoWriter
+    wr = VideoWriter(path, fps, (640, 480))
+    for data, _ in frames:
+        wr.write_jpeg(data)
+    wr.release()
+
+
+def _video_io(root: str):
+    """(a) The writer and reader round trip, seeks, and the host times."""
+    import numpy as np
+    from real_time_video_deepfake_detection_tpu_torch.utils.jpeg_encode import encode_jpeg
+    from real_time_video_deepfake_detection_tpu_torch.utils.video import VideoReader
+    frames = _video_frames(VIDEO_FRAMES, 0)
+    path = os.path.join(root, "video.avi")
+    _write_video(path, frames)
+    reader = VideoReader(path)
+    if not reader.is_opened() or reader.frame_count != VIDEO_FRAMES or reader.fps != 25.0:
+        raise AssertionError(f"video (a): {reader.reason} {reader.frame_count} {reader.fps}")
+    t0 = time.perf_counter()
+    for i, (_, want) in enumerate(frames):
+        ok, got = reader.read()
+        if not ok or not np.array_equal(got, want):
+            raise AssertionError(f"video (a): frame {i} differs from its decode")
+    read_ms = (time.perf_counter() - t0) * 1e3 / VIDEO_FRAMES
+    for i in (47, 0, 13, 13, 8, 31):
+        reader.seek(i)
+        if not np.array_equal(reader.read()[1], frames[i][1]):
+            raise AssertionError(f"video (a): seek({i}) landed elsewhere")
+    frame = frames[1][1]
+    crop = np.ascontiguousarray(frame[100:324, 300:524])
+
+    def host_ms(fn, n=20):
+        fn()
+        t = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            t.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(t)
+
+    return frames, path, {
+        "frames": VIDEO_FRAMES, "seeks_checked": 6, "read_ms_per_frame": read_ms,
+        "encode_ms_224x224_q95": host_ms(lambda: encode_jpeg(crop, 95)),
+        "encode_ms_480x640_q95": host_ms(lambda: encode_jpeg(frame, 95)),
+        "bytes_per_frame_480x640_q95": len(frames[1][0])}
+
+
+@contextlib.contextmanager
+def _recording():
+    """Records what cli/analyze draws and writes: the label strings
+    (ops/draw.put_text), each frame's GradCAM boxes (the detector's
+    last_gradcams after predict) and the annotated frames before they are
+    encoded (utils/video.VideoWriter.write)."""
+    from real_time_video_deepfake_detection_tpu_torch.ops import draw
+    from real_time_video_deepfake_detection_tpu_torch.pipeline import detector
+    from real_time_video_deepfake_detection_tpu_torch.utils import video
+    rec = {"texts": [], "boxes": [], "frames": []}
+    put_text, predict, write = draw.put_text, detector.DeepfakeDetector.predict, \
+        video.VideoWriter.write
+
+    def put_text_rec(img, text, *a, **k):
+        rec["texts"][-1].append(text)
+        return put_text(img, text, *a, **k)
+
+    def predict_rec(self, frame):
+        rec["texts"].append([])
+        out = predict(self, frame)
+        rec["boxes"].append([box for box, _ in self.last_gradcams])
+        return out
+
+    def write_rec(self, frame):
+        rec["frames"].append(frame.copy())
+        write(self, frame)
+
+    draw.put_text, detector.DeepfakeDetector.predict, video.VideoWriter.write = \
+        put_text_rec, predict_rec, write_rec
+    try:
+        yield rec
+    finally:
+        draw.put_text, detector.DeepfakeDetector.predict, video.VideoWriter.write = \
+            put_text, predict, write
+
+
+def _analyze_single(root: str, path: str, weights: str):
+    """(b) cli/analyze.main on one video with --gradcam --output --json, on
+    the card and on the CPU."""
+    import numpy as np
+    from real_time_video_deepfake_detection_tpu_torch.cli import analyze
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        out_json = os.path.join(root, f"single_{dev}.json")
+        with _recording() as rec:
+            t0 = time.perf_counter()
+            analyze.main([path, "--weights", weights, "--gradcam", "--json", out_json,
+                          "--output", os.path.join(root, f"single_{dev}.avi"), "--device", dev])
+            seconds = time.perf_counter() - t0
+        with open(out_json) as fh:
+            runs[dev] = (json.load(fh), rec, seconds)
+    (jg, rg, sg), (jc, rc, _) = runs["cuda"], runs["cpu"]
+    if len(jg["frames"]) != VIDEO_FRAMES or len(rg["frames"]) != VIDEO_FRAMES:
+        raise AssertionError(f"video (b): {len(jg['frames'])} frames analyzed")
+    worst, compared, gradcam_frames = 0.0, 0, 0
+    for i, (a, b) in enumerate(zip(jg["frames"], jc["frames"])):
+        for k in ("frame_count", "faces_detected", "confidence_level", "analysis_mode"):
+            if a[k] != b[k]:
+                raise AssertionError(f"video (b): frame {i} {k}: card {a[k]} CPU {b[k]}")
+        worst = max(worst, abs(a["temporal_average"] - b["temporal_average"]))
+        if rg["boxes"][i] != rc["boxes"][i]:
+            raise AssertionError(f"video (b): frame {i} GradCAM boxes differ")
+        gradcam_frames += bool(rg["boxes"][i])
+        if rg["texts"][i] == rc["texts"][i]:
+            outside = np.ones(rg["frames"][i].shape[:2], bool)
+            for x, y, w, h in rg["boxes"][i]:
+                outside[y:y + h, x:x + w] = False
+            if not np.array_equal(rg["frames"][i][outside], rc["frames"][i][outside]):
+                raise AssertionError(f"video (b): frame {i} differs outside its boxes")
+            compared += 1
+    if worst > 1e-4 or jg["summary"]["final_verdict"] != jc["summary"]["final_verdict"]:
+        raise AssertionError(f"video (b): temporal averages {worst} apart, verdicts "
+                             f"{jg['summary']['final_verdict']} {jc['summary']['final_verdict']}")
+    if gradcam_frames == 0 or compared < VIDEO_FRAMES // 2:
+        raise AssertionError(f"video (b): {gradcam_frames} frames with a face, "
+                             f"{compared} compared")
+    return {"frames": VIDEO_FRAMES, "frames_with_gradcam": gradcam_frames,
+            "frames_compared_outside_boxes": compared, "temporal_average_max_abs_diff": worst,
+            "final_verdict": jg["summary"]["final_verdict"],
+            "faces_detected": sum(f["faces_detected"] for f in jg["frames"]),
+            "frames_per_s_card": VIDEO_FRAMES / sg, "seconds_card": sg,
+            "step_ms_card": _predict_steps_ms(path, weights)}
+
+
+def _predict_steps_ms(path: str, weights: str, n: int = 12):
+    """Median host ms of each step of one analyzed frame on the card, each
+    ending in a synchronize: the read, the forensics, the cascade, the face
+    (Lab, CLAHE, B0) with and without GradCAM, the overlay, the encode."""
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.core.config import DetectorConfig
+    from real_time_video_deepfake_detection_tpu_torch.pipeline.detector import DeepfakeDetector
+    from real_time_video_deepfake_detection_tpu_torch.utils.jpeg_encode import encode_jpeg
+    from real_time_video_deepfake_detection_tpu_torch.utils.video import VideoReader
+    from real_time_video_deepfake_detection_tpu_torch.utils.weights import load_params_any
+    from real_time_video_deepfake_detection_tpu_torch.models import backbones
+    det = DeepfakeDetector(DetectorConfig(), params=load_params_any(weights, backbones.make("b0")),
+                           enable_gradcam=True, device="cuda")
+    reader = VideoReader(path)
+    steps = {k: [] for k in ("read", "forensics", "cascade", "face_gradcam", "face",
+                             "predict_whole", "overlay", "encode")}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[key].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    for i in range(n + 2):
+        ok, frame = timed("read", reader.read)
+        timed("forensics", lambda: det.analyze_frame_forensics(frame))
+        boxes = timed("cascade", lambda: det.face_detector(frame))
+        if boxes:
+            x, y, w, h = boxes[0]
+            face = frame[y:y + h, x:x + w]
+            det.enable_gradcam = True
+            timed("face_gradcam", lambda: det.analyze_face(face))
+            det.enable_gradcam = False
+            timed("face", lambda: det.analyze_face(face))
+            det.enable_gradcam = True
+        annotated = timed("predict_whole", lambda: det.predict(frame))[0]
+        timed("overlay", lambda: det._draw_overlay(frame.copy(), 10, 40, 100, 120, 0.7, "FAKE"))
+        timed("encode", lambda: encode_jpeg(annotated, 95))
+    return {k: statistics.median(v[2:]) for k, v in steps.items() if len(v) > 2}
+
+
+def _analyze_multi(root: str, weights: str):
+    """(c) cli/analyze.main over 4 videos through the batched engine on the
+    card."""
+    from real_time_video_deepfake_detection_tpu_torch.cli import analyze
+    paths = []
+    for k in range(4):
+        paths.append(os.path.join(root, f"multi_{k}.avi"))
+        _write_video(paths[-1], _video_frames(TREE_FRAMES, 5 * k + 1))
+    out_json = os.path.join(root, "multi.json")
+    t0 = time.perf_counter()
+    analyze.main(paths + ["--weights", weights, "--json", out_json, "--device", "cuda"])
+    seconds = time.perf_counter() - t0
+    with open(out_json) as fh:
+        out = json.load(fh)
+    bad = [v for v in out["videos"] if "error" in v or v["frames"] != TREE_FRAMES]
+    if bad or out["max_batch_seen"] < 2:
+        raise AssertionError(f"video (c): {bad}, max batch {out['max_batch_seen']}")
+    return {"videos": 4, "frames_total": out["frames_total"], "ticks": out["engine_ticks"],
+            "max_batch_seen": out["max_batch_seen"],
+            "verdicts": [v["final_verdict"] for v in out["videos"]],
+            "frames_per_s": out["frames_total"] / seconds, "seconds": seconds}
+
+
+def _clip_head_cli(ctx, root: str, weights: str):
+    """(d) train/clip_head.main on the card over train/{real,fake} x 4 and
+    val/{real,fake} x 1, window 16, 160 px crops, B0, 30 epochs; the head
+    served by the batched engine; feature-extraction ms per frame."""
+    import numpy as np
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.core.config import (
+        DetectorConfig, ServerConfig)
+    from real_time_video_deepfake_detection_tpu_torch.models import backbones
+    from real_time_video_deepfake_detection_tpu_torch.serving.multi import MultiStreamEngine
+    from real_time_video_deepfake_detection_tpu_torch.serving.server import _load_clip_head
+    from real_time_video_deepfake_detection_tpu_torch.train import clip_head
+    tree = os.path.join(root, "tree")
+    k = 0
+    for split, n in (("train", 4), ("val", 1)):
+        for label in ("real", "fake"):
+            d = os.path.join(tree, split, label)
+            os.makedirs(d)
+            for i in range(n):
+                _write_video(os.path.join(d, f"{label}{i}.avi"),
+                             _video_frames(TREE_FRAMES, 3 * k + (label == "fake")))
+                k += 1
+    out = os.path.join(root, "clip_head.pt")
+    t0 = time.perf_counter()
+    res = clip_head.main(["--videos", tree, "--clip-window", "16", "--crop-size", "160",
+                          "--epochs", "30", "--backbone-weights", weights, "--out", out,
+                          "--device", "cuda"])
+    seconds = time.perf_counter() - t0
+    if res.get("val_n") != 2 or not np.isfinite(res["train_log_tail"][-1]["loss"]):
+        raise AssertionError(f"video (d): {res}")
+    spec = backbones.make("b0")
+    cfg = DetectorConfig(clip_window=16)
+    head = _load_clip_head(out, cfg, spec)
+    engine = MultiStreamEngine(cfg, ServerConfig(max_streams=4), params=backbone_state(ctx),
+                               spec=spec, clip_head_params=head, device="cuda")
+    try:
+        frames = _video_frames(3, 7)
+        for _, f in frames:
+            r = engine.analyze(f, "clip")
+    finally:
+        engine.shutdown()
+    if "clip_probability" not in r:
+        raise AssertionError(f"video (d): the clip head's response {r}")
+    model = backbones.build_model(spec)
+    model.load_state_dict(backbone_state(ctx))
+    model = model.cuda().eval()
+    clips = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 256, (16, 16, 160, 160, 3), dtype=np.uint8))
+    ms = time_cuda(lambda: clip_head.extract_clip_features(model, clips, batch_frames=256),
+                   n=5, warmup=1)
+    return {"clips": {"train": 8, "val": 2}, "window": 16, "crop": 160, "epochs": 30,
+            "train_log_tail": res["train_log_tail"], "val_acc": res["val_acc"],
+            "clip_probability": r["clip_probability"], "main_seconds": seconds,
+            "feature_ms_per_frame_batch256": ms / 256}
+
+
+def _face_extract(ctx, root: str):
+    """(e) data_tools/face_extract.preextract over the tree's train videos
+    with the synthetic SSD on the card and on the CPU: the same files."""
+    from real_time_video_deepfake_detection_tpu_torch.data_tools import face_extract
+    caffemodel = _ssd_files(ctx)[1]
+    trees = {}
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(root, f"faces_{dev}")
+        t0 = time.perf_counter()
+        stats = face_extract.preextract(os.path.join(root, "tree", "train"), out,
+                                        frames_per_video=6, ssd_weights=caffemodel, device=dev)
+        seconds = time.perf_counter() - t0
+        files = {}
+        for dirpath, _, names in os.walk(out):
+            for name in names:
+                with open(os.path.join(dirpath, name), "rb") as fh:
+                    files[os.path.relpath(os.path.join(dirpath, name), out)] = fh.read()
+        trees[dev] = (stats, files, seconds)
+    (sg, fg, tg), (sc, fc, _) = trees["cuda"], trees["cpu"]
+    if sg != sc or fg != fc or not fg:
+        raise AssertionError(f"video (e): card {sg} {sorted(fg)[:4]} CPU {sc} {sorted(fc)[:4]}")
+    written = sg["real"] + sg["fake"]
+    return {"crops_written": sg, "files_after_balance": len(fg), "seconds_card": tg,
+            "crops_per_s_card": written / tg}
+
+
+def phase_video(ctx):
+    """Video in: (a) the Motion-JPEG writer and reader, (b) the single-video
+    analyzer card against CPU, (c) the batched analyzer over 4 videos, (d)
+    the clip-head trainer's CLI, (e) the face pre-extraction."""
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.train.checkpoint import save_checkpoint
+    os.environ["HAARCASCADE_DIR"] = HAAR_DIR
+    root = tempfile.mkdtemp(prefix="chip_smoke_video_")
+    try:
+        weights = os.path.join(root, "b0.pt")
+        save_checkpoint(weights, {"params": backbone_state(ctx), "metadata": {}})
+        parts, times = {}, {}
+        t0 = time.time()
+        _, path, parts["io"] = _video_io(root)
+        for name, fn in (("single", lambda: _analyze_single(root, path, weights)),
+                         ("multi", lambda: _analyze_multi(root, weights)),
+                         ("clip_head", lambda: _clip_head_cli(ctx, root, weights)),
+                         ("face_extract", lambda: _face_extract(ctx, root))):
+            times[name] = time.time() - t0
+            parts[name] = fn()
+            print(json.dumps({"video": name, "card": ctx["smi"], **parts[name]}), flush=True)
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"card": ctx["smi"], **parts, "part_started_s": times}
+
+
+
 PHASES = (("device", phase_device), ("build", phase_build),
           ("kernels", phase_kernels), ("serve", phase_serve),
           ("parity", phase_parity), ("detect-serve", phase_detect_serve),
@@ -3574,7 +3956,7 @@ PHASES = (("device", phase_device), ("build", phase_build),
           ("http", phase_http), ("wire", phase_wire), ("haar", phase_haar),
           ("mtcnn", phase_mtcnn), ("clip", phase_clip), ("train", phase_train),
           ("detector", phase_detector), ("sharded", phase_sharded),
-          ("bench", phase_bench))
+          ("bench", phase_bench), ("video", phase_video))
 
 
 def main() -> int:

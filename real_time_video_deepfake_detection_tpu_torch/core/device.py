@@ -8,11 +8,9 @@ import torch
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
-    """`None` means the CUDA card: it raises when CUDA is absent instead of
-    running on the CPU. Pass device="cpu" to run on the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA is not available; pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+    """`None` means the CUDA card. A CUDA device raises when CUDA is absent
+    instead of running on the CPU. Pass device="cpu" to run on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
+    return dev

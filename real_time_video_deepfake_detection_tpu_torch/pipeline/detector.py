@@ -35,8 +35,13 @@ scales and small rotations drawn as the JAX package draws them, from a
 random.Random that the detector owns, seeded with `seed`, and applied
 cv2-exact on the host (ops/warp.py).
 
-Not in this slice (it raises NotImplementedError): `predict` with its
-overlay drawing (the JAX package draws with cv2).
+`predict`, the library entry point (deepfake_detection.py:588-686), runs
+every detected face (library semantics: frame_count increments before the
+forensics) and draws the JAX package's overlay with ops/draw.py, cv2's
+drawing routines without cv2. Its text is the Hershey font that cv2 up to
+4.x draws; cv2 5.0 draws FONT_HERSHEY_SIMPLEX through its TrueType text
+engine, which the port does not reproduce, so under cv2 5.0 the JAX
+package's labels (and the label band, whose width is the text's) differ.
 """
 
 from __future__ import annotations
@@ -55,7 +60,7 @@ from ..core.device import resolve_device
 from ..models import backbones
 from ..models.efficientnet import EfficientNet
 from ..models.mtcnn import MTCNNAligner
-from ..ops import forensics, warp
+from ..ops import draw, forensics, warp
 from ..ops.clahe import clahe_u8_numpy
 from ..ops.color import bgr_to_gray_u8, lab_to_rgb_u8_op_by_op, rgb_to_lab_u8_op_by_op
 from ..state.forensic_state import ForensicState, forensic_state_init_batch, forensic_state_reset
@@ -350,7 +355,139 @@ class DeepfakeDetector:
                 preds.append(p)
         return float(np.mean(preds)) if preds else None
 
+    # ------------------------------------------------------------- main entry
+
     def predict(self, frame_bgr: np.ndarray):
-        """The reference's library entry point draws its overlays with cv2;
-        it comes with the CLI slice."""
-        raise NotImplementedError("predict and its overlay drawing come with the CLI slice")
+        """Library entry point (deepfake_detection.py:588-686): every face,
+        the annotated frame. frame_count increments before the forensics
+        (library semantics; the server path increments after). Returns
+        (annotated frame, trigger_forensic, forensic frame or None,
+        result_data)."""
+        self.frame_count += 1
+        frame_forensic = self.analyze_frame_forensics(frame_bgr)
+        faces = self.face_detector(frame_bgr)
+
+        trigger_forensic = False
+        forensic_frame = None
+        face_results = []
+        confidence_level = "UNCERTAIN"
+        frame = frame_bgr.copy()
+        self.last_gradcams = []
+
+        if len(faces) > 0:
+            for (x, y, w, h) in faces:
+                fake_prob, _, cam = self.analyze_face(frame_bgr[y:y + h, x:x + w])
+                if fake_prob is None:
+                    continue
+                if cam is not None:
+                    self.last_gradcams.append(((x, y, w, h), cam))
+                if self.cfg.fuse_forensics:
+                    vote_prob = (self.cfg.face_weight * fake_prob
+                                 + self.cfg.forensic_weight * frame_forensic["fake_probability"])
+                else:
+                    vote_prob = fake_prob   # reference: face-only (:620-623)
+                self.temporal_tracker.update(vote_prob)
+                confidence_level = self.temporal_tracker.get_confidence_level()
+                if self.temporal_tracker.should_trigger_forensic_analysis():
+                    trigger_forensic = True
+                    forensic_frame = frame_bgr.copy()
+                frame = self._draw_overlay(frame, x, y, w, h, fake_prob, confidence_level)
+                face_results.append({
+                    "face_prob": float(fake_prob),
+                    "combined_prob": float(vote_prob),
+                    "bbox": {"x": int(x), "y": int(y), "w": int(w), "h": int(h)},
+                })
+        else:
+            frame_fake_prob = frame_forensic["fake_probability"]
+            self.temporal_tracker.update(frame_fake_prob)
+            confidence_level = self.temporal_tracker.get_confidence_level()
+            if self.temporal_tracker.should_trigger_forensic_analysis():
+                trigger_forensic = True
+                forensic_frame = frame_bgr.copy()
+            frame = self._draw_frame_overlay(frame, frame_fake_prob, confidence_level,
+                                             frame_forensic)
+
+        result_data = {
+            "frame_count": self.frame_count,
+            "faces_detected": len(faces),
+            "face_results": face_results,
+            "frame_forensic": frame_forensic,
+            "confidence_level": (confidence_level if faces or self.frame_count > 1
+                                 else "UNCERTAIN"),
+            "temporal_average": float(self.temporal_tracker.get_temporal_average()),
+            "stability_score": float(self.temporal_tracker.get_stability_score()),
+            "analysis_mode": "face+frame" if len(faces) > 0 else "frame_only",
+        }
+        return frame, trigger_forensic, forensic_frame, result_data
+
+    # ---------------------------------------------------------------- drawing
+
+    @staticmethod
+    def get_box_color(confidence_level: str):
+        return (0, 0, 255) if confidence_level == "FAKE" else (0, 255, 0)
+
+    def _draw_overlay(self, frame, x, y, w, h, fake_prob, confidence_level):
+        """The face box, its label on a filled band and the vote counts
+        (deepfake_detection.py:559-586)."""
+        color = self.get_box_color(confidence_level)
+        draw.rectangle(frame, (x, y), (x + w, y + h), color, 3)
+        stats = self.temporal_tracker.get_voting_stats()
+        if confidence_level == "FAKE":
+            label = f"FAKE (Frame: {fake_prob*100:.0f}%)"
+        else:
+            label = f"REAL (Frame: {(1-fake_prob)*100:.0f}%)"
+        (tw, _), _ = draw.get_text_size(label, 0.7, 2)
+        draw.rectangle(frame, (x, y - 30), (x + tw + 10, y), color, -1)
+        draw.put_text(frame, label, (x + 5, y - 10), 0.7, (255, 255, 255), 2)
+        if stats["total_frames"] > 0:
+            info = (f"Votes: F:{stats['fake_count']} R:{stats['real_count']} "
+                    f"(Last {stats['total_frames']} frames)")
+            draw.put_text(frame, info, (x, y + h + 20), 0.5, color, 1)
+        return frame
+
+    def _draw_frame_overlay(self, frame, fake_prob, confidence_level, forensic):
+        """The whole-frame verdict when no face is found
+        (deepfake_detection.py:688-726)."""
+        h, w = frame.shape[:2]
+        if confidence_level == "FAKE":
+            color, label = (0, 0, 255), f"SUSPICIOUS ({fake_prob*100:.0f}%)"
+        elif confidence_level == "REAL":
+            color, label = (0, 255, 0), f"AUTHENTIC ({(1-fake_prob)*100:.0f}%)"
+        else:
+            color, label = (0, 200, 255), f"ANALYZING ({fake_prob*100:.0f}%)"
+        draw.rectangle(frame, (2, 2), (w - 2, h - 2), color, 2)
+        overlay = draw.rectangle(frame.copy(), (0, 0), (w, 30), color, -1)
+        frame[...] = draw.add_weighted(overlay, 0.6, frame, 0.4, 0)
+        draw.put_text(frame, f"[Frame Analysis] {label}", (10, 20), 0.5, (255, 255, 255), 1)
+        s = forensic.get("scores", {})
+        txt = " | ".join([f"FFT:{s.get('frequency', 0)*100:.0f}",
+                          f"Noise:{s.get('noise', 0)*100:.0f}",
+                          f"ELA:{s.get('ela', 0)*100:.0f}",
+                          f"Edge:{s.get('edge', 0)*100:.0f}"])
+        draw.put_text(frame, txt, (10, h - 15), 0.35, color, 1)
+        return frame
+
+
+_default_detector: Optional[DeepfakeDetector] = None
+
+
+def get_default_detector() -> DeepfakeDetector:
+    """The module-level detector with the reference's defaults
+    (deepfake_detection.py:730-736), built at its first use on the CUDA
+    card (raising without one)."""
+    global _default_detector
+    if _default_detector is None:
+        _default_detector = DeepfakeDetector(
+            use_tta=False, num_tta_augmentations=1, detection_threshold=0.5)
+    return _default_detector
+
+
+def predict(frame):
+    """Legacy shim (deepfake_detection.py:739-742): the annotated frame."""
+    result_frame, _, _, _ = get_default_detector().predict(frame)
+    return result_frame
+
+
+def predict_with_forensics(frame):
+    """Legacy shim (deepfake_detection.py:745-747)."""
+    return get_default_detector().predict(frame)

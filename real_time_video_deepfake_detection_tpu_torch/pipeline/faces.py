@@ -20,6 +20,11 @@ ladder's rungs, in order:
   5. an empty list.
 
 Same contract as the reference: a list of (x, y, w, h) int tuples.
+
+Also the reference's module-level helpers, as in the JAX package:
+`detect_bounding_box` (a shared default detector, which runs on the CUDA
+card when it holds an SSD), `extract_face_region`, `draw_bounding_boxes`
+(ops/draw.py's cv2-exact rectangle) and `detect_and_extract_faces`.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch
 
 from ..models import haar_cascade
 from ..models.heuristic_face import detect_heuristic
+from ..ops import draw
 
 Box = Tuple[int, int, int, int]
 
@@ -117,3 +123,46 @@ class FaceDetector:
             except Exception:   # reference: a rung's exception falls through
                 continue
         return []
+
+
+_default_detector: Optional[FaceDetector] = None
+
+
+def detect_bounding_box(frame: np.ndarray, confidence_threshold: float = 0.5) -> List[Box]:
+    """The reference's module-level API (face_detection.py:37-68): faces of
+    a shared default detector, built at the first call (and again when the
+    threshold changes); a list of (x, y, w, h)."""
+    global _default_detector
+    if (_default_detector is None
+            or _default_detector.confidence_threshold != confidence_threshold):
+        _default_detector = FaceDetector(confidence_threshold=confidence_threshold)
+    return _default_detector(frame)
+
+
+def extract_face_region(frame: np.ndarray, box: Box, padding: int = 0) -> np.ndarray:
+    """The box grown by `padding` on each side, clipped to the frame
+    (face_detection.py:145-168); a view of `frame`."""
+    x, y, w, h = box
+    x0, y0 = max(0, x - padding), max(0, y - padding)
+    x1 = min(frame.shape[1], x + w + padding)
+    y1 = min(frame.shape[0], y + h + padding)
+    return frame[y0:y1, x0:x1]
+
+
+def draw_bounding_boxes(frame: np.ndarray, faces: List[Box], color=(0, 255, 0),
+                        thickness: int = 2) -> np.ndarray:
+    """A copy of the frame with the face boxes drawn as cv2.rectangle draws
+    them (face_detection.py:125-143)."""
+    out = frame.copy()
+    for (x, y, w, h) in faces:
+        draw.rectangle(out, (x, y), (x + w, y + h), color, thickness)
+    return out
+
+
+def detect_and_extract_faces(frame: np.ndarray, padding: int = 10,
+                             detector: Optional[FaceDetector] = None):
+    """(faces, crops): detect, then crop every face with `padding`
+    (face_detection.py:170-188)."""
+    det = detector or FaceDetector()
+    faces = det(frame)
+    return faces, [extract_face_region(frame, b, padding) for b in faces]

@@ -148,3 +148,28 @@ def test_chip_smoke_alone_fails_without_result(tmp_path):
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+def test_video_entry_points_import_neither_jax_nor_cv2():
+    """The video modules (reader and writer, encoder, drawing, the analyzer,
+    the clip-head CLI, the data tools) load without jax, cv2 or the JAX
+    package, and the walk of test_every_port_module_imports_without_jax
+    covers them."""
+    new = ["utils.video", "utils.jpeg_encode", "ops.draw", "ops.hershey", "cli.analyze",
+           "train.clip_head", "data_tools.face_extract", "data_tools.dfdc_process"]
+    mods = [f"{port.__name__}.{m}" for m in new]
+    assert set(mods) <= set(_port_modules())
+    code = (
+        "import sys, importlib\n"
+        "for blocked in ('jax', 'cv2', 'PIL'):\n"
+        "    sys.modules[blocked] = None\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m, v in sys.modules.items() if v is not None and (\n"
+        "       m.split('.')[0] in ('jax', 'jaxlib', 'cv2')\n"
+        "       or m.startswith('real_time_video_deepfake_detection_tpu.'))]\n"
+        "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=REPO))
+    assert r.returncode == 0, r.stderr[-2000:]
