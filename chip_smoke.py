@@ -201,9 +201,32 @@ in phases, each printing one JSON line:
               data_tools/face_extract.preextract of the train videos with
               the synthetic SSD on the card and on the CPU: the same JPEG
               files byte for byte; crops/s
+ 19. final    the last modules: (a) TemporalHead.forward_blockwise at the
+              config-5 head's width (768 features, dim 256, depth 2, 4
+              heads, window 64) over 4 streams x 4,096 frames, block 63,
+              card against CPU within 1e-5, and its ms; (b) the
+              tensor-parallel forward (parallel/tensor_parallel.py) of
+              ViT-B/16 at bucket 64 on a 2x2 mesh and ViT-L/16 at bucket
+              16 on 1x2, every entry cuda:0, against the unsharded forward
+              within 2e-4, both timed in turns; (c) the DCT-scaled decode:
+              every accepted fixture at every M a hint selects on the card
+              against tests/data/torch_jpeg/scaled_digests.json (JAX's
+              libjpeg output); 1920x1080 and 2560x1440 JPEGs of the
+              capture frames (utils/jpeg_encode, q85; M = 6 and 4 at
+              480x640): the scaled pooled decode and the bucket-16 detect
+              tick card against CPU, device-detect serving over HTTP with
+              and without ingest_scaled_decode in turns (16 streams x 8
+              frames, every answer 200, all four kernels launched), and
+              bench_prep_scaling's fast1 against exact at one thread for
+              each size; (d) the JAX dry run's section 1b: 2 gloo ranks on
+              cuda:0, one data-parallel step of B0 at 224 (global batch
+              32), save_checkpoint_dcp, a state of other weights restored
+              onto a template, one more step of both: equal bit for bit;
+              (e) cli/fetch_weights --list and --dry-run, nothing fetched
 
 then a `{"kernels": [...]}` line (launches: the wire phase's coef run;
-launches_sharded_tick: one sharded serving tick of two shards) and, last,
+launches_sharded_tick: one sharded serving tick of two shards;
+launches_final: the final phase's first scaled-decode serving run) and, last,
 `{"ok": true, "device": ...}`.
 Any failed phase makes it exit non-zero without the last line. It needs a
 CUDA device and the repository checkout around it.
@@ -3446,25 +3469,34 @@ def _sharded_detect(ctx):
     return out
 
 
-def _dp_state(device):
-    """Full-size B0 at 224 with TrainConfig's defaults, seeded, its train
-    state on `device`."""
+def _dp_state(device, seed=SEED):
+    """Full-size B0 at 224 with TrainConfig's defaults, its weights from
+    `seed`, its train state on `device`."""
     import torch
     from real_time_video_deepfake_detection_tpu_torch.core.config import TrainConfig
     from real_time_video_deepfake_detection_tpu_torch.models import backbones
     from real_time_video_deepfake_detection_tpu_torch.train import steps
     spec = backbones.make("b0")
-    model = backbones.build_model(spec, torch.Generator().manual_seed(SEED)).to(device)
+    model = backbones.build_model(spec, torch.Generator().manual_seed(seed)).to(device)
     return steps.init_train_state(model, spec, TrainConfig(batch_size=DP_BATCH),
                                   total_steps=1000, seed=SEED)
 
 
 def _dp_steps(state, step, imgs, labels, device):
     """DP_STEPS compared steps, then DP_TIMED timed ones: (metrics, wall ms
-    of each timed step, the state's leaves after the compared steps)."""
+    of each timed step, the state's leaves after the compared steps). The
+    compared steps run PyTorch's own convolutions, cuDNN off: cuDNN picks
+    each convolution's algorithm by the workspace its allocator has cached
+    at that moment, which differs from run to run in the gloo ranks (their
+    copies run on side streams), and at batch 16 and 32 the picks differ in
+    rounding; the first Adam steps turn that into sign flips of near-zero
+    gradients (head.conv's delta 3.3e-2 relative from the one-process
+    step's in some runs, 1.3e-3 in others, on an H100 80GB). The timed
+    steps run with cuDNN."""
     import torch
-    metrics = [{k: float(v) for k, v in step(state, imgs, labels).items()}
-               for _ in range(DP_STEPS)]
+    with torch.backends.cudnn.flags(enabled=False):
+        metrics = [{k: float(v) for k, v in step(state, imgs, labels).items()}
+                   for _ in range(DP_STEPS)]
     after = ({k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()},
              {k: v.detach().cpu().clone() for k, v in state.ema.items()})
     walls = []
@@ -3949,6 +3981,372 @@ def phase_video(ctx):
 
 
 
+# ------------------------------------------------------------------- final
+
+FINAL_CLIP = (4, 4096, 63)   # streams, frames (two minutes at ~30 fps), block
+FINAL_TP = (("vit_b16", 64, (2, 2)), ("vit_l16", 16, (1, 2)))   # name, bucket, dp x tp
+FINAL_SIZES = ((1080, 1920), (1440, 2560))   # decode at M = 6 and M = 4 for 480x640
+FINAL_STREAMS, FINAL_FRAMES = 16, 8
+
+
+def _final_blockwise():
+    """(a) TemporalHead.forward_blockwise at config 5's head width over a
+    4,096-frame clip of 4 streams, block 63 (one stream with a masked tail,
+    one with every third frame masked, one whose first 8 windows are
+    wholly masked), on the card against the CPU within 1e-5; ms on the
+    card."""
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.models.temporal_head import (
+        TemporalHead, TemporalHeadSpec)
+    n, t, block = FINAL_CLIP
+    spec = TemporalHeadSpec(feature_dim=768, dim=256, depth=2, heads=4, window=64)
+    head = TemporalHead(spec, torch.Generator().manual_seed(SEED + 1)).eval()
+    feats = torch.randn((n, t, spec.feature_dim), generator=torch.Generator().manual_seed(SEED + 3))
+    mask = torch.ones((n, t), dtype=torch.bool)
+    mask[1, 3000:] = False
+    mask[2, ::3] = False
+    mask[3, :8 * block] = False
+    with torch.no_grad():
+        want = head.forward_blockwise(feats, mask, block=block)
+        head, fg, mg = head.cuda(), feats.cuda(), mask.cuda()
+        got = head.forward_blockwise(fg, mg, block=block).cpu()
+        diff = float((got - want).abs().max())
+        if not diff <= 1e-5:
+            raise AssertionError(f"blockwise head: card against CPU {diff} > 1e-5")
+        ms = time_cuda(lambda: head.forward_blockwise(fg, mg, block=block), n=5, warmup=1)
+        _, busy, acts, _ = profile_device(lambda: head.forward_blockwise(fg, mg, block=block), 2)
+    return {"streams": n, "frames": t, "block": block, "windows": -(-t // block),
+            "spec": dataclasses.asdict(spec), "max_abs_diff_vs_cpu": diff, "tolerance": 1e-5,
+            "logits": got.tolist(), "event_ms": ms, "device_busy_ms": busy,
+            "device_activities": acts}
+
+
+def _final_tp():
+    """(b) The tensor-parallel forward (parallel/tensor_parallel.py) of
+    ViT-B/16 at bucket 64 on a 2x2 mesh and of ViT-L/16 at bucket 16 on
+    1x2, every entry cuda:0, against the unsharded forward within 2e-4
+    (JAX's tolerance); event and device ms of both."""
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.models import backbones
+    from real_time_video_deepfake_detection_tpu_torch.parallel.mesh import gather, grid_mesh
+    from real_time_video_deepfake_detection_tpu_torch.parallel.tensor_parallel import (
+        make_tp_forward)
+    out = {}
+    for name, b, shape in FINAL_TP:
+        model = backbones.build_model(backbones.make(name),
+                                      torch.Generator().manual_seed(SEED)).cuda().eval()
+        x = torch.randn((b, 224, 224, 3), generator=torch.Generator().manual_seed(SEED + 4))
+        x = x.cuda()
+        fwd = make_tp_forward(grid_mesh(["cuda:0"] * (shape[0] * shape[1]), shape), model)
+
+        def unsharded():
+            with torch.no_grad():
+                return model(x)
+
+        want, got = unsharded(), gather(fwd(x))
+        diff = float((got - want).abs().max())
+        if not diff <= 2e-4:
+            raise AssertionError(f"TP {name}: against the unsharded forward {diff} > 2e-4")
+        timing = {}
+        for label, fn in (("unsharded", unsharded), ("tp", lambda: fwd(x)),
+                          ("tp", lambda: fwd(x)), ("unsharded", unsharded)):
+            _, busy, acts, _ = profile_device(fn, 2)
+            timing.setdefault(label, []).append({"event_ms": time_cuda(fn, n=5, warmup=1),
+                                                 "device_ms": busy, "device_activities": acts})
+        out[name] = {"bucket": b, "mesh": list(shape), "max_abs_diff": diff,
+                     "tolerance": 2e-4, "timing": timing}
+        del model, fwd, x
+        torch.cuda.empty_cache()
+    return out
+
+
+def _big_jpegs(net):
+    """{(h, w): [per stream, FINAL_FRAMES JPEGs]}: the capture frames of
+    FINAL_STREAMS // 2 streams, each resized (cv2's INTER_LINEAR) to h x w
+    and encoded at q85 (utils/jpeg_encode, cv2.imencode's stream)."""
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.ops.resize import resize_bilinear_u8_cv2
+    from real_time_video_deepfake_detection_tpu_torch.utils.jpeg_encode import encode_jpeg
+    half = FINAL_STREAMS // 2
+    _, frames = _capture_frames(half, FINAL_FRAMES, net)
+    out = {}
+    for h, w in FINAL_SIZES:
+        out[(h, w)] = [[encode_jpeg(resize_bilinear_u8_cv2(torch.from_numpy(f), h, w).numpy(), 85)
+                        for f in frames[s]] for s in range(half)]
+    return out
+
+
+def _final_digests():
+    """(c1) Every accepted fixture at every scale M a size hint selects,
+    reconstructed on the card: the digests of JAX's native libjpeg decode
+    (tests/data/torch_jpeg/scaled_digests.json)."""
+    import hashlib
+    from real_time_video_deepfake_detection_tpu_torch.utils.jpeg_ingest import (
+        decode_coefs, reconstruct)
+    with open(os.path.join(JPEG_DIR, "scaled_digests.json")) as fh:
+        ref = json.load(fh)
+    n = 0
+    for name, scales in ref["files"].items():
+        with open(os.path.join(JPEG_DIR, name), "rb") as fh:
+            jc = decode_coefs(fh.read())
+        for m, entry in scales.items():
+            img = reconstruct([jc], "cuda", scale=int(m)).cpu().numpy()[0]
+            if list(img.shape) != entry["shape"] or \
+                    hashlib.sha256(img.tobytes()).hexdigest() != entry["sha256"]:
+                raise AssertionError(f"scaled decode of {name} at M={m} differs from libjpeg's")
+            n += 1
+    return {"decodes_equal_to_libjpeg": n, "files": len(ref["files"]),
+            "libjpeg_turbo": ref["libjpeg_turbo"]}
+
+
+def _final_tick_parity(ctx, net_files, streams):
+    """(c3) One bucket-16 tick of the JPEGs' first frames: the pooled scaled
+    decode (frames_at) and the detect tick on the card against the CPU:
+    frames byte for byte, outputs and states as detect-parity holds them."""
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.models import backbones
+    from real_time_video_deepfake_detection_tpu_torch.models.caffe_net import CaffeNet
+    from real_time_video_deepfake_detection_tpu_torch.serving.batcher import (
+        init_stream_states, make_device_step_detect)
+    from real_time_video_deepfake_detection_tpu_torch.state.tree import tree_leaves
+    from real_time_video_deepfake_detection_tpu_torch.utils.jpeg_ingest import (
+        decode_coefs_batch, frames_at)
+    cfg = _detect_cfg()
+    coefs = decode_coefs_batch([s[0] for s in streams])
+    b = len(coefs)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        model = backbones.build_model(backbones.make("b0")).eval()
+        model.load_state_dict(backbone_state(ctx))
+        step = make_device_step_detect(CaffeNet(*net_files).to(dev).eval(), model.to(dev), cfg)
+        frames = frames_at(coefs, dev, (480, 640), scaled=True)
+        active = torch.ones(b, dtype=torch.bool, device=dev)
+        slot_idx = torch.arange(b, dtype=torch.int32, device=dev)
+        out, st = step(frames, active, slot_idx, init_stream_states(b + 1, cfg, dev))
+        outs[dev] = (frames.cpu(), {k: v.cpu() for k, v in out.items()},
+                     [t.cpu() for t in tree_leaves(st)])
+    (fc, oc, sc), (fg, og, sg) = outs["cpu"], outs["cuda"]
+    if not torch.equal(fc, fg):
+        raise AssertionError(f"scaled decode: {int((fc != fg).sum())} bytes differ card/CPU")
+    worst = 0.0
+    pairs = [(k, oc[k], og[k]) for k in oc] + [(f"state{i}", a, g)
+                                              for i, (a, g) in enumerate(zip(sc, sg))]
+    for k, a, g in pairs:
+        if a.dtype.is_floating_point:
+            d = float((a - g).abs().max()) if a.numel() else 0.0
+            worst = max(worst, d)
+            if not d <= 1e-4:
+                raise AssertionError(f"scaled tick {k}: max abs diff {d} > 1e-4")
+        elif not torch.equal(a, g):
+            raise AssertionError(f"scaled tick {k}: {int((a != g).sum())} integers differ")
+    return {"bucket": b, "frames_equal": True, "max_float_diff": worst, "tolerance": 1e-4,
+            "faces": int(oc["has_face"].sum())}
+
+
+def _final_serve(ctx, net_files, streams, scaled):
+    """(c2) create_batched_app over the device-detect engine (clahe_device)
+    on 127.0.0.1, FINAL_STREAMS client threads each posting its
+    FINAL_FRAMES JPEGs back to back, with or without ingest_scaled_decode:
+    every answer 200 with the schema and frame_count, every kernel
+    launched in the run, frames/s and the request p50/p99."""
+    import numpy as np
+    from real_time_video_deepfake_detection_tpu_torch.core.config import ServerConfig
+    from real_time_video_deepfake_detection_tpu_torch.models.caffe_net import CaffeNet
+    from real_time_video_deepfake_detection_tpu_torch.serving.multi import (
+        MultiStreamEngine, create_batched_app)
+    scfg = ServerConfig(max_streams=64, max_batch=64, device_detect=True,
+                        ingest_scaled_decode=scaled)
+    engine = MultiStreamEngine(_detect_cfg(), scfg, params=backbone_state(ctx), device="cuda",
+                               ssd_net=CaffeNet(*net_files))
+    results = {s: [] for s in range(len(streams))}
+    lat, errors = [], []
+    op = _client()
+    with _serving(create_batched_app(engine, scfg)) as url:
+        def client(s):
+            try:
+                for jpeg in streams[s]:
+                    st, r, sec = _http(op, url + "/analyze", jpeg, sid=f"stream-{s}")
+                    results[s].append((st, r))
+                    lat.append(sec * 1e3)
+            except Exception as e:   # reported below; the phase fails on it
+                errors.append(f"stream {s}: {type(e).__name__}: {e}")
+
+        _reset_launches()
+        t0 = time.time()
+        threads = [threading.Thread(target=client, args=(s,)) for s in range(len(streams))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.time() - t0
+        launches = _read_launches()
+    engine.shutdown()
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"clients failed: {errors[:3]}")
+    problems = [f"stream {s} frame {t}: {st} {r}" for s, rs in results.items()
+                for t, (st, r) in enumerate(rs)
+                if st != 200 or _SCHEMA - set(r) or r.get("frame_count") != t + 1]
+    problems += [f"kernel {k} was not launched" for k, n in launches.items() if n <= 0]
+    if problems:
+        raise AssertionError("scaled serve: " + "; ".join(problems[:6]))
+    n = sum(len(rs) for rs in results.values())
+    return {"scaled_decode": scaled, "requests": n, "frames_per_s": n / wall, "wall_s": wall,
+            "latency_ms_p50": float(np.percentile(lat, 50)),
+            "latency_ms_p99": float(np.percentile(lat, 99)), "launches": launches,
+            "frames_with_face": sum("face_bbox" in r for rs in results.values() for _, r in rs),
+            "ewma_host_prep_ms": engine.metrics["ewma_host_prep_ms"],
+            "ticks": engine.metrics["ticks"]}
+
+
+def _final_scaled(ctx):
+    """(c) The DCT-scaled decode: the card against libjpeg's digests; the
+    scaled detect tick card against CPU; device-detect serving of 1080p
+    and 1440p JPEGs with and without it, in turns; the bench's pooled
+    decode at one thread, exact against fast1, for each size."""
+    from real_time_video_deepfake_detection_tpu_torch.cli.bench import bench_prep_scaling
+    from real_time_video_deepfake_detection_tpu_torch.models.caffe_net import CaffeNet
+    from real_time_video_deepfake_detection_tpu_torch.ops.jpeg_scaled import pick_scale
+    digests = _final_digests()
+    net_files = _ssd_files(ctx)
+    big = _big_jpegs(CaffeNet(*net_files).cuda().eval())
+    streams = [s for size in FINAL_SIZES for s in big[size]]
+    scales = {f"{h}x{w}": pick_scale(h, w, 2 * 640) for h, w in FINAL_SIZES}
+    parity = _final_tick_parity(ctx, net_files, streams)
+    serve = [_final_serve(ctx, net_files, streams, scaled)
+             for scaled in (True, False, False, True)]
+    ctx["final_launches"] = serve[0]["launches"]
+    prep = {f"{h}x{w}": bench_prep_scaling(
+                n=FINAL_STREAMS, threads=(1,), repeats=3, device="cuda",
+                jpegs=[j for s in big[(h, w)] for j in s], hw=(480, 640))
+            for h, w in FINAL_SIZES}
+    return {"scales_at_capture_480x640": scales, "digests": digests, "tick_parity": parity,
+            "serve_in_turns": serve, "prep_scaling_ms": prep}
+
+
+def _flat_tensors(tree, prefix=""):
+    """{path: tensor} of the tensors of a nested state dict."""
+    import torch
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_tensors(v, f"{prefix}{k}."))
+        return out
+    if isinstance(tree, (list, tuple)):
+        return _flat_tensors(dict(enumerate(tree)), prefix)
+    return {prefix[:-1]: tree} if isinstance(tree, torch.Tensor) else {}
+
+
+def _dcp_rank(device, crops, ckdir):
+    """One rank of (d): one data-parallel fused step of full-size B0 on its
+    shard, save_checkpoint_dcp, a state of other weights restored onto a
+    template of the live one (equal to it, every tensor of the train state
+    bit for bit), then one more step of both. The step runs with torch's
+    deterministic algorithms, so that two runs of it from equal states can
+    be held to each other bit for bit."""
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.parallel import mesh as P
+    from real_time_video_deepfake_detection_tpu_torch.train import checkpoint as CK
+    from real_time_video_deepfake_detection_tpu_torch.train import steps
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    state = _dp_state(device)
+    b = DP_BATCH // P.world_size()
+    rows = slice(P.rank() * b, (P.rank() + 1) * b)
+    imgs = torch.from_numpy(crops[rows]).to(device)
+    labels = torch.tensor([0.0, 1.0] * (DP_BATCH // 2))[rows].to(device)
+    step = steps.make_sharded_train_step(steps.fused_train_step)
+    step(state, imgs, labels)
+    saved_rng = state.gen_host.get_state()
+    t0 = time.perf_counter()
+    CK.save_checkpoint_dcp(ckdir, state.state_dict(), {"step": 1}, saved_rng)
+    save_s = time.perf_counter() - t0
+    restored = _dp_state(device, seed=SEED + 7)
+    t0 = time.perf_counter()
+    sd, meta, rng = CK.load_checkpoint_dcp(ckdir, CK.template_like(state.state_dict()))
+    restored.load_state_dict(sd)
+    load_s = time.perf_counter() - t0
+
+    def differing():
+        a, b_ = _flat_tensors(state.state_dict()), _flat_tensors(restored.state_dict())
+        return sorted(k for k in a if k not in b_ or not torch.equal(a[k], b_[k]))
+
+    before = differing()
+    n_tensors = len(_flat_tensors(state.state_dict()))
+    m_live = {k: float(v) for k, v in step(state, imgs, labels).items()}
+    m_rest = {k: float(v) for k, v in step(restored, imgs, labels).items()}
+    after = differing()
+    return {"rank": P.rank(), "metrics_live": m_live, "metrics_restored": m_rest,
+            "train_state_tensors": n_tensors, "differing_after_restore": before[:8],
+            "differing_after_next_step": after[:8], "meta": meta,
+            "rng_restored": bool(torch.equal(rng, saved_rng)),
+            "save_s": save_s, "load_s": load_s,
+            "files": sorted(os.listdir(os.path.join(ckdir, "state")))}
+
+
+def _final_checkpoint():
+    """(d) The JAX dry run's section 1b on 2 gloo ranks of cuda:0: the
+    resumed step equals the uninterrupted one bit for bit."""
+    from real_time_video_deepfake_detection_tpu_torch.parallel import mesh as P
+    crops = _train_crops(DP_BATCH, 244, SEED)
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_dcp_")
+    try:
+        threads = max(1, (os.cpu_count() or 2) // len(SHARD_MESH))
+        t0 = time.time()
+        ranks = P.spawn(_dcp_rank, list(SHARD_MESH), args=(crops, os.path.join(ckdir, "ck")),
+                        backend="gloo", timeout=600, num_threads=threads)
+        spawn_s = time.time() - t0
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    for r in ranks:
+        if r["differing_after_restore"] or r["differing_after_next_step"] \
+                or r["metrics_live"] != r["metrics_restored"] \
+                or r["meta"] != {"step": 1} or not r["rng_restored"]:
+            raise AssertionError(f"dcp: rank {r['rank']} resumed differently: {r}")
+    return {"ranks": ranks, "backend": "gloo", "global_batch": DP_BATCH,
+            "spawn_and_run_seconds": spawn_s}
+
+
+def _final_fetchers():
+    """(e) cli/fetch_weights --list and --dry-run: nothing is fetched."""
+    import io
+    from real_time_video_deepfake_detection_tpu_torch.cli import fetch_weights
+    out = {}
+    dest = tempfile.mkdtemp(prefix="chip_smoke_weights_")
+    try:
+        for label, argv in (("list", ["--list"]), ("dry_run", ["--dry-run", "--dest", dest])):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                fetch_weights.main(argv)
+            out[label] = buf.getvalue().splitlines()
+        if os.listdir(dest):
+            raise AssertionError(f"--dry-run wrote {os.listdir(dest)}")
+    finally:
+        shutil.rmtree(dest, ignore_errors=True)
+    if len(out["list"]) != 7 or any("would fetch" not in line and "[skip]" not in line
+                                    for line in out["dry_run"]):
+        raise AssertionError(f"fetch_weights: {out}")
+    return out
+
+
+def phase_final(ctx):
+    """The last modules: (a) the blockwise clip head, (b) the
+    tensor-parallel ViT, (c) the DCT-scaled decode, (d) the sharded-state
+    checkpoint, (e) the fetchers; each part's dict on a line of its own as
+    it ends."""
+    seconds = {}
+    for key, fn in (("blockwise_head", _final_blockwise), ("tensor_parallel", _final_tp),
+                    ("scaled_decode", lambda: _final_scaled(ctx)),
+                    ("dcp_checkpoint", _final_checkpoint), ("fetchers", _final_fetchers)):
+        t0 = time.time()
+        info = fn()
+        seconds[key] = time.time() - t0
+        emit({"final_part": key, "seconds": seconds[key], "card": ctx["smi"], **info})
+    return {"card": ctx["smi"], "part_seconds": seconds}
+
+
 PHASES = (("device", phase_device), ("build", phase_build),
           ("kernels", phase_kernels), ("serve", phase_serve),
           ("parity", phase_parity), ("detect-serve", phase_detect_serve),
@@ -3956,7 +4354,7 @@ PHASES = (("device", phase_device), ("build", phase_build),
           ("http", phase_http), ("wire", phase_wire), ("haar", phase_haar),
           ("mtcnn", phase_mtcnn), ("clip", phase_clip), ("train", phase_train),
           ("detector", phase_detector), ("sharded", phase_sharded),
-          ("bench", phase_bench), ("video", phase_video))
+          ("bench", phase_bench), ("video", phase_video), ("final", phase_final))
 
 
 def main() -> int:
@@ -4005,7 +4403,9 @@ def main() -> int:
         kernels.append({key: v[key] for key in (
             "name", "route", "source", "replaces")} | {"launches": ctx["launches"][k],
                                                         "launches_sharded_tick":
-                                                        ctx["sharded_launches"][k]}
+                                                        ctx["sharded_launches"][k],
+                                                        "launches_final":
+                                                        ctx["final_launches"][k]}
             | {key: v[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")})
     emit({"kernels": kernels, "card": ctx["smi"]})

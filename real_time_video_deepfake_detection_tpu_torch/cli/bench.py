@@ -30,7 +30,7 @@ Port of real_time_video_deepfake_detection_tpu/cli/bench.py:
 
 Every tick runs the preprocess and hue kernels (DetectorConfig.
 use_pallas_preproc, use_pallas_color) and, in device-detect mode, the two
-CLAHE kernels. Left out: the DCT-scaled decode; the unit string says so.
+CLAHE kernels.
 The weights are random, from seed 0. Every number is measured in this run
 on the device it names; a phase that fails ends the run with its error and
 a non-zero exit.
@@ -53,7 +53,7 @@ import sys
 import tempfile
 import threading
 import time
-from typing import Optional, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -393,15 +393,20 @@ def capture_jpegs():
 
 
 def bench_prep_scaling(n: int = 64, threads: Tuple[int, ...] = (1, 2, 4), repeats: int = 3,
-                       device: Device = None) -> dict:
-    """Best-of-`repeats` ms to decode one tick's `n` JPEGs: "exact", the
-    full decode (pooled entropy decode on the host at each thread count,
-    then the reconstruction on `device`); "coef1" and "raw4201", the host
-    halves of the coef and ycbcr420 wire planes at one thread. The
-    DCT-scaled decode is not ported."""
+                       device: Device = None, jpegs: Optional[List[bytes]] = None,
+                       hw: Tuple[int, int] = CAPTURE_HW) -> dict:
+    """Best-of-`repeats` ms to decode one tick's `n` JPEGs to `hw`:
+    "exact", the full decode (pooled entropy decode on the host at each
+    thread count, then the reconstruction and, where the size differs, the
+    cv2-exact resize on `device`); "fast1", the same at one thread with
+    libjpeg's DCT-scaled reconstruction (ServerConfig.ingest_scaled_decode);
+    "coef1" and "raw4201", the host halves of the coef and ycbcr420 wire
+    planes at one thread, on the committed capture fixtures (the default
+    `jpegs`, decoded at `hw` = their size) only."""
     from ..utils import jpeg_ingest as J
     dev = resolve_device(device)
-    jpegs = capture_jpegs()
+    fixtures = jpegs is None
+    jpegs = capture_jpegs() if fixtures else jpegs
     datas = [jpegs[i % len(jpegs)] for i in range(n)]
 
     def best(fn):
@@ -412,22 +417,25 @@ def bench_prep_scaling(n: int = 64, threads: Tuple[int, ...] = (1, 2, 4), repeat
             times.append((time.perf_counter() - t0) * 1e3)
         return min(times)
 
-    def exact(t):
+    def decode(t, scaled=False):
         coefs = J.decode_coefs_batch(datas, t)
         refused = [c for c in coefs if isinstance(c, J.JpegError)]
         if refused:
             raise RuntimeError(f"the decoder refused a fixture: {refused[0]}")
-        J.reconstruct(coefs, dev).cpu()
+        J.frames_at(coefs, dev, hw, scaled=scaled).cpu()
 
     def wire(fn):
-        ok = fn(datas, *CAPTURE_HW, n_threads=1)[-1]
+        ok = fn(datas, *hw, n_threads=1)[-1]
         if not ok.all():
             raise RuntimeError("a fixture is not eligible for the wire planes")
 
-    return {"device": device_name(dev), "frames": n,
-            "exact": {t: best(lambda: exact(t)) for t in threads},
-            "coef1": best(lambda: wire(J.decode_coefs_wire_batch)),
-            "raw4201": best(lambda: wire(J.decode_raw420_batch))}
+    out = {"device": device_name(dev), "frames": n,
+           "exact": {t: best(lambda: decode(t)) for t in threads},
+           "fast1": best(lambda: decode(1, scaled=True))}
+    if fixtures and tuple(hw) == CAPTURE_HW:
+        out.update(coef1=best(lambda: wire(J.decode_coefs_wire_batch)),
+                   raw4201=best(lambda: wire(J.decode_raw420_batch)))
+    return out
 
 
 def bench_e2e(n_streams: int = 64, frames_per_stream: int = 5, device_detect: bool = True,
@@ -619,6 +627,7 @@ def _run(dev: torch.device, progress: _Progress) -> dict:
     e2e_txt = "; ".join(f"{r['mode']} {r['fps']:.0f} fps, req p50 {r['req_ms_p50']:.0f} / "
                         f"p95 {r['req_ms_p95']:.0f} ms" for r in e2e)
     prep_txt = (", ".join(f"{v:.1f} ms@{t}thr" for t, v in prep["exact"].items())
+                + f"; opt-in DCT-scaled decode {prep['fast1']:.1f} ms@1thr"
                 + f"; wire host halves at 1 thread: entropy only {prep['coef1']:.1f} ms, "
                   f"raw 4:2:0 {prep['raw4201']:.1f} ms")
     mfu_txt = ""
@@ -641,8 +650,7 @@ def _run(dev: torch.device, progress: _Progress) -> dict:
             f"p50 {mtd['tick_ms_p50']:.1f} ms; classify-only core (pre-staged faces): "
             f"{core['fps']:.0f} fps, "
             f"tick p95 {core['tick_ms_p95']:.1f} ms; e2e from 64 client threads with the "
-            f"480x640 JPEG fixtures: {e2e_txt}; pooled decode of 64 JPEGs: {prep_txt}; not "
-            f"run (not ported yet): the DCT-scaled decode")
+            f"480x640 JPEG fixtures: {e2e_txt}; pooled decode of 64 JPEGs: {prep_txt}")
     return {"metric": "serving_frames_per_sec_per_chip", "value": round(detect["fps"], 1),
             "unit": unit, "vs_baseline": round(detect["fps"] / 10.0, 2),
             "ssd": detect["ssd"], "ssd_bf16_guard": {k: ssd_guard[k] for k in (

@@ -2,6 +2,7 @@
 
   python -m real_time_video_deepfake_detection_tpu_torch.data_tools.dfdc_process --zip ...
   python -m real_time_video_deepfake_detection_tpu_torch.data_tools.face_extract --videos ...
+  python -m real_time_video_deepfake_detection_tpu_torch.data_tools.dfdc_download --parts 10
 
-The JAX package's dfdc_download.py needs the network and is not ported.
+dfdc_download needs the network (and Kaggle credentials) when it runs.
 """

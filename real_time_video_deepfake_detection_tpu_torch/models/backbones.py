@@ -12,7 +12,8 @@ Each module has the same interface: extract_features (B, H, W, 3) ->
 Training (train/steps.py): forward_train runs the module with batch-
 statistic batch norm and returns the new running statistics, which
 update_bn_stats writes after the optimizer step; lr_group labels each
-parameter by name with its optimizer group."""
+parameter by name with its optimizer group. partition_specs gives the
+tensor-parallel spec table of a backbone that has one (the ViT)."""
 
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import torch
 from torch import nn
 
 from .efficientnet import BatchNorm, BNStats, EfficientNet, EfficientNetSpec
-from .vit import ViT, ViTSpec
+from .vit import ViT, ViTSpec, vit_partition_specs
 from .xception import Xception, XceptionSpec
 
 _EFF_NAMES = tuple(f"b{i}" for i in range(8))
@@ -151,3 +152,13 @@ def lr_group(spec, name: str, n_frozen: int) -> str:
                 return "frozen"
             return "backbone"
     raise TypeError(f"not a backbone spec: {type(spec)}")
+
+
+def partition_specs(model: nn.Module, spec):
+    """The PartitionSpec table for a ("data", "model") mesh
+    (models/vit.vit_partition_specs), or None when the backbone has no
+    tensor-parallel sharding (its parameters then replicate), as JAX's
+    partition_specs(params, spec)."""
+    if isinstance(spec, ViTSpec):
+        return vit_partition_specs(spec)
+    return None

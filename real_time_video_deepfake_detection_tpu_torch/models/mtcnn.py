@@ -35,7 +35,7 @@ from __future__ import annotations
 import os
 import threading
 from collections import OrderedDict
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -133,12 +133,13 @@ NET_CLASSES = {"pnet": PNet, "rnet": RNet, "onet": ONet}
 
 
 def build_nets(nets_or_state_dicts: Dict[str, Union[nn.Module, Dict[str, torch.Tensor]]],
-               device: Union[str, torch.device]) -> Dict[str, nn.Module]:
-    """{"pnet", "rnet", "onet"} -> the three modules on `device` in eval
-    mode. A value may be a module or a facenet-keyed state dict (loaded
-    strictly: a missing or unexpected key raises)."""
+               device: Union[str, torch.device],
+               names: Sequence[str] = NETS) -> Dict[str, nn.Module]:
+    """{"pnet", "rnet", "onet"} (or the `names` among them) -> the modules
+    on `device` in eval mode. A value may be a module or a facenet-keyed
+    state dict (loaded strictly: a missing or unexpected key raises)."""
     out = {}
-    for name in NETS:
+    for name in names:
         v = nets_or_state_dicts[name]
         if not isinstance(v, nn.Module):
             m = NET_CLASSES[name]()

@@ -106,6 +106,34 @@ class TemporalHead(nn.Module):
         pooled = torch.einsum("bt,btd->bd", w, x)
         return self.head(pooled)[:, 0]
 
+    def forward_blockwise(self, feats: torch.Tensor, mask: torch.Tensor,
+                          block: int = 256) -> torch.Tensor:
+        """Very long clips (JAX forward_blockwise): scan fixed windows of
+        `block` frames in order, each prefixed by a context frame, the mean
+        of the valid frames of the windows before it, and return the last
+        window's (B,) logits. `block` is capped at window - 1, since the
+        positional table bounds a window's length. T is zero-padded to a
+        multiple of `block` with masked frames; a window with no valid
+        frame keeps the context as it was."""
+        block = min(block, self.spec.window - 1)
+        b, t, fd = feats.shape
+        pad = (-t) % block
+        feats = F.pad(feats, (0, 0, 0, pad))
+        mask = F.pad(mask, (0, pad), value=False)
+        ctx = feats.new_zeros((b, fd))
+        ctx_valid = torch.zeros((b,), dtype=torch.bool, device=feats.device)
+        logit = None
+        for s in range(0, t + pad, block):
+            f, m = feats[:, s:s + block], mask[:, s:s + block]
+            logit = self(torch.cat([ctx[:, None], f], dim=1),
+                         torch.cat([ctx_valid[:, None], m], dim=1))
+            denom = torch.clamp(m.sum(1, keepdim=True), min=1)
+            new_ctx = torch.where(m[..., None], f, 0.0).sum(1) / denom
+            any_valid = m.any(1)
+            ctx = torch.where(any_valid[:, None], new_ctx, ctx)
+            ctx_valid = ctx_valid | any_valid
+        return logit
+
 
 # ----------------------------------------------------- streaming clip state
 

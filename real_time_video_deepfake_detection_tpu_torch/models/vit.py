@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -65,6 +65,16 @@ class ViTSpec:
         return (self.image_size // self.patch) ** 2 + (1 if self.use_cls else 0)
 
 
+def attend(qkv: torch.Tensor, heads: int, hd: int) -> torch.Tensor:
+    """(B, T, 3 * heads * hd) projections in (3, heads, hd) order ->
+    (B, T, heads * hd) per-head softmax(q.k^T/sqrt(hd)).v, heads in order."""
+    b, t, _ = qkv.shape
+    qkv = qkv.view(b, t, 3, heads, hd).permute(2, 0, 3, 1, 4)   # (3, b, h, t, c)
+    q, k, v = qkv[0], qkv[1], qkv[2]
+    attn = torch.softmax((q @ k.transpose(-1, -2)) / math.sqrt(hd), dim=-1)
+    return (attn @ v).transpose(1, 2).reshape(b, t, heads * hd)
+
+
 class _Block(nn.Module):
     def __init__(self, spec: ViTSpec, generator):
         super().__init__()
@@ -96,13 +106,7 @@ class ViT(nn.Module):
         self.head = Linear(d, 1, generator)
 
     def _attention(self, x: torch.Tensor, blk: _Block) -> torch.Tensor:
-        b, t, d = x.shape
-        h = self.spec.heads
-        hd = d // h
-        qkv = blk.qkv(x).view(b, t, 3, h, hd).permute(2, 0, 3, 1, 4)   # (3, b, h, t, c)
-        q, k, v = qkv[0], qkv[1], qkv[2]
-        attn = torch.softmax((q @ k.transpose(-1, -2)) / math.sqrt(hd), dim=-1)
-        return blk.proj((attn @ v).transpose(1, 2).reshape(b, t, d))
+        return blk.proj(attend(blk.qkv(x), self.spec.heads, self.spec.dim // self.spec.heads))
 
     def encode(self, x_nhwc: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) -> (B, n_tokens, dim) tokens after the final LN."""
@@ -131,3 +135,66 @@ class ViT(nn.Module):
 
     def forward(self, x_nhwc: torch.Tensor) -> torch.Tensor:
         return self.apply_head(self.extract_features(x_nhwc))
+
+
+# ------------------------------------------------------ tensor parallelism
+
+def vit_partition_specs(spec: ViTSpec) -> Dict[str, tuple]:
+    """JAX vit_partition_specs (models/vit.py:141-165) keyed by state-dict
+    name: per axis of the leaf's JAX shape, "model" where the leaf is split
+    over the model axis, None elsewhere, () for a replicated leaf. qkv is
+    split by heads, mlp1 by its hidden columns (weight and bias), mlp2 by
+    its hidden rows; proj, the layer norms, patch, pos, cls and head are
+    replicated."""
+    out = {k: () for k in ("patch.w", "patch.b", "pos", "final_ln.scale",
+                           "final_ln.bias", "head.w", "head.b")}
+    if spec.use_cls:
+        out["cls"] = ()
+    for i in range(spec.depth):
+        p = f"blocks.{i}."
+        out.update({p + "ln1.scale": (), p + "ln1.bias": (),
+                    p + "qkv.w": (None, None, "model", None), p + "qkv.b": (None, "model", None),
+                    p + "proj.w": (None, None), p + "proj.b": (),
+                    p + "ln2.scale": (), p + "ln2.bias": (),
+                    p + "mlp1.w": (None, "model"), p + "mlp1.b": ("model",),
+                    p + "mlp2.w": ("model", None), p + "mlp2.b": ()})
+    return out
+
+
+def _jax_shape(spec: ViTSpec, name: str, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+    """The leaf's shape in the JAX tree: qkv's output axis as (3, heads, hd)."""
+    hd = spec.dim // spec.heads
+    if name.endswith("qkv.w"):
+        return (shape[0], 3, spec.heads, hd)
+    if name.endswith("qkv.b"):
+        return (3, spec.heads, hd)
+    return tuple(shape)
+
+
+def shard_state_dict(spec: ViTSpec, state: Dict[str, torch.Tensor], tp: int,
+                     j: int) -> Dict[str, torch.Tensor]:
+    """Model shard j of `tp`: each leaf split along its "model" axis of
+    vit_partition_specs into tp equal contiguous parts, part j kept (for
+    qkv: heads j*H/tp .. (j+1)*H/tp of q, k and v, in the port's flat
+    layout); replicated leaves whole. Raises when heads or the MLP's hidden
+    width does not divide by tp."""
+    hidden = spec.dim * spec.mlp_ratio
+    if spec.heads % tp or hidden % tp:
+        raise ValueError(f"tensor parallelism over {tp} shards needs heads ({spec.heads}) "
+                         f"and the MLP width ({hidden}) to divide by {tp}")
+    out = {}
+    for name, pspec in vit_partition_specs(spec).items():
+        t = state[name]
+        if "model" not in pspec:
+            out[name] = t
+            continue
+        axis = pspec.index("model")
+        v = t.reshape(_jax_shape(spec, name, tuple(t.shape)))
+        n = v.shape[axis] // tp
+        part = v.narrow(axis, j * n, n)
+        if name.endswith("qkv.w"):     # back to the port's (dim, 3 * heads/tp * hd)
+            part = part.reshape(t.shape[0], -1)
+        elif name.endswith("qkv.b"):
+            part = part.reshape(-1)
+        out[name] = part.contiguous()
+    return out

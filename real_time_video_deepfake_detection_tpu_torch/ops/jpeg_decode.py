@@ -16,6 +16,10 @@ bit:
   -> ycc_rgb_convert (grayscale replicated to three channels, as
      IMREAD_COLOR returns it) -> crop to H x W.
 
+`scale=M` below 8 is libjpeg-turbo's DCT-scaled decode at M/8
+(ops/jpeg_scaled.py): each component's scaled IDCT size, the output
+ceil(H*M/8) x ceil(W*M/8), and no fancy filter when M is 1.
+
 Runs on whatever device its tensors are on.
 """
 
@@ -29,6 +33,7 @@ from .jpeg import (
     h1v2_fancy_upsample, h2v1_fancy_upsample, h2v2_fancy_upsample, idct_islow,
     ycbcr_to_bgr_jpeg,
 )
+from .jpeg_scaled import component_sizes, idct_scaled, scaled_dims
 
 
 def _blocks_to_plane_batch(samples: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -66,9 +71,12 @@ def bgr_from_coefs_420(coef_y: torch.Tensor, coef_c: torch.Tensor,
     return bgr_from_ycbcr420(y, c)
 
 
-def _upsample(plane: torch.Tensor, sx: int, sy: int) -> torch.Tensor:
-    """(B, ch, cw) component at its true size, up by (sx, sy) in {1, 2}."""
-    small = plane.shape[-1] <= 2   # jdsample.c: no fancy h2 filter this narrow
+def _upsample(plane: torch.Tensor, sx: int, sy: int, fancy: bool = True) -> torch.Tensor:
+    """(B, ch, cw) component at its true size, up by (sx, sy) in {1, 2}.
+    jdsample.c filters only when `fancy` (the smallest IDCT size is above
+    1) and, across, only a component wider than 2 samples; else it
+    replicates."""
+    small = not fancy or plane.shape[-1] <= 2
     if (sx, sy) == (2, 2):
         if small:
             return plane.repeat_interleave(2, dim=-1).repeat_interleave(2, dim=-2)
@@ -76,28 +84,40 @@ def _upsample(plane: torch.Tensor, sx: int, sy: int) -> torch.Tensor:
     if (sx, sy) == (2, 1):
         return plane.repeat_interleave(2, dim=-1) if small else h2v1_fancy_upsample(plane)
     if (sx, sy) == (1, 2):
-        return h1v2_fancy_upsample(plane)
+        return h1v2_fancy_upsample(plane) if fancy else plane.repeat_interleave(2, dim=-2)
     return plane
 
 
 def bgr_from_components(coefs: Sequence[torch.Tensor], qtabs: torch.Tensor,
                         factors: Sequence[Tuple[int, int]], height: int,
-                        width: int) -> torch.Tensor:
-    """A batch of same-layout streams -> (B, height, width, 3) u8 BGR.
+                        width: int, scale: int = 8) -> torch.Tensor:
+    """A batch of same-layout streams -> (B, ceil(height*scale/8),
+    ceil(width*scale/8), 3) u8 BGR.
 
     coefs[c]: (B, bh_c, bw_c, 64) int16, component c's padded block grid in
     natural order; qtabs (B, n_components, 64); factors[c] = (h_c, v_c).
-    One component is grayscale, three are YCbCr."""
+    One component is grayscale, three are YCbCr. `scale` in 1..8 is
+    libjpeg's scale_num over a scale_denom of 8."""
     hmax = max(h for h, _ in factors)
     vmax = max(v for _, v in factors)
+    sizes = component_sizes(factors, scale)
+    out_h, out_w = scaled_dims(height, width, scale)
     planes = []
     for c, (coef, (h, v)) in enumerate(zip(coefs, factors)):
         b, bh, bw, _ = coef.shape
-        s = samples_from_coefs(coef.reshape(b, bh * bw, 64), qtabs[:, c])
-        plane = _blocks_to_plane_batch(s, bh * 8, bw * 8)
-        ch, cw = -(-height * v // vmax), -(-width * h // hmax)
-        up = _upsample(plane[:, :ch, :cw], hmax // h, vmax // v)
-        planes.append(up[:, :height, :width])
+        k = sizes[c]
+        if scale == 8:
+            s = samples_from_coefs(coef.reshape(b, bh * bw, 64), qtabs[:, c])
+            plane = _blocks_to_plane_batch(s, bh * 8, bw * 8)
+        else:
+            deq = coef.to(torch.int32) * qtabs[:, c].to(torch.int32)[:, None, None, :]
+            blocks = idct_scaled(deq.reshape(b, bh, bw, 8, 8), k)
+            plane = blocks.transpose(2, 3).reshape(b, bh * k, bw * k)
+        ch = -(-height * v * k // (vmax * 8))
+        cw = -(-width * h * k // (hmax * 8))
+        up = _upsample(plane[:, :ch, :cw], hmax * scale // (h * k),
+                       vmax * scale // (v * k), fancy=scale > 1)
+        planes.append(up[:, :out_h, :out_w])
     if len(planes) == 1:
         return planes[0].to(torch.uint8)[..., None].expand(-1, -1, -1, 3).contiguous()
     return ycbcr_to_bgr_jpeg(*planes)

@@ -10,6 +10,10 @@ work; here the two uses are explicit:
   on its entry's device with the model replica bound there, and leave
   outputs and states on their shards until `gather`. Entries may repeat a
   device: [cuda:0, cuda:0] runs the sharded code on one card.
+- Tensor parallelism: a `GridMesh` is a ("data", "model") grid of
+  devices, dp x tp (JAX make_mesh(n, ("data", "model"))). Row i holds data
+  shard i, entry (i, j) model shard j of the weights
+  (parallel/tensor_parallel.py); entries may repeat a device here too.
 - Training: one process per rank of a torch.distributed group (gloo on the
   CPU, nccl on CUDA), each holding the whole model and its shard of the
   global batch (train/steps.make_sharded_train_step). `spawn` starts the
@@ -76,19 +80,61 @@ def as_mesh(mesh: Union[Mesh, Sequence[DeviceLike]]) -> Mesh:
 
 
 def make_mesh(n_devices: Optional[int] = None,
-              device: Optional[DeviceLike] = None) -> Mesh:
+              device: Optional[DeviceLike] = None,
+              axis_names: Sequence[str] = ("data",)) -> Union[Mesh, "GridMesh"]:
     """The first n devices (JAX make_mesh). On CUDA (`device` None or a
     CUDA device): cuda:0..n-1, every visible card when n is None. On the
     CPU (device="cpu"): n entries of cpu, 1 when n is None, the
-    counterpart of the JAX tests' 8-device virtual CPU mesh."""
+    counterpart of the JAX tests' 8-device virtual CPU mesh. With
+    axis_names ("data", "model") the devices form an (n, 1) GridMesh, as
+    JAX's default 2-D shape."""
     dev = resolve_device(device)
     if dev.type != "cuda":
-        return Mesh((dev,) * (n_devices or 1))
-    visible = torch.cuda.device_count()
-    n = n_devices or visible
-    if n > visible:
-        raise ValueError(f"a mesh of {n} devices needs {n} cards; {visible} are visible")
-    return Mesh(tuple(torch.device("cuda", i) for i in range(n)))
+        mesh = Mesh((dev,) * (n_devices or 1))
+    else:
+        visible = torch.cuda.device_count()
+        n = n_devices or visible
+        if n > visible:
+            raise ValueError(f"a mesh of {n} devices needs {n} cards; {visible} are visible")
+        mesh = Mesh(tuple(torch.device("cuda", i) for i in range(n)))
+    if tuple(axis_names) == ("data",):
+        return mesh
+    if tuple(axis_names) != ("data", "model"):
+        raise ValueError(f"axis_names must be ('data',) or ('data', 'model'), not {axis_names}")
+    return grid_mesh(mesh.devices, (len(mesh), 1))
+
+
+@dataclasses.dataclass(frozen=True)
+class GridMesh:
+    """A ("data", "model") grid of devices: rows[i][j] holds model shard j
+    of data shard i. A device may appear more than once."""
+    rows: Tuple[Tuple[torch.device, ...], ...]
+
+    def __post_init__(self):
+        if not self.rows or not self.rows[0] or len({len(r) for r in self.rows}) != 1:
+            raise ValueError("a grid mesh needs equal, non-empty rows")
+        object.__setattr__(self, "rows",
+                           tuple(tuple(_device(d) for d in r) for r in self.rows))
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        """(dp, tp)."""
+        return len(self.rows), len(self.rows[0])
+
+    @property
+    def data(self) -> Mesh:
+        """The "data" axis: row i's first entry, where its inputs and
+        outputs live."""
+        return Mesh(tuple(r[0] for r in self.rows))
+
+
+def grid_mesh(devices: Sequence[DeviceLike], shape: Tuple[int, int]) -> GridMesh:
+    """dp x tp devices in row-major order as a grid (JAX
+    Mesh(np.array(devs).reshape(dp, tp), ("data", "model")))."""
+    dp, tp = shape
+    if len(devices) != dp * tp:
+        raise ValueError(f"a {dp}x{tp} mesh needs {dp * tp} devices, not {len(devices)}")
+    return GridMesh(tuple(tuple(devices[i * tp:(i + 1) * tp]) for i in range(dp)))
 
 
 def _module_device(module) -> Optional[torch.device]:

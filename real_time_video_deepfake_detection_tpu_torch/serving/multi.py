@@ -39,8 +39,11 @@ clip_probability and clip_frames. In host-prep mode
 is the heuristic face rung, the resize aligner and the host CLAHE
 (`_native_prep_eligible`), one GIL-free host call does the whole of it
 (utils/native_prep.prep_frame, csrc/prep_host.cpp); otherwise it decodes
-with the port's decoder and calls `analyze`. Not in this slice (it raises
-NotImplementedError): the scaled decode.
+with the port's decoder and calls `analyze`. With
+ServerConfig.ingest_scaled_decode the device-detect tick's pooled decode
+reconstructs each JPEG at libjpeg's DCT scale M/8, the largest whose
+output still covers twice the capture size, before the resize, as the JAX
+engine's fast decode does (utils/jpeg_ingest.frames_at).
 """
 
 from __future__ import annotations
@@ -64,7 +67,6 @@ from ..models import backbones
 from ..models.caffe_net import CaffeNet
 from ..models.mtcnn import MTCNNAligner
 from ..models.temporal_head import TemporalHead
-from ..ops.resize import resize_bilinear_u8_cv2
 from ..pipeline.detector import _ResizeAligner, preprocess_face_quality
 from ..pipeline.faces import FaceDetector
 from ..state.tracker import (
@@ -74,8 +76,8 @@ from ..state.tracker import (
 from ..state.tree import tree_map
 from ..utils.host_resize import resize_analysis
 from ..utils.jpeg_ingest import (
-    WIRE_PLANES, JpegError, decode_coefs_batch, decode_jpeg, decode_wire_into, log_refusal,
-    reconstruct, wire_buffer, wire_views,
+    WIRE_PLANES, JpegError, decode_coefs_batch, decode_jpeg, decode_wire_into, frames_at,
+    log_refusal, wire_buffer, wire_views,
 )
 from ..utils.native_prep import prep_frame
 from .batcher import (
@@ -181,12 +183,6 @@ def _device_key(device: torch.device) -> tuple:
     return device.type, device.index or 0
 
 
-def _unported(cfg: DetectorConfig, server_cfg: ServerConfig) -> None:
-    if server_cfg.ingest_scaled_decode:
-        raise NotImplementedError("ingest_scaled_decode: libjpeg's DCT-scaled decode "
-                                  "is not ported")
-
-
 class MultiStreamEngine:
     """Owns the stream table, the batched device state and the batcher and
     drainer threads.
@@ -211,7 +207,6 @@ class MultiStreamEngine:
                  face_detector: Optional[FaceDetector] = None,
                  ssd_net: Optional[CaffeNet] = None, aligner=None,
                  clip_head_params: Optional[Dict[str, torch.Tensor]] = None):
-        _unported(cfg, server_cfg)
         _check_ingest_plane(server_cfg)
         self.device = resolve_device(device)
         self.server_cfg = server_cfg
@@ -669,9 +664,10 @@ class MultiStreamEngine:
         """Entropy-decode the tick's JPEGs in one pooled host call, then
         reconstruct each same-layout group as one batch on the engine's
         device and conform it to detect_capture_hw (ops/resize, the JAX
-        package's resize). Refused streams are answered 400 here."""
-        ch, cw = self.server_cfg.detect_capture_hw
-        groups: Dict[tuple, List[Tuple[_Pending, object]]] = {}
+        package's resize), at libjpeg's DCT scale with
+        ingest_scaled_decode. Refused streams are answered 400 here."""
+        hw = tuple(self.server_cfg.detect_capture_hw)
+        kept = []
         for p, jc in zip(entries, decode_coefs_batch([p.jpeg for p in entries],
                                                      self.server_cfg.prep_threads)):
             if isinstance(jc, JpegError):
@@ -680,13 +676,12 @@ class MultiStreamEngine:
                 p.event.set()
                 continue
             if p.need_dims:   # the header scan failed: the decode knows the size
-                p.orig_hw = (jc.height, jc.width) if (jc.height, jc.width) != (ch, cw) else None
-            groups.setdefault(jc.layout, []).append((p, jc))
-        for members in groups.values():
-            frames = reconstruct([jc for _, jc in members], self.device)
-            if frames.shape[1:3] != (ch, cw):
-                frames = resize_bilinear_u8_cv2(frames, ch, cw)
-            for k, (p, _) in enumerate(members):
+                p.orig_hw = (jc.height, jc.width) if (jc.height, jc.width) != hw else None
+            kept.append((p, jc))
+        if kept:
+            frames = frames_at([jc for _, jc in kept], self.device, hw,
+                               scaled=self.server_cfg.ingest_scaled_decode)
+            for k, (p, _) in enumerate(kept):
                 p.frame_capture = frames[k]
 
     def _run_tick_wire(self, entries: List[_Pending]) -> set:

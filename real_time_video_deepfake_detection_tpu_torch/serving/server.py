@@ -220,12 +220,6 @@ def serve(host: str = "0.0.0.0", port: int = 5000,
     httpd.serve_forever()
 
 
-# flags of the JAX server whose slices are still to come
-_UNPORTED = {
-    "scaled_decode": "--scaled-decode: libjpeg's DCT-scaled decode is not ported",
-}
-
-
 def _load_or_exit(flag: str, path: Optional[str], load, *args):
     """load(*args), or an exit naming the flag and the file when it fails."""
     try:
@@ -284,7 +278,11 @@ def main(argv=None):
     p.add_argument("--device-detect", action="store_true",
                    help="batched mode only: SSD detection, crop/align and CLAHE "
                         "inside the device tick; requires --ssd-weights")
-    p.add_argument("--scaled-decode", action="store_true", help="not ported yet")
+    p.add_argument("--scaled-decode", action="store_true",
+                   help="batched mode: pooled tick ingest uses libjpeg DCT-scaled decode "
+                        "(>=2x target) before the resize — cuts host decode cost on large "
+                        "captures; pixels deviate from the reference's full-decode path "
+                        "(docs/DESIGN.md)")
     p.add_argument("--mtcnn-device", action="store_true",
                    help="with --device-detect and --mtcnn-weights: run the MTCNN P/R/O "
                         "cascade inside the device tick (the reference's SSD -> CLAHE "
@@ -297,9 +295,6 @@ def main(argv=None):
                         "JPEGs that are not YCbCr 4:2:0 at the capture size take the "
                         "full decode")
     args = p.parse_args(argv)
-    for flag, msg in _UNPORTED.items():
-        if getattr(args, flag):
-            raise SystemExit(msg)
     if args.ingest_plane != "bgr" and not args.device_detect:
         raise SystemExit("--ingest-plane requires --device-detect")
     spec = backbones.make(args.backbone)
@@ -345,6 +340,7 @@ def main(argv=None):
                             max_streams=args.max_streams, max_batch=args.max_batch,
                             batch_timeout_ms=args.batch_timeout_ms,
                             device_detect=args.device_detect,
+                            ingest_scaled_decode=args.scaled_decode,
                             ingest_plane=args.ingest_plane)
         fd = None
         if args.ssd_weights:

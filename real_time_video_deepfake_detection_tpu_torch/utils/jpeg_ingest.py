@@ -7,7 +7,10 @@ torch on any device (ops/jpeg_decode.py). Together they equal libjpeg's
 default decode, which is what cv2.imdecode and the JAX package's native
 decode return, for every baseline stream the entropy decoder accepts; every
 other stream (progressive, arithmetic-coded, 12-bit, CMYK, truncated,
-corrupt, or not a JPEG at all) is refused with a reason.
+corrupt, or not a JPEG at all) is refused with a reason. `reconstruct`
+also takes libjpeg's DCT scaling (scale M/8, ops/jpeg_scaled.py), and
+`frames_at` conforms a tick's streams to one size, scaled as the JAX
+package's fast pooled decode scales them (native/ingest.cpp:644-656).
 
 The library is built with g++ at first use into
 `<repo>/.build/jpeg_entropy_<hash of the source and flags>/`
@@ -28,6 +31,8 @@ import numpy as np
 import torch
 
 from ..ops.jpeg_decode import bgr_from_components
+from ..ops.jpeg_scaled import pick_scale
+from ..ops.resize import resize_bilinear_u8_cv2
 from .host_build import build_host_library, csrc
 
 SRC = csrc("jpeg_entropy.cpp")
@@ -150,13 +155,39 @@ def decode_coefs(data: bytes) -> JpegCoefs:
     return r
 
 
-def reconstruct(group: Sequence[JpegCoefs], device: Union[str, torch.device]) -> torch.Tensor:
-    """Same-layout streams -> (B, H, W, 3) u8 BGR on `device`."""
+def reconstruct(group: Sequence[JpegCoefs], device: Union[str, torch.device],
+                scale: int = 8) -> torch.Tensor:
+    """Same-layout streams -> (B, ceil(H*scale/8), ceil(W*scale/8), 3) u8
+    BGR on `device`; `scale` 8 is the full decode."""
     first = group[0]
     coefs = [torch.from_numpy(np.stack([jc.coefs[c] for jc in group])).to(device)
              for c in range(len(first.factors))]
     qtabs = torch.from_numpy(np.stack([jc.qtabs.astype(np.int32) for jc in group])).to(device)
-    return bgr_from_components(coefs, qtabs, first.factors, first.height, first.width)
+    return bgr_from_components(coefs, qtabs, first.factors, first.height, first.width,
+                               scale=scale)
+
+
+def frames_at(coefs: Sequence[JpegCoefs], device: Union[str, torch.device],
+              hw: Tuple[int, int], scaled: bool = False) -> torch.Tensor:
+    """Streams of any layouts -> (N, h, w, 3) u8 BGR on `device`, in order:
+    each group of one layout and scale is reconstructed as one batch, then
+    resized to `hw` with cv2's INTER_LINEAR (ops/resize) unless it is that
+    size already. `scaled`: each stream decodes at the largest scale M/8
+    whose larger side still covers 2*max(hw) (JAX's fast pooled decode,
+    ServerConfig.ingest_scaled_decode); else at full size."""
+    h, w = hw
+    hint = 2 * max(h, w) if scaled else 0
+    groups: dict = {}
+    for i, jc in enumerate(coefs):
+        m = pick_scale(jc.height, jc.width, hint)
+        groups.setdefault((jc.layout, m), []).append(i)
+    out = torch.empty((len(coefs), h, w, 3), dtype=torch.uint8, device=device)
+    for (_, m), idx in groups.items():
+        frames = reconstruct([coefs[i] for i in idx], device, scale=m)
+        if frames.shape[1:3] != (h, w):
+            frames = resize_bilinear_u8_cv2(frames, h, w)
+        out[torch.tensor(idx, device=device)] = frames
+    return out
 
 
 # ------------------------------------------------------------ wire planes

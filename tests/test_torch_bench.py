@@ -79,7 +79,7 @@ _CPU_RUNS = {
     "detect_ssd_bf16_guard": (dict(n_streams=2, n_ticks=1),
                               {"ok", "max_prob_diff", "boxes_equal", "n_faces_seen"}),
     "bench_prep_scaling": (dict(n=4, threads=(1, 2), repeats=1),
-                           {"frames", "exact", "coef1", "raw4201"}),
+                           {"frames", "exact", "fast1", "coef1", "raw4201"}),
     "bench_e2e": (dict(n_streams=2, frames_per_stream=1),
                   {"mode", "fps", "req_ms_p50", "req_ms_p95", "requests", "ticks"}),
 }
@@ -150,8 +150,8 @@ def _fake_phases(monkeypatch, calls, fail=None):
                                    gflop_per_tick_conv_matmul=50.0, achieved_tflops=5.0,
                                    bf16_peak_tflops=-1.0, mfu_pct_bf16peak=-1.0))
     fake("bench_e2e", dict(mode="device-detect", fps=90.0, req_ms_p50=30.0, req_ms_p95=40.0))
-    fake("bench_prep_scaling", dict(exact={1: 100.0, 2: 60.0, 4: 40.0}, coef1=20.0,
-                                    raw4201=35.0))
+    fake("bench_prep_scaling", dict(exact={1: 100.0, 2: 60.0, 4: 40.0}, fast1=50.0,
+                                    coef1=20.0, raw4201=35.0))
 
 
 def test_main_prints_one_json_line(monkeypatch):
@@ -168,7 +168,8 @@ def test_main_prints_one_json_line(monkeypatch):
     assert r["metric"] == "serving_frames_per_sec_per_chip"
     assert r["value"] == 100.0 and r["vs_baseline"] == 10.0
     assert "one cpu (power limit None)" in r["unit"]
-    assert "not run (not ported yet): the DCT-scaled decode" in r["unit"]
+    assert "opt-in DCT-scaled decode 50.0 ms@1thr" in r["unit"]
+    assert "not ported" not in r["unit"]
     # the guard passed, the bf16 SSD was no faster (equal fps), so the f32
     # SSD is reported, and the line says why
     assert r["ssd"] == "f32" and "passed its guard" in r["unit"]

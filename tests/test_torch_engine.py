@@ -136,8 +136,9 @@ def test_engine_admit_rate_limits_a_stream(engine):
     ({"device_detect": True}, {"mtcnn_device": True}), ({}, {"mtcnn_device": True}),
     ({}, {"clip_window": 8})])
 def test_engine_unported_modes_raise(server_kw, cfg_kw):
-    """The scaled decode is still refused. The SSD in bf16 and in-tick MTCNN
-    are ported (tests/test_torch_mtcnn_tick.py): the engine now raises JAX's
+    """Every mode is ported now. The scaled decode (tests/
+    test_torch_scaled_decode.py) is inert outside device detect, as in the
+    JAX engine. The SSD in bf16 and in-tick MTCNN are ported (tests/test_torch_mtcnn_tick.py): the engine now raises JAX's
     ValueErrors for what they lack, the SSD's weights and the MTCNN aligner.
     Clip attention is ported (tests/test_torch_clip_tick.py): the engine
     takes clip_feature_dim from the backbone and its responses carry
@@ -162,15 +163,13 @@ def test_engine_unported_modes_raise(server_kw, cfg_kw):
         assert r["clip_frames"] == 1 and 0.0 <= r["clip_probability"] <= 1.0
         assert r["confidence_level"] == "UNCERTAIN"
         return
-    if cfg_kw == {"mtcnn_device": True}:
+    if cfg_kw == {"mtcnn_device": True} or server_kw.get("ingest_scaled_decode"):
         # outside device detect the flag is inert, as in the JAX engine
         _, spec_t = small_specs()
         e = TEngine(TDC(forensic=TFC(analysis_size=(32, 32)), **cfg_kw),
-                    TSC(max_streams=2, max_batch=2), spec=spec_t, device="cpu")
+                    TSC(max_streams=2, max_batch=2, **server_kw), spec=spec_t, device="cpu")
         e.shutdown()
-        return
-    with pytest.raises(NotImplementedError):
-        TEngine(TDC(**cfg_kw), TSC(**server_kw), device="cpu")
+        assert e.server_cfg.ingest_scaled_decode is bool(server_kw)
 
 
 @pytest.mark.parametrize("plane", ["coef", "ycbcr420"])

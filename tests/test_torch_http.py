@@ -431,7 +431,7 @@ def test_classify_batch_matches_jax(pallas_preproc):
     (["--mtcnn-device"], "--mtcnn-device"),
     (["--clip-head", "h.npz", "--batched"], "--clip-head h.npz"),
     (["--ingest-plane", "coef"], "--ingest-plane"),
-    (["--scaled-decode"], "--scaled-decode"), (["--device-detect"], "--batched"),
+    (["--scaled-decode", "--device-detect"], "--batched"), (["--device-detect"], "--batched"),
     (["--device-detect", "--batched"], "--ssd-weights"),
     (["--device-detect", "--batched", "--ssd-weights", "x.caffemodel",
       "--face-backend", "haar"], "cannot honor"),
@@ -547,9 +547,13 @@ def test_main_serves_with_the_mtcnn_aligner(batched, tmp_path, monkeypatch):
 
 
 def test_device_strings_and_engine_reject_unported_decode_options():
+    """Every decode option is ported: the engine takes the scaled decode
+    (tests/test_torch_scaled_decode.py holds it to JAX's)."""
     assert TS._device_strings("cpu") == ("cpu", None)
-    with pytest.raises(NotImplementedError, match="scaled"):
-        TM.MultiStreamEngine(TDC(), TSC(ingest_scaled_decode=True), device="cpu")
+    e = TM.MultiStreamEngine(TDC(), TSC(ingest_scaled_decode=True, max_streams=2,
+                                        max_batch=2), device="cpu")
+    e.shutdown()
+    assert e.server_cfg.ingest_scaled_decode
 
 
 def _multipart(boundary, payload, quoted=False, nl="\r\n"):

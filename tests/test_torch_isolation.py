@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither jax nor the JAX package (nor
-cv2 or PIL), and its entry points do not drop to the CPU when CUDA is
-absent."""
+cv2, PIL, orbax or requests), and its entry points do not drop to the CPU
+when CUDA is absent."""
 
 import os
 import pkgutil
@@ -24,9 +24,12 @@ def _port_modules():
 def test_every_port_module_imports_without_jax():
     mods = _port_modules()
     assert len(mods) > 20
+    p = port.__name__ + "."
+    assert {p + "parallel.tensor_parallel", p + "ops.jpeg_scaled", p + "cli.fetch_weights",
+            p + "data_tools.dfdc_download"} <= set(mods)
     code = (
         "import sys, importlib\n"
-        "for blocked in ('jax', 'cv2', 'PIL'):\n"
+        "for blocked in ('jax', 'cv2', 'PIL', 'orbax', 'requests'):\n"
         "    sys.modules[blocked] = None\n"
         f"mods = {mods!r}\n"
         "for m in mods:\n"

@@ -45,3 +45,42 @@ def fail_on_rank(device, bad, hang):
             time.sleep(3600)
         raise ValueError("this rank fails")
     return mesh.rank()
+
+
+def dcp_resume(device, spec, head_dims, state_dict, cfg, total, x, labels, ckdir):
+    """One step of make_sharded_train_step(fused_train_step) on this rank's
+    shard, then save_checkpoint_dcp of the train state, a fresh state
+    (other weights) restored from it through a template, and one more step
+    of both the live state and the restored one. Returns both second
+    steps' metrics and parameters, on the CPU."""
+    from real_time_video_deepfake_detection_tpu_torch.train import checkpoint as CK
+
+    def state_from(seed):
+        model = TE.EfficientNet(spec, head_dims=head_dims,
+                                generator=torch.Generator().manual_seed(seed))
+        return TS.init_train_state(model.to(device), spec, cfg, total, seed=seed)
+
+    live = state_from(1)
+    live.model.load_state_dict(state_dict)
+    live.ema = {k: p.detach().clone() for k, p in live.model.named_parameters()}
+    step = TS.make_sharded_train_step(TS.fused_train_step)
+    b = len(x) // mesh.world_size()
+    rows = slice(mesh.rank() * b, (mesh.rank() + 1) * b)
+    xs = torch.from_numpy(x[rows]).to(device)
+    ys = torch.from_numpy(labels[rows]).to(device)
+    step(live, xs, ys)
+    saved_rng = live.gen_host.get_state()
+    CK.save_checkpoint_dcp(ckdir, live.state_dict(), {"step": 1}, saved_rng)
+    restored = state_from(2)
+    sd, meta, rng = CK.load_checkpoint_dcp(ckdir, CK.template_like(live.state_dict()))
+    restored.load_state_dict(sd)
+    out = {}
+    for name, st in (("live", live), ("restored", restored)):
+        m = step(st, xs, ys)
+        out[name] = {"metrics": {k: float(v) for k, v in m.items()},
+                     "model": {k: v.cpu() for k, v in st.model.state_dict().items()},
+                     "ema": {k: v.cpu() for k, v in st.ema.items()},
+                     "step": st.step, "count": st.count}
+    out["meta"] = meta
+    out["rng_equal"] = bool(torch.equal(rng, saved_rng))
+    return out
