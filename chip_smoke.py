@@ -47,15 +47,16 @@ in phases, each printing one JSON line:
               SSD against the f32 SSD
   8. decode   every JPEG fixture of tests/data/torch_jpeg through the
               port's decoder (entropy decode on the host, reconstruction on
-              the host CPU) against the sha256 of cv2.imdecode's output, the
-              reconstruction on the card byte for byte against the CPU's,
-              progressive and truncated streams refused; the entropy and
+              the host CPU) against the sha256 of the JAX package's libjpeg
+              decode (progressive and truncated streams included), the
+              reconstruction on the card byte for byte against the CPU's; the entropy and
               reconstruction times of the extension's 720x405 frame and the
               pooled decode of 16
   9. http     two servers on 127.0.0.1, driven with multipart POSTs of the
               720x405 fixtures: (a) the single-stream app over
               DeepfakeDetector (full-size B0): /health, 12 /analyze 150 ms
-              apart, a 429 probe, /stats, /reset, 400s for refused images,
+              apart, a 429 probe, /stats, /reset, a progressive and a
+              truncated JPEG (200) and garbage (400),
               then its steps' times on one thread, in a new thread each,
               and the app's /analyze without the socket;
               (b) the batched app over the device-detect engine (as in
@@ -215,7 +216,7 @@ in phases, each printing one JSON line:
               capture frames (utils/jpeg_encode, q85; M = 6 and 4 at
               480x640): the scaled pooled decode and the bucket-16 detect
               tick card against CPU, device-detect serving over HTTP with
-              and without ingest_scaled_decode in turns (16 streams x 8
+              and without ingest_scaled_decode in turns (16 streams x 4
               frames, every answer 200, all four kernels launched), and
               bench_prep_scaling's fast1 against exact at one thread for
               each size; (d) the JAX dry run's section 1b: 2 gloo ranks on
@@ -224,9 +225,30 @@ in phases, each printing one JSON line:
               onto a template, one more step of both: equal bit for bit;
               (e) cli/fetch_weights --list and --dry-run, nothing fetched
 
+ 20. formats  every image the JAX package decodes on its serving and
+              training paths (tests/data/torch_formats): (a) each input on
+              the libjpeg route, reconstructed on the card at full size and
+              at every DCT scale a hint selects, against the JAX package's
+              libjpeg digests, and on the cv2 route (JPEG on the card with
+              its EXIF orientation, PNG and BMP on the host) against
+              cv2.imdecode's: progressive, 4:1:1, 4:4:0, RGB, CMYK, YCCK,
+              cut and block-smoothed streams, EXIF 1-8, PNG and BMP; (b)
+              one input of each kind through the batched device-detect app
+              (full-size B0) on the card and on the CPU, responses alike
+              (floats within 1e-3, boxes within 1 px), every kernel launched
+              in every tick, the launches counted from 0; (c) the
+              progressive 640x480 stream and a cut of it through the coef
+              plane, its reconstruction on the card equal to the digest;
+              (d) the training loader on the card over a mixed dataset,
+              each image equal to cv2's decode resized; (e) host ms of the
+              progressive entropy decode against baseline at 720x405 and
+              1920x1080, device ms of the 4:1:1 reconstruction at bucket
+              16, host ms of a 720x405 PNG decode
+
 then a `{"kernels": [...]}` line (launches: the wire phase's coef run;
 launches_sharded_tick: one sharded serving tick of two shards;
-launches_final: the final phase's first scaled-decode serving run) and, last,
+launches_final: the final phase's first scaled-decode serving run;
+launches_formats: the formats phase's device-detect run) and, last,
 `{"ok": true, "device": ...}`.
 Any failed phase makes it exit non-zero without the last line. It needs a
 CUDA device and the repository checkout around it.
@@ -1418,8 +1440,8 @@ def phase_decode(ctx):
             if cpu is not None:
                 problems.append(f"{name}: decoded, must be refused")
             continue
-        if cpu is None or hashlib.sha256(cpu.tobytes()).hexdigest() != entry["sha256"]:
-            problems.append(f"{name}: differs from cv2.imdecode's digest")
+        if cpu is None or hashlib.sha256(cpu.tobytes()).hexdigest() != entry["native"]["sha256"]:
+            problems.append(f"{name}: differs from the JAX package's libjpeg digest")
             continue
         gpu = J.reconstruct([J.decode_coefs(data[name])], "cuda")[0].cpu().numpy()
         if not (gpu == cpu).all():
@@ -1575,21 +1597,23 @@ def _single_stream_http(ctx, data):
         if reset != {"success": True, "message": "Detector reset successfully"} or (
                 after.get("frame_count") != 0 or after.get("history_length") != 0):
             problems.append(f"/reset {reset} then /stats {after}")
-        refused = {}
-        for name, body in (("progressive", data["progressive_720x405_q85.jpg"]),
-                           ("truncated", data["truncated_720x405_q85.jpg"]),
-                           ("garbage", b"not an image")):
+        # progressive and truncated JPEGs decode (libjpeg pads the
+        # truncated one); garbage answers 400
+        statuses = {}
+        for name, body, want in (("progressive", data["progressive_720x405_q85.jpg"], 200),
+                                 ("truncated", data["truncated_720x405_q85.jpg"], 200),
+                                 ("garbage", b"not an image", 400)):
             time.sleep(interval)
             st, r, _ = _http(op, url + "/analyze", body)
-            refused[name] = st
-            if st != 400 or r != {"error": "Invalid image format"}:
+            statuses[name] = st
+            if st != want or (want == 400 and r != {"error": "Invalid image format"}):
                 problems.append(f"{name}: {st} {r}")
     if problems:
         raise AssertionError("single-stream: " + "; ".join(problems[:6]))
     return {"requests_200": len(lat), "latency_ms_p50": statistics.median(lat),
             "latency_ms_max": max(lat), "modes": sorted({r["analysis_mode"] for r in responses}),
             "verdict_last": responses[-1]["confidence_level"], "rate_limit_probe": 429,
-            "refused_400": refused, "stats_before_reset": stats,
+            "after_reset_statuses": statuses, "stats_before_reset": stats,
             # where the latency goes: the steps on this thread, the same in
             # a new thread each time (as the server runs a request), and the
             # app's whole /analyze without the socket, in new threads too
@@ -4347,6 +4371,340 @@ def phase_final(ctx):
     return {"card": ctx["smi"], "part_seconds": seconds}
 
 
+# ---------------------------------------------------------------- formats
+
+FORMATS_DIR = os.path.join(REPO, "tests", "data", "torch_formats")
+# one input per route and layout, for the apps: progressive, 4:1:1, 4:4:0,
+# RGB, CMYK and YCCK JPEGs, an EXIF orientation, PNGs and BMPs, a baseline
+# and a progressive stream cut inside their scans (libjpeg pads them, and
+# block-smooths the progressive one), and a stream cut inside its headers,
+# which both routes refuse
+FORMAT_APP_INPUTS = (
+    "prog_420_83x41.jpg", "prog_420_640x480.jpg", "s411_83x41.jpg", "s440_83x41.jpg",
+    "rgb_adobe_83x41.jpg", "cmyk_83x41.jpg", "ycck_83x41.jpg", "exif6_83x41.jpg",
+    "png_rgb16_83x41.png", "png_adam7_palette2_83x41.png", "bmp_rle8_83x41.bmp",
+    "bmp32_83x41.bmp", "base_420_83x41.jpg@649", "prog_420_83x41.jpg@272",
+    "base_420_83x41.jpg@304")
+FORMAT_LOADER_INPUTS = ("prog_420_83x41.jpg", "exif6_83x41.jpg", "exif3_83x41.jpg",
+                        "png_rgb8_83x41.png", "png_exif6_83x41.png", "cmyk_83x41.jpg",
+                        "s411_83x41.jpg", "png_adam7_rgb16_83x41.png")
+
+
+def _format_inputs():
+    """({key: bytes}, digests) of tests/data/torch_formats: "<file>@<n>" is
+    the first n bytes of <file>."""
+    with open(os.path.join(FORMATS_DIR, "digests.json")) as fh:
+        digests = json.load(fh)["inputs"]
+    files, out = {}, {}
+    for key in digests:
+        name, _, cut = key.partition("@")
+        if name not in files:
+            with open(os.path.join(FORMATS_DIR, name), "rb") as fh:
+                files[name] = fh.read()
+        out[key] = files[name][:int(cut)] if cut else files[name]
+    return out, digests
+
+
+def _sha(img) -> str:
+    import numpy as np
+    return hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+
+
+def _matches(img, want) -> bool:
+    if want is None or img is None:
+        return want is None and img is None
+    return list(img.shape) == want["shape"] and _sha(img) == want["sha256"]
+
+
+def _formats_on_card(inputs, digests):
+    """(a) Every input on each route, the reconstruction on the card: the
+    libjpeg route at full size and at every M a hint selects against the
+    JAX package's libjpeg digests; the cv2 route (JPEG reconstructed on the
+    card and turned by its EXIF orientation; PNG and BMP on the host)
+    against cv2.imdecode's."""
+    from real_time_video_deepfake_detection_tpu_torch.utils import exif
+    from real_time_video_deepfake_detection_tpu_torch.utils import image_decode as ID
+    from real_time_video_deepfake_detection_tpu_torch.utils import jpeg_ingest as J
+    problems, decodes = [], 0
+    for key, e in sorted(digests.items()):
+        data = inputs[key]
+        if e["native"] is not None:
+            jc = J.decode_coefs(data, "native")
+            for m, want in [("8", e["native"])] + sorted(e["scaled"].items()):
+                got = J.reconstruct([jc], "cuda", scale=int(m))[0].cpu().numpy()
+                decodes += 1
+                if not _matches(got, want):
+                    problems.append(f"{key} native M={m}")
+        elif data[:2] == b"\xff\xd8" and ID.native_route(data) is not None:
+            problems.append(f"{key}: the libjpeg route decodes what JAX's refuses")
+        if data.startswith(ID.JPEG_SIGNATURE):
+            try:
+                jc = J.decode_coefs(data, "cv2")
+            except J.JpegError:
+                got = None
+            else:
+                got = exif.apply_orientation(J.reconstruct([jc], "cuda")[0],
+                                             exif.jpeg_orientation(data)).cpu().numpy()
+        else:
+            got = ID.cv2_route(data)
+        decodes += 1
+        if not _matches(got, e["cv2"]):
+            problems.append(f"{key} cv2 route")
+    if problems:
+        raise AssertionError("formats on the card: " + "; ".join(problems[:8]))
+    return {"inputs": len(digests), "decodes_checked": decodes,
+            "smoothed_inputs": sorted(k for k, e in digests.items() if e["smoothed"])}
+
+
+def _formats_http(ctx, inputs):
+    """(b) The batched device-detect app (as detect-serve, full-size B0) on
+    the card and on the CPU, each on 127.0.0.1: every input of
+    FORMAT_APP_INPUTS on a stream of its own; the launches of the card's
+    ticks counted from 0. (c) The coef wire plane on the card: the
+    progressive capture-size stream and a cut of it go through the wire,
+    the whole one answering as the bgr plane answers it (the cut one
+    carries libjpeg's coefficients, which are not block-smoothed, as the
+    JAX package's plane carries them)."""
+    from real_time_video_deepfake_detection_tpu_torch.core.config import ServerConfig
+    from real_time_video_deepfake_detection_tpu_torch.models.caffe_net import CaffeNet
+    from real_time_video_deepfake_detection_tpu_torch.serving.multi import (
+        MultiStreamEngine, create_batched_app)
+    import torch
+    proto, cm = _ssd_files(ctx)
+    scfg = ServerConfig(max_streams=32, max_batch=8, device_detect=True)
+
+    def engine(device, cfg=scfg):
+        return MultiStreamEngine(_detect_cfg(), cfg, params=backbone_state(ctx), device=device,
+                                 ssd_net=CaffeNet(proto, cm))
+
+    card, cpu = engine("cuda"), engine("cpu")
+    tick_launches = []
+    dispatch = card._dispatch
+
+    def counted_dispatch(tick_cfg, arrays, states):
+        before = _read_launches()
+        out = dispatch(tick_cfg, arrays, states)
+        torch.cuda.synchronize()
+        after = _read_launches()
+        tick_launches.append({k: after[k] - before[k] for k in after})
+        return out
+
+    card._dispatch = counted_dispatch
+    op = _client()
+    got, problems, max_diff = {}, [], 0.0
+    try:
+        with _serving(create_batched_app(card, scfg)) as url_card, \
+                _serving(create_batched_app(cpu, scfg)) as url_cpu:
+            _reset_launches()
+            for i, key in enumerate(FORMAT_APP_INPUTS):
+                got[key] = _http(op, url_card + "/analyze", inputs[key], sid=f"f{i}")[:2]
+            launches = _read_launches()
+            for i, key in enumerate(FORMAT_APP_INPUTS):
+                want = _http(op, url_cpu + "/analyze", inputs[key], sid=f"f{i}")[:2]
+                diff = _response_diff(got[key], want, key, tol=1e-3)
+                max_diff = max(max_diff, diff[0])
+                problems += diff[1]
+            wire = _formats_wire(engine, op, url_card, inputs)
+    finally:
+        card.shutdown()
+        cpu.shutdown()
+    statuses = {k: st for k, (st, _) in got.items()}
+    if statuses["base_420_83x41.jpg@304"] != 400 or \
+            sum(st == 200 for st in statuses.values()) != len(statuses) - 1:
+        problems.append(f"statuses {statuses}")
+    for i, tl in enumerate(tick_launches):
+        if min(tl.values()) <= 0:
+            problems.append(f"tick {i}: a kernel was not launched: {tl}")
+    if problems:
+        raise AssertionError("formats http: " + "; ".join(problems[:8]))
+    ctx["formats_launches"] = launches
+    return {"inputs": list(FORMAT_APP_INPUTS), "statuses": statuses,
+            "card_vs_cpu_max_float_diff": max_diff, "float_tolerance": 1e-3,
+            "ticks": len(tick_launches), "launches": launches,
+            "launches_per_tick": tick_launches, "coef_plane": wire}
+
+
+def _response_diff(got, want, what, tol):
+    """(largest float difference, problems) between two (status, body)
+    responses: the same status and keys, strings and integers equal, a
+    face box within 1 px, floats within `tol`."""
+    (st_g, g), (st_w, w) = got, want
+    if st_g != st_w or set(g) != set(w):
+        return 0.0, [f"{what}: {st_g} {sorted(g)} vs {st_w} {sorted(w)}"]
+    worst, problems = 0.0, []
+    for k in set(w) - {"processing_time_ms", "device"}:
+        a, b = g[k], w[k]
+        if isinstance(b, float):
+            worst = max(worst, abs(a - b))
+            if abs(a - b) > tol:
+                problems.append(f"{what} {k}: {a} vs {b}")
+        elif k == "face_bbox" and isinstance(b, dict):
+            if set(a) != set(b) or max(abs(a[q] - b[q]) for q in b) > 1:
+                problems.append(f"{what} {k}: {a} vs {b}")
+        elif a != b:
+            problems.append(f"{what} {k}: {a} vs {b}")
+    return worst, problems
+
+
+def _formats_wire(engine, op, url_bgr, inputs):
+    """(c) of _formats_http, beside the bgr engine at `url_bgr`."""
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.core.config import ServerConfig
+    from real_time_video_deepfake_detection_tpu_torch.ops.jpeg_decode import bgr_from_coefs_420
+    from real_time_video_deepfake_detection_tpu_torch.serving.multi import create_batched_app
+    from real_time_video_deepfake_detection_tpu_torch.utils import jpeg_ingest as J
+    full = inputs["prog_420_640x480.jpg"]
+    sos = [i for i in range(len(full) - 1) if full[i:i + 2] == b"\xff\xda"]
+    streams = {"progressive": full, "progressive_cut": full[:(sos[2] + sos[3]) // 2]}
+    # the plane's reconstruction on the card equals the libjpeg decode
+    cy, cc, qt, ok = J.decode_coefs_wire_batch([full], 480, 640)
+    frame = bgr_from_coefs_420(torch.from_numpy(cy).cuda(), torch.from_numpy(cc).cuda(),
+                               torch.from_numpy(qt.astype("int32")).cuda(), 480, 640)[0]
+    with open(os.path.join(FORMATS_DIR, "digests.json")) as fh:
+        want = json.load(fh)["inputs"]["prog_420_640x480.jpg"]["native"]
+    if not (ok.all() and _matches(frame.cpu().numpy(), want)):
+        raise AssertionError("the coef plane of the progressive stream differs on the card")
+    wcfg = ServerConfig(max_streams=8, max_batch=8, device_detect=True, ingest_plane="coef")
+    eng = engine("cuda", wcfg)
+    rows = []
+    dispatch = eng._dispatch_wire
+    eng._dispatch_wire = lambda cfg, arrays, states: (
+        rows.append(int(arrays[-2].sum())) or dispatch(cfg, arrays, states))
+    problems, out = [], {}
+    try:
+        with _serving(create_batched_app(eng, wcfg)) as url:
+            for name, data in streams.items():
+                a = _http(op, url + "/analyze", data, sid=f"w-{name}")[:2]
+                out[name] = a[0]
+                if name == "progressive":   # the cut one: libjpeg's unsmoothed coefficients
+                    b = _http(op, url_bgr + "/analyze", data, sid=f"w-{name}")[:2]
+                    problems += _response_diff(a, b, name, tol=1e-6)[1]
+    finally:
+        eng.shutdown()
+    if problems or rows != [1, 1] or set(out.values()) != {200}:
+        raise AssertionError(f"coef plane: wire rows {rows}; " + "; ".join(problems[:4]))
+    return {"statuses": out, "wire_rows": rows, "reconstruction_equals_digest": True}
+
+
+def _formats_loader(inputs, digests):
+    """(d) The training loader on the card over a dataset of the mixed
+    inputs (progressive and EXIF-rotated JPEGs, CMYK, PNGs): each image
+    against cv2's decode (the digest) resized on the host."""
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.ops.resize import resize_bilinear_u8_cv2
+    from real_time_video_deepfake_detection_tpu_torch.train import data as TD
+    from real_time_video_deepfake_detection_tpu_torch.utils.image_decode import cv2_route
+    root = tempfile.mkdtemp(prefix="chip_smoke_formats_")
+    try:
+        for i, name in enumerate(FORMAT_LOADER_INPUTS):
+            d = os.path.join(root, "val", ("real", "fake")[i % 2])
+            os.makedirs(d, exist_ok=True)
+            shutil.copy(os.path.join(FORMATS_DIR, name), os.path.join(d, name))
+        ds = TD.DeepfakeDataset(root, "val", 224)
+        loader = TD.BatchLoader(ds, 4, shuffle=False, drop_last=False, num_workers=4,
+                                device="cuda")
+        batches = [x for x, _ in loader]
+        got = torch.cat(batches).cpu()
+        for k, (path, _) in enumerate(ds.samples):
+            frame = cv2_route(inputs[os.path.basename(path)])
+            if not _matches(frame, digests[os.path.basename(path)]["cv2"]):
+                raise AssertionError(f"{path}: the host decode differs from cv2's")
+            want = resize_bilinear_u8_cv2(torch.from_numpy(frame)[None], 224, 224,
+                                          cv2_rows=True).flip(-1)[0]
+            if not torch.equal(got[k], want):
+                raise AssertionError(f"{path}: the loader's image on the card differs")
+        return {"images": len(ds), "batches": len(batches), "device": str(batches[0].device)}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _png_bytes(bgr) -> bytes:
+    """An 8-bit RGB PNG of `bgr` (filter None, zlib level 6)."""
+    import struct
+    import zlib
+    h, w = bgr.shape[:2]
+    raw = b"".join(b"\0" + row.tobytes() for row in bgr[..., ::-1])
+
+    def chunk(kind, payload):
+        return (struct.pack(">I", len(payload)) + kind + payload
+                + struct.pack(">I", zlib.crc32(kind + payload)))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def _formats_timing(inputs):
+    """(e) Host ms of the entropy decode of progressive against baseline
+    streams of one picture at 720x405 (the committed pair) and 1920x1080
+    (the progressive fixture and its decode re-encoded baseline at q85);
+    device ms of the 4:1:1 reconstruction of 16 640x480 streams on the
+    card; host ms of the PNG decode at 720x405."""
+    import numpy as np
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.ops.jpeg_decode import bgr_from_components
+    from real_time_video_deepfake_detection_tpu_torch.utils import jpeg_ingest as J
+    from real_time_video_deepfake_detection_tpu_torch.utils.jpeg_encode import encode_jpeg
+    from real_time_video_deepfake_detection_tpu_torch.utils.png import decode_png
+
+    def host_ms(fn, n=20):
+        fn()
+        ts = []
+        for _ in range(n):
+            t = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(ts)
+
+    with open(os.path.join(JPEG_DIR, "progressive_720x405_q85.jpg"), "rb") as fh:
+        prog720 = fh.read()
+    with open(os.path.join(JPEG_DIR, FRAME_JPEG), "rb") as fh:
+        base720 = fh.read()
+    prog1080 = inputs["prog_420_1920x1080.jpg"]
+    frame1080 = J.decode_jpeg(prog1080)
+    base1080 = encode_jpeg(frame1080, 85)
+    out = {}
+    for label, prog, base in (("720x405", prog720, base720), ("1920x1080", prog1080, base1080)):
+        out[f"entropy_host_ms_{label}"] = {
+            "progressive": host_ms(lambda: J.decode_coefs(prog)),
+            "baseline": host_ms(lambda: J.decode_coefs(base)),
+            "bytes": {"progressive": len(prog), "baseline": len(base)}}
+    group = J.decode_coefs_batch([inputs["s411_640x480.jpg"]] * 16)
+    jc = group[0]
+    coefs = [torch.from_numpy(np.stack([g.coefs[c] for g in group])).cuda() for c in range(3)]
+    qtabs = torch.from_numpy(np.stack([g.qtabs.astype("int32") for g in group])).cuda()
+
+    def rec():
+        return bgr_from_components(coefs, qtabs, jc.factors, jc.height, jc.width, color=jc.color)
+
+    wall, busy, acts, top = profile_device(rec, 20)
+    out["s411_640x480_reconstruct_bucket16"] = {
+        "factors": jc.factors, "event_ms": time_cuda(rec, n=20), "device_ms": busy,
+        "device_activities": acts, "top": top[:4]}
+    png = _png_bytes(J.decode_jpeg(base720))
+    out["png_decode_host_ms_720x405"] = {"ms": host_ms(lambda: decode_png(png), n=10),
+                                         "bytes": len(png)}
+    return out
+
+
+def phase_formats(ctx):
+    """Every image the JAX package decodes on its serving and training
+    paths: (a) the fixtures' frames on the card against the digests,
+    (b) the batched device-detect app on the card against the CPU app,
+    launches counted, (c) a progressive stream through the coef plane,
+    (d) the loader on the card over mixed formats, (e) decode times."""
+    inputs, digests = _format_inputs()
+    t0 = time.time()
+    out = {"card": ctx["smi"]}
+    for key, fn in (("on_card", lambda: _formats_on_card(inputs, digests)),
+                    ("http", lambda: _formats_http(ctx, inputs)),
+                    ("loader", lambda: _formats_loader(inputs, digests)),
+                    ("timing", lambda: _formats_timing(inputs))):
+        t = time.time()
+        out[key] = fn()
+        out[key]["seconds"] = time.time() - t
+    out["seconds"] = time.time() - t0
+    return out
+
+
 PHASES = (("device", phase_device), ("build", phase_build),
           ("kernels", phase_kernels), ("serve", phase_serve),
           ("parity", phase_parity), ("detect-serve", phase_detect_serve),
@@ -4354,7 +4712,8 @@ PHASES = (("device", phase_device), ("build", phase_build),
           ("http", phase_http), ("wire", phase_wire), ("haar", phase_haar),
           ("mtcnn", phase_mtcnn), ("clip", phase_clip), ("train", phase_train),
           ("detector", phase_detector), ("sharded", phase_sharded),
-          ("bench", phase_bench), ("video", phase_video), ("final", phase_final))
+          ("bench", phase_bench), ("video", phase_video), ("final", phase_final),
+          ("formats", phase_formats))
 
 
 def main() -> int:
@@ -4405,7 +4764,9 @@ def main() -> int:
                                                         "launches_sharded_tick":
                                                         ctx["sharded_launches"][k],
                                                         "launches_final":
-                                                        ctx["final_launches"][k]}
+                                                        ctx["final_launches"][k],
+                                                        "launches_formats":
+                                                        ctx["formats_launches"][k]}
             | {key: v[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")})
     emit({"kernels": kernels, "card": ctx["smi"]})

@@ -1,30 +1,47 @@
-// Baseline JPEG entropy decoder: the host half of the port's JPEG decode.
+// JPEG entropy decoder: the host half of the port's JPEG decode.
 //
-// Parses a JFIF/baseline stream and Huffman-decodes it into quantised DCT
+// Parses a JPEG stream and Huffman-decodes it into quantised DCT
 // coefficients, nothing more; dequantisation, the inverse DCT, upsampling
 // and colour conversion run in torch (ops/jpeg_decode.py), where they equal
-// libjpeg's default decode bit for bit. Plain C interface, bound with ctypes
-// (utils/jpeg_ingest.py), built with g++ at first use.
+// libjpeg-turbo 2.1.5's default decode bit for bit. Plain C interface,
+// bound with ctypes (utils/jpeg_ingest.py), built with g++ at first use.
 //
-// Accepted: SOI, APPn/COM (skipped; APP0 JFIF and APP14 Adobe are read for
-// the colour space), DQT with 8- and 16-bit tables, DHT, SOF0/SOF1 at 8-bit
-// precision with 1 or 3 components and sampling factors 1-2, DRI with
-// RST0-7, SOS (interleaved and non-interleaved sequential scans), byte
-// stuffing, fill bytes, EOI. Everything else returns a negative code:
-// progressive, lossless and arithmetic-coded frames, 12-bit precision, 2 or
-// 4 components, RGB-coded 3-component frames, DNL, and every truncated or
-// corrupt stream. The bytes come from the network: every read is bounds
-// checked, and a stream that runs out of entropy-coded data inside a scan is
-// an error (libjpeg would pad it with zero bits and warn).
+// Accepted as libjpeg-turbo 2.1.5 accepts them: SOF0/SOF1 (sequential) and
+// SOF2 (progressive) Huffman frames at 8-bit precision with 1, 3 or 4
+// components and sampling factors 1-4 whose ratios are whole numbers; DQT
+// with 8- and 16-bit tables, DHT, DRI with RST0-7 (a misplaced restart
+// marker is resynchronised as jdmarker.c does), APPn/COM/DNL skipped (APP0
+// JFIF and APP14 Adobe decide the colour space as jdapimin.c does), byte
+// stuffing, fill bytes, EOI; in a sequential frame, Huffman slots 0 and 1
+// that no DHT defines before the first scan get the standard tables, as
+// libjpeg-turbo installs them. Arithmetic-coded, lossless and hierarchical
+// frames, 12-bit precision, other component counts and fractional sampling
+// ratios return a negative code, as does every stream libjpeg stops on.
+//
+// A stream that ends early decodes as libjpeg's memory source decodes it:
+// the data is followed by fake EOI markers (FF D9, repeated), the MCU in
+// progress is finished with zero bits, and the rest of the restart
+// interval is left as it was (all zero in a sequential scan); a later
+// restart marker found in the data resumes decoding (jdhuff.c,
+// jdphuff.c). The caller learns that the end was passed (cv2.imdecode
+// refuses such a stream). A progressive frame whose first AC coefficients
+// are not all exact (in practice a truncated one) is block-smoothed as
+// jdcoefct.c decompress_smooth_data smooths it, on the coefficients, before
+// they leave this file. The bytes come from the network: every read is
+// bounds checked.
 //
 // Layout shared with Python. info (kInfoLen int32):
 //   [0] height [1] width [2] components [3] max h factor [4] max v factor
 //   [5] MCUs per row [6] MCU rows [7 + 2c] h factor of component c
-//   [8 + 2c] v factor of component c.
+//   [8 + 2c] v factor of component c (c < 4) [15] colour space (kGray,
+//   kYCbCr, kRGB, kCMYK, kYCCK).
 // Coefficients of component c: (mcu_rows * v_c, mcus_per_row * h_c, 64)
 // int16 in natural (row-major) order within each block, components one
 // after another in one buffer. Quant tables: (components, 64) uint16 in
-// natural order, each component's table as latched at its first scan.
+// natural order, each component's table as latched at its first scan
+// (zeros for a component no scan reached). extra (kExtraLen int32): [0] 1
+// when the decode read past the end of the data, [1] 1 when the frame was
+// block-smoothed.
 //
 // For the serving tick's wire planes (ServerConfig.ingest_plane) two pooled
 // entries decode eligible 4:2:0 streams straight into rows of one batch
@@ -40,8 +57,12 @@
 
 namespace {
 
-constexpr int kInfoLen = 16;
+constexpr int kInfoLen = 24;
+constexpr int kMaxComps = 4;
+constexpr int kSavedCoefs = 10;                     // jdcoefct.c SAVED_COEFS
+constexpr int kExtraLen = 2;
 constexpr int64_t kMaxPixels = int64_t(1) << 25;   // 8K UHD fits
+constexpr int kMaxDimension = 65500;                // JPEG_MAX_DIMENSION
 constexpr int kMaxBlocksInMcu = 10;                 // as libjpeg (D_MAX_BLOCKS_IN_MCU)
 
 enum Status {
@@ -53,15 +74,55 @@ enum Status {
   kTooLarge = -5,
 };
 
-// zigzag index -> natural (row-major) index
-constexpr uint8_t kNatural[64] = {
+enum ColorSpace { kGray = 0, kYCbCr = 1, kRGB = 2, kCMYK = 3, kYCCK = 4 };
+
+// zigzag index -> natural (row-major) index, with libjpeg's 16 extra
+// entries of 63 that catch a run past the end of a corrupt block
+constexpr uint8_t kNatural[80] = {
     0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
     12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
-    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+
+// JPEG Annex K.3 tables, which libjpeg-turbo's sequential decoder installs
+// for slots 0 and 1 that no DHT before the first scan defined (jstdhuff.c
+// std_huff_tables; Motion-JPEG frames carry none)
+constexpr uint8_t kDcLumBits[16] = {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
+constexpr uint8_t kDcChromBits[16] = {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
+constexpr uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+constexpr uint8_t kAcLumBits[16] = {0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
+constexpr uint8_t kAcLumVals[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51,
+    0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1,
+    0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18,
+    0x19, 0x1a, 0x25, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39,
+    0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57,
+    0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92,
+    0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7,
+    0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3,
+    0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8,
+    0xd9, 0xda, 0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2,
+    0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+constexpr uint8_t kAcChromBits[16] = {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
+constexpr uint8_t kAcChromVals[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07,
+    0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09,
+    0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25,
+    0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38,
+    0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56,
+    0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5,
+    0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba,
+    0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6,
+    0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2,
+    0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
 
 struct Huff {
-  bool defined = false;
+  bool defined = false;        // a DHT gave it
+  bool valid = false;          // jpeg_make_d_derived_tbl accepts it
   bool dc_ok = false;          // every symbol <= 15 (usable as a DC table)
   uint8_t look_len[256];       // 8-bit lookahead: code length, 0 = longer
   uint8_t look_sym[256];
@@ -109,40 +170,49 @@ bool build_huff(const uint8_t* counts, const uint8_t* syms, int nsym, Huff* h) {
       }
     }
   }
+  memset(h->val, 0, sizeof(h->val));
   memcpy(h->val, syms, static_cast<size_t>(nsym));
   h->dc_ok = true;
   for (int i = 0; i < nsym; ++i) h->dc_ok = h->dc_ok && syms[i] <= 15;
-  h->defined = true;
   return true;
 }
 
-// Entropy-coded segment reader. Stops at a marker (or the end of the data)
-// and from then on supplies zero bits, counting them: consuming one of them
-// means the scan ran past its data.
-struct Bits {
+// The stream as libjpeg's memory source supplies it: the data, then fake
+// EOI markers (FF D9) for ever. `eof` records that a byte past the data
+// was read.
+struct Source {
   const uint8_t* d;
   size_t n;
+  bool eof = false;
+  uint8_t at(size_t i) {
+    if (i < n) return d[i];
+    eof = true;
+    return ((i - n) & 1) ? 0xD9 : 0xFF;
+  }
+};
+
+// Entropy-coded segment reader (jdhuff.c jpeg_fill_bit_buffer). Stops at a
+// marker and from then on supplies zero bits, counting them: consuming one
+// of them is libjpeg's "insufficient data".
+struct Bits {
+  Source* src;
   size_t pos;
   uint64_t buf = 0;
   int nbits = 0;
   int zeros = 0;        // zero bits appended after the data stopped
-  bool stopped = false;
+  bool stopped = false; // at a marker: pos is its first FF
 
   void fill() {
     while (nbits <= 56) {
       if (!stopped) {
-        if (pos >= n) {
-          stopped = true;
-          continue;
-        }
-        uint8_t c = d[pos];
+        uint8_t c = src->at(pos);
         if (c == 0xFF) {
           size_t q = pos + 1;
-          while (q < n && d[q] == 0xFF) ++q;   // fill bytes
-          if (q < n && d[q] == 0x00) {
-            pos = q + 1;                      // stuffed 0xFF
+          while (src->at(q) == 0xFF) ++q;   // fill bytes
+          if (src->at(q) == 0x00) {
+            pos = q + 1;                    // stuffed 0xFF
           } else {
-            stopped = true;                   // a marker (or the end)
+            stopped = true;                 // a marker
             continue;
           }
         } else {
@@ -158,14 +228,22 @@ struct Bits {
   }
   // true when some of the consumed bits were padding
   bool overrun() const { return nbits < zeros; }
+  void reset(size_t at, bool at_marker) {
+    pos = at;
+    buf = 0;
+    nbits = 0;
+    zeros = 0;
+    stopped = at_marker;
+  }
   uint32_t get(int k) {   // k in 1..16
     if (nbits < k) fill();
     nbits -= k;
     return static_cast<uint32_t>((buf >> nbits) & ((uint64_t(1) << k) - 1));
   }
-  // returns the symbol, or -1 for a code not in the table
+  // jdhuff.c HUFF_DECODE / jpeg_huff_decode: a code not in the table
+  // consumes 17 bits and reads as symbol 0, as libjpeg fakes it
   int decode(const Huff& h) {
-    if (nbits < 16) fill();
+    if (nbits < 17) fill();
     const int look = static_cast<int>((buf >> (nbits - 8)) & 0xFF);
     if (const int l = h.look_len[look]) {
       nbits -= l;
@@ -177,7 +255,10 @@ struct Bits {
       ++l;
       code = static_cast<int32_t>((buf >> (nbits - l)) & ((1 << l) - 1));
     }
-    if (l > 16) return -1;
+    if (l > 16) {
+      nbits -= 17;
+      return 0;
+    }
     nbits -= l;
     return h.val[(code + h.valoffset[l]) & 0xFF];
   }
@@ -188,52 +269,60 @@ inline int extend(uint32_t v, int s) {
                                       : static_cast<int>(v);
 }
 
+// LEFT_SHIFT(v, al) stored as a JCOEF (16 bits), as libjpeg stores it
+inline int16_t shifted(int v, int al) {
+  return static_cast<int16_t>(static_cast<uint32_t>(v) << al);
+}
+
 struct Comp {
   int id = 0, h = 1, v = 1, tq = 0;
   int bw = 0, bh = 0;            // padded block grid
   int wb = 0, hb = 0;            // blocks that hold image samples
   int16_t* coef = nullptr;
-  bool scanned = false;
+  bool latched = false;
   uint16_t qt[64];               // latched at the component's first scan
+  int coef_bits[64];             // jdphuff.c coef_bits (progressive)
+  int prev_bits[64];             // their values before the last scan that set them
 };
 
 struct Decoder {
-  const uint8_t* d;
-  size_t n;
+  Source src;
   size_t pos = 0;
   int32_t info[kInfoLen] = {0};
-  bool have_sof = false;
+  bool have_sof = false, progressive = false, in_headers = true, multi_scan = false;
   bool saw_jfif = false, saw_adobe = false;
   int adobe_transform = -1;
-  bool ycbcr_checked = false;
   int ncomp = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
-  Comp comp[3];
+  Comp comp[kMaxComps];
   uint16_t qt[4][64];
   bool qt_defined[4] = {false, false, false, false};
   Huff dc[4], ac[4];
   int restart_interval = 0;
+  int next_rst = 0;
+  int scans = 0;                 // SOS markers read (input_scan_number)
+  int last_good_row = 0;         // jdcoefct.c last_good_iMCU_row
+  bool decoding = false;         // false: a probe, which stops at the first SOS
 
-  Decoder(const uint8_t* data, size_t len) : d(data), n(len) {}
+  Decoder(const uint8_t* data, size_t len) : src{data, len} {}
 
-  int u16(size_t at) const { return (d[at] << 8) | d[at + 1]; }
+  uint8_t at(size_t i) { return src.at(i); }
+  int u16(size_t i) { return (at(i) << 8) | at(i + 1); }
 
   // jdmarker.c next_marker: skip anything up to FF xx with xx not 00/FF.
+  // The fake EOI after the data always ends the search.
   int next_marker() {
     for (;;) {
-      while (pos < n && d[pos] != 0xFF) ++pos;
-      while (pos < n && d[pos] == 0xFF) ++pos;
-      if (pos >= n) return -1;
-      const int m = d[pos++];
+      while (at(pos) != 0xFF) ++pos;
+      while (at(pos) == 0xFF) ++pos;
+      const int m = at(pos++);
       if (m != 0) return m;
     }
   }
 
-  // Reads a segment's length; on success [pos, *end) is its payload.
+  // Reads a segment's length; [pos, *end) is then its payload.
   int segment(size_t* end) {
-    if (pos + 2 > n) return kTruncated;
     const int len = u16(pos);
     if (len < 2) return kCorrupt;
-    if (pos + len > n) return kTruncated;
     *end = pos + len;
     pos += 2;
     return kOk;
@@ -241,34 +330,39 @@ struct Decoder {
 
   int read_sof(int marker) {
     size_t end;
-    if (int s = segment(&end)) return s;
     if (have_sof) return kCorrupt;
-    if (end - pos < 6) return kCorrupt;
-    const int precision = d[pos];
+    if (int s = segment(&end)) return s;
+    const int precision = at(pos);
     const int height = u16(pos + 1), width = u16(pos + 3);
-    ncomp = d[pos + 5];
+    ncomp = at(pos + 5);
     pos += 6;
-    if (marker != 0xC0 && marker != 0xC1) return kUnsupported;
-    if (precision != 8) return kUnsupported;
-    if (height == 0 || width == 0) return kUnsupported;   // DNL not supported
-    if (ncomp != 1 && ncomp != 3) return kUnsupported;
+    if (marker != 0xC0 && marker != 0xC1 && marker != 0xC2) return kUnsupported;
+    progressive = marker == 0xC2;
+    if (height == 0 || width == 0 || ncomp == 0) return kCorrupt;   // DNL: refused too
     if (end - pos != static_cast<size_t>(3 * ncomp)) return kCorrupt;
+    if (precision != 8) return kUnsupported;
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4) return kUnsupported;
+    if (height > kMaxDimension || width > kMaxDimension) return kCorrupt;
     if (int64_t(height) * width > kMaxPixels) return kTooLarge;
     hmax = vmax = 1;
     for (int c = 0; c < ncomp; ++c) {
       Comp& k = comp[c];
-      k.id = d[pos];
-      k.h = d[pos + 1] >> 4;
-      k.v = d[pos + 1] & 15;
-      k.tq = d[pos + 2];
+      k.id = at(pos);
+      k.h = at(pos + 1) >> 4;
+      k.v = at(pos + 1) & 15;
+      k.tq = at(pos + 2);
       pos += 3;
-      if (k.h < 1 || k.h > 2 || k.v < 1 || k.v > 2) return kUnsupported;
+      if (k.h < 1 || k.h > 4 || k.v < 1 || k.v > 4) return kCorrupt;
       if (k.tq > 3) return kCorrupt;
       for (int o = 0; o < c; ++o)
         if (comp[o].id == k.id) return kCorrupt;
       hmax = std::max(hmax, k.h);
       vmax = std::max(vmax, k.v);
+      for (int i = 0; i < 64; ++i) k.coef_bits[i] = k.prev_bits[i] = -1;
     }
+    // jdsample.c: only whole upsampling ratios ("Fractional sampling")
+    for (int c = 0; c < ncomp; ++c)
+      if (hmax % comp[c].h || vmax % comp[c].v) return kUnsupported;
     mcux = (width + 8 * hmax - 1) / (8 * hmax);
     mcuy = (height + 8 * vmax - 1) / (8 * vmax);
     info[0] = height;
@@ -288,6 +382,7 @@ struct Decoder {
       k.hb = static_cast<int>((int64_t(height) * k.v + 8 * vmax - 1) / (8 * vmax));
     }
     have_sof = true;
+    pos = end;
     return kOk;
   }
 
@@ -295,13 +390,13 @@ struct Decoder {
     size_t end;
     if (int s = segment(&end)) return s;
     while (pos < end) {
-      const int pq = d[pos] >> 4, tq = d[pos] & 15;
+      const int pq = at(pos) >> 4, tq = at(pos) & 15;
       ++pos;
       if (pq > 1 || tq > 3) return kCorrupt;
       const size_t need = pq ? 128 : 64;
       if (end - pos < need) return kCorrupt;
       for (int k = 0; k < 64; ++k)
-        qt[tq][kNatural[k]] = static_cast<uint16_t>(pq ? u16(pos + 2 * k) : d[pos + k]);
+        qt[tq][kNatural[k]] = static_cast<uint16_t>(pq ? u16(pos + 2 * k) : at(pos + k));
       qt_defined[tq] = true;
       pos += need;
     }
@@ -313,14 +408,17 @@ struct Decoder {
     if (int s = segment(&end)) return s;
     while (pos < end) {
       if (end - pos < 17) return kCorrupt;
-      const int tc = d[pos] >> 4, th = d[pos] & 15;
+      const int tc = at(pos) >> 4, th = at(pos) & 15;
       if (tc > 1 || th > 3) return kCorrupt;
-      const uint8_t* counts = d + pos + 1;
+      uint8_t counts[16], syms[256];
       int total = 0;
-      for (int i = 0; i < 16; ++i) total += counts[i];
+      for (int i = 0; i < 16; ++i) total += counts[i] = at(pos + 1 + i);
       pos += 17;
       if (total > 256 || end - pos < static_cast<size_t>(total)) return kCorrupt;
-      if (!build_huff(counts, d + pos, total, tc ? &ac[th] : &dc[th])) return kCorrupt;
+      for (int i = 0; i < total; ++i) syms[i] = at(pos + i);
+      Huff* h = tc ? &ac[th] : &dc[th];
+      h->defined = true;
+      h->valid = build_huff(counts, syms, total, h);   // checked when a scan uses it
       pos += total;
     }
     return kOk;
@@ -339,176 +437,481 @@ struct Decoder {
     size_t end;
     if (int s = segment(&end)) return s;
     const size_t len = end - pos;
-    if (marker == 0xE0 && len >= 14 && memcmp(d + pos, "JFIF\0", 5) == 0) saw_jfif = true;
-    if (marker == 0xEE && len >= 12 && memcmp(d + pos, "Adobe", 5) == 0) {
+    uint8_t b[14];
+    for (size_t i = 0; i < std::min<size_t>(len, 14); ++i) b[i] = at(pos + i);
+    if (marker == 0xE0 && len >= 14 && memcmp(b, "JFIF\0", 5) == 0) saw_jfif = true;
+    if (marker == 0xEE && len >= 12 && memcmp(b, "Adobe", 5) == 0) {
       saw_adobe = true;
-      adobe_transform = d[pos + 11];
+      adobe_transform = b[11];
     }
     pos = end;
     return kOk;
   }
 
-  // libjpeg's colour-space guess (jdapimin.c default_decompress_parms): only
-  // YCbCr is accepted for 3 components.
-  bool is_ycbcr() const {
-    if (saw_jfif) return true;
-    if (saw_adobe) return adobe_transform != 0;
-    return !(comp[0].id == 82 && comp[1].id == 71 && comp[2].id == 66);
+  // jdapimin.c default_decompress_parms: the colour space of the data.
+  int color_space() const {
+    if (ncomp == 1) return kGray;
+    if (ncomp == 3) {
+      if (saw_jfif) return kYCbCr;
+      if (saw_adobe) return adobe_transform == 0 ? kRGB : kYCbCr;
+      if (comp[0].id == 82 && comp[1].id == 71 && comp[2].id == 66) return kRGB;
+      return kYCbCr;
+    }
+    if (saw_adobe) return adobe_transform == 0 ? kCMYK : kYCCK;
+    return kCMYK;
   }
 
-  // Reads the marker expected at a restart boundary.
-  int restart(Bits* br, int* next_rst) {
+  // jdcoefct.c smoothing_ok: libjpeg block-smooths a progressive frame
+  // whose first AC coefficients are not all exact, when every component
+  // has its quant table and some DC bits.
+  bool needs_smoothing() const {
+    if (!progressive) return false;
+    static constexpr int kQ[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+    bool useful = false;
+    for (int c = 0; c < ncomp; ++c) {
+      const Comp& k = comp[c];
+      if (!k.latched) return false;
+      for (int q : kQ)
+        if (k.qt[q] == 0) return false;
+      if (k.coef_bits[0] < 0) return false;
+      for (int i = 1; i < kSavedCoefs; ++i) useful = useful || k.coef_bits[i] != 0;
+    }
+    return useful;
+  }
+
+  // jdcoefct.c decompress_smooth_data (libjpeg-turbo 2.1.5) on the
+  // coefficients, in place: each component block that keeps zeros among its
+  // first AC coefficients gets them estimated from the DC values of its
+  // 5x5 neighbourhood (and, while no AC bits are known, its DC too), rows
+  // past the last complete one reading the coefficient bits of the scan
+  // before. Only the blocks that hold image samples change.
+  void smooth() {
+    static constexpr int kPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+    for (int c = 0; c < ncomp; ++c) {
+      Comp& k = comp[c];
+      std::vector<int> dc(size_t(k.bh) * k.bw);   // the DC values before smoothing
+      for (size_t i = 0; i < dc.size(); ++i) dc[i] = k.coef[i * 64];
+      int cur[kSavedCoefs], prev[kSavedCoefs];
+      for (int i = 0; i < kSavedCoefs; ++i) {
+        cur[i] = k.coef_bits[i];
+        prev[i] = scans > 1 ? k.prev_bits[i] : -1;
+      }
+      int64_t q[10];
+      for (int i = 0; i < 10; ++i) q[i] = k.qt[kPos[i]];
+      for (int r = 0; r < mcuy; ++r) {
+        int block_rows = k.v;
+        if (r == mcuy - 1) {
+          block_rows = k.hb % k.v;
+          if (block_rows == 0) block_rows = k.v;
+        }
+        const int* bits = r > last_good_row ? prev : cur;
+        bool change_dc = true;
+        for (int i = 1; i < kSavedCoefs; ++i) change_dc = change_dc && bits[i] == -1;
+        const int last = mcuy - 1;
+        for (int br = 0; br < block_rows; ++br) {
+          // the neighbour rows as libjpeg picks them: within this iMCU row,
+          // or whole iMCU rows away
+          const int row = r * k.v + br;
+          const int prow = br > 0 || r > 0 ? row - 1 : row;
+          const int pprow = br > 1 || r > 1 ? row - 2 : prow;
+          const int nrow = br < block_rows - 1 || r < last ? row + 1 : row;
+          const int nnrow = br < block_rows - 2 || r + 1 < last ? row + 2 : nrow;
+          const int rows5[5] = {pprow, prow, row, nrow, nnrow};
+          auto dcat = [&](int rr, int col) { return dc[size_t(rr) * k.bw + col]; };
+          int D[5][5];   // D[row][col]: DC01..DC25 as D[(n - 1) / 5][(n - 1) % 5]
+          for (int i = 0; i < 5; ++i)
+            for (int j = 0; j < 5; ++j) D[i][j] = dcat(rows5[i], 0);
+          const int last_col = k.wb - 1;
+          for (int bx = 0; bx < k.wb; ++bx) {
+            if (bx == 0 && bx < last_col)
+              for (int i = 0; i < 5; ++i) D[i][3] = dcat(rows5[i], bx + 1);
+            if (bx + 1 < last_col)
+              for (int i = 0; i < 5; ++i) D[i][4] = dcat(rows5[i], bx + 2);
+            int16_t* w = k.coef + (int64_t(row) * k.bw + bx) * 64;
+            smooth_block(w, D, bits, change_dc, q);
+            for (int i = 0; i < 5; ++i)
+              for (int j = 0; j < 4; ++j) D[i][j] = D[i][j + 1];
+          }
+        }
+      }
+    }
+  }
+
+  static void smooth_block(int16_t* w, const int (*D)[5], const int* bits, bool change_dc,
+                           const int64_t* q) {
+#define DCV(n) int64_t(D[((n) - 1) / 5][((n) - 1) % 5])
+    auto estimate = [&](int bit_index, int pos, int64_t qk, int64_t num) {
+      const int al = bits[bit_index];
+      if (al == 0 || w[pos] != 0) return;
+      int pred;
+      if (num >= 0) {
+        pred = static_cast<int>(((qk << 7) + num) / (qk << 8));
+        if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      } else {
+        pred = static_cast<int>(((qk << 7) - num) / (qk << 8));
+        if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+        pred = -pred;
+      }
+      w[pos] = static_cast<int16_t>(pred);
+    };
+    const int64_t q00 = q[0];
+    estimate(1, 1, q[1], q00 * (change_dc ?
+        (-DCV(1) - DCV(2) + DCV(4) + DCV(5) - 3 * DCV(6) + 13 * DCV(7) - 13 * DCV(9) +
+         3 * DCV(10) - 3 * DCV(11) + 38 * DCV(12) - 38 * DCV(14) + 3 * DCV(15) -
+         3 * DCV(16) + 13 * DCV(17) - 13 * DCV(19) + 3 * DCV(20) - DCV(21) - DCV(22) +
+         DCV(24) + DCV(25)) :
+        (-7 * DCV(11) + 50 * DCV(12) - 50 * DCV(14) + 7 * DCV(15))));
+    estimate(2, 8, q[2], q00 * (change_dc ?
+        (-DCV(1) - 3 * DCV(2) - 3 * DCV(3) - 3 * DCV(4) - DCV(5) - DCV(6) + 13 * DCV(7) +
+         38 * DCV(8) + 13 * DCV(9) - DCV(10) + DCV(16) - 13 * DCV(17) - 38 * DCV(18) -
+         13 * DCV(19) + DCV(20) + DCV(21) + 3 * DCV(22) + 3 * DCV(23) + 3 * DCV(24) +
+         DCV(25)) :
+        (-7 * DCV(3) + 50 * DCV(8) - 50 * DCV(18) + 7 * DCV(23))));
+    estimate(3, 16, q[3], q00 * (change_dc ?
+        (DCV(3) + 2 * DCV(7) + 7 * DCV(8) + 2 * DCV(9) - 5 * DCV(12) - 14 * DCV(13) -
+         5 * DCV(14) + 2 * DCV(17) + 7 * DCV(18) + 2 * DCV(19) + DCV(23)) :
+        (-DCV(3) + 13 * DCV(8) - 24 * DCV(13) + 13 * DCV(18) - DCV(23))));
+    estimate(4, 9, q[4], q00 * (change_dc ?
+        (-DCV(1) + DCV(5) + 9 * DCV(7) - 9 * DCV(9) - 9 * DCV(17) + 9 * DCV(19) + DCV(21) -
+         DCV(25)) :
+        (DCV(10) + DCV(16) - 10 * DCV(17) + 10 * DCV(19) - DCV(2) - DCV(20) + DCV(22) -
+         DCV(24) + DCV(4) - DCV(6) + 10 * DCV(7) - 10 * DCV(9))));
+    estimate(5, 2, q[5], q00 * (change_dc ?
+        (2 * DCV(7) - 5 * DCV(8) + 2 * DCV(9) + DCV(11) + 7 * DCV(12) - 14 * DCV(13) +
+         7 * DCV(14) + DCV(15) + 2 * DCV(17) - 5 * DCV(18) + 2 * DCV(19)) :
+        (-DCV(11) + 13 * DCV(12) - 24 * DCV(13) + 13 * DCV(14) - DCV(15))));
+    if (change_dc) {
+      estimate(6, 3, q[6], q00 * (DCV(7) - DCV(9) + 2 * DCV(12) - 2 * DCV(14) + DCV(17) -
+                                  DCV(19)));
+      estimate(7, 10, q[7], q00 * (DCV(7) - 3 * DCV(8) + DCV(9) - DCV(17) + 3 * DCV(18) -
+                                   DCV(19)));
+      estimate(8, 17, q[8], q00 * (DCV(7) - DCV(9) - 3 * DCV(12) + 3 * DCV(14) + DCV(17) -
+                                   DCV(19)));
+      estimate(9, 24, q[9], q00 * (DCV(7) + 2 * DCV(8) + DCV(9) - DCV(17) - 2 * DCV(18) -
+                                   DCV(19)));
+      const int64_t num = q00 *
+          (-2 * DCV(1) - 6 * DCV(2) - 8 * DCV(3) - 6 * DCV(4) - 2 * DCV(5) - 6 * DCV(6) +
+           6 * DCV(7) + 42 * DCV(8) + 6 * DCV(9) - 6 * DCV(10) - 8 * DCV(11) + 42 * DCV(12) +
+           152 * DCV(13) + 42 * DCV(14) - 8 * DCV(15) - 6 * DCV(16) + 6 * DCV(17) +
+           42 * DCV(18) + 6 * DCV(19) - 6 * DCV(20) - 2 * DCV(21) - 6 * DCV(22) -
+           8 * DCV(23) - 6 * DCV(24) - 2 * DCV(25));
+      const int pred = num >= 0 ? static_cast<int>(((q00 << 7) + num) / (q00 << 8))
+                                : -static_cast<int>(((q00 << 7) - num) / (q00 << 8));
+      w[0] = static_cast<int16_t>(pred);
+    }
+#undef DCV
+  }
+
+  // jdmarker.c read_restart_marker with jpeg_resync_to_restart, at a
+  // restart boundary; `insufficient` is the entropy decoder's flag.
+  void restart(Bits* br, bool* insufficient) {
     pos = br->pos;
-    const int m = next_marker();
-    if (m < 0) return kTruncated;
-    if (m != 0xD0 + *next_rst) return kCorrupt;
-    *next_rst = (*next_rst + 1) & 7;
-    br->pos = pos;
-    br->buf = 0;
-    br->nbits = 0;
-    br->zeros = 0;
-    br->stopped = false;
-    return kOk;
+    int m = next_marker();   // the marker the reader stopped at, or the next
+    bool unread = true;
+    if (m == 0xD0 + next_rst) {
+      unread = false;
+    } else {
+      for (;;) {
+        int action;
+        if (m < 0xC0) {
+          action = 2;
+        } else if (m < 0xD0 || m > 0xD7) {
+          action = 3;
+        } else if (m == 0xD0 + ((next_rst + 1) & 7) || m == 0xD0 + ((next_rst + 2) & 7)) {
+          action = 3;
+        } else if (m == 0xD0 + ((next_rst - 1) & 7) || m == 0xD0 + ((next_rst - 2) & 7)) {
+          action = 2;
+        } else {
+          action = 1;
+        }
+        if (action == 1) {
+          unread = false;
+          break;
+        }
+        if (action == 3) break;
+        m = next_marker();
+      }
+    }
+    next_rst = (next_rst + 1) & 7;
+    if (unread) {
+      br->reset(pos - 2, true);   // at the marker: the next segment reads as empty
+    } else {
+      br->reset(pos, false);
+      *insufficient = false;
+    }
   }
 
-  int decode_block(Bits* br, const Huff& dct, const Huff& act, int* last_dc, int16_t* blk) {
+  // One sequential block (jdhuff.c decode_mcu): only nonzero AC
+  // coefficients are written.
+  void decode_block(Bits* br, const Huff& dct, const Huff& act, int* last_dc, int16_t* blk) {
     int s = br->decode(dct);
-    if (s < 0) return kCorrupt;
     int diff = 0;
     if (s) diff = extend(br->get(s), s);
-    const int64_t dcv = int64_t(*last_dc) + diff;
-    if (dcv > INT32_MAX || dcv < INT32_MIN) return kCorrupt;
-    *last_dc = static_cast<int>(dcv);
-    blk[0] = static_cast<int16_t>(dcv);   // JCOEF is 16 bits, as in libjpeg
+    *last_dc = static_cast<int>(static_cast<uint32_t>(*last_dc) + static_cast<uint32_t>(diff));
+    blk[0] = static_cast<int16_t>(*last_dc);   // JCOEF is 16 bits, as in libjpeg
     for (int k = 1; k < 64; ++k) {
       const int rs = br->decode(act);
-      if (rs < 0) return kCorrupt;
       const int r = rs >> 4;
       s = rs & 15;
       if (s) {
         k += r;
-        if (k > 63) return kCorrupt;
         blk[kNatural[k]] = static_cast<int16_t>(extend(br->get(s), s));
       } else {
         if (r != 15) break;
         k += 15;
       }
     }
-    return kOk;
   }
 
   int read_sos() {
     size_t end;
-    if (int s = segment(&end)) return s;
     if (!have_sof) return kCorrupt;
-    if (end - pos < 1) return kCorrupt;
-    const int ns = d[pos++];
-    if (ns < 1 || ns > ncomp || end - pos != static_cast<size_t>(2 * ns + 3)) return kCorrupt;
-    Comp* sc[3];
-    int td[3], ta[3];
+    if (int s = segment(&end)) return s;
+    const int ns = at(pos++);
+    if (end - pos != static_cast<size_t>(2 * ns + 3) || ns < 1 || ns > kMaxComps)
+      return kCorrupt;
+    Comp* sc[kMaxComps];
+    int td[kMaxComps], ta[kMaxComps];
     for (int i = 0; i < ns; ++i) {
-      const int id = d[pos], t = d[pos + 1];
+      const int id = at(pos), t = at(pos + 1);
       pos += 2;
       sc[i] = nullptr;
       for (int c = 0; c < ncomp; ++c)
         if (comp[c].id == id) sc[i] = &comp[c];
-      if (!sc[i] || sc[i]->scanned) return kCorrupt;
+      if (!sc[i]) return kCorrupt;
       for (int o = 0; o < i; ++o)
         if (sc[o] == sc[i]) return kCorrupt;
       td[i] = t >> 4;
       ta[i] = t & 15;
-      if (td[i] > 3 || ta[i] > 3) return kCorrupt;
-      if (!dc[td[i]].defined || !dc[td[i]].dc_ok || !ac[ta[i]].defined) return kCorrupt;
     }
-    const int ss = d[pos], se = d[pos + 1], ahal = d[pos + 2];
+    const int ss = at(pos), se = at(pos + 1), ah = at(pos + 2) >> 4, al = at(pos + 2) & 15;
     pos = end;
-    if (ss != 0 || se != 63 || ahal != 0) return kCorrupt;
-    if (ncomp == 3 && !ycbcr_checked) {   // decided once, as jpeg_read_header does
-      if (!is_ycbcr()) return kUnsupported;
-      ycbcr_checked = true;
+    next_rst = 0;
+    ++scans;
+    if (in_headers) {   // jpeg_read_header ends here
+      in_headers = false;
+      info[15] = color_space();
+      multi_scan = ns < ncomp || progressive;
+      if (!decoding) return kOk;
+      const uint8_t* std_tables[4][2] = {{kDcLumBits, kDcVals}, {kDcChromBits, kDcVals},
+                                         {kAcLumBits, kAcLumVals}, {kAcChromBits, kAcChromVals}};
+      for (int t = 0; t < 4 && !progressive; ++t) {   // jdhuff.c only, not jdphuff.c
+        Huff* h = t < 2 ? &dc[t] : &ac[t - 2];
+        if (h->defined) continue;
+        int nsym = 0;
+        for (int l = 0; l < 16; ++l) nsym += std_tables[t][0][l];
+        h->defined = true;
+        h->valid = build_huff(std_tables[t][0], std_tables[t][1], nsym, h);
+      }
+    } else if (!multi_scan) {
+      return kCorrupt;   // a second scan of a single-scan frame
+    }
+    if (ns > 1) {
+      int blocks = 0;
+      for (int i = 0; i < ns; ++i) blocks += sc[i]->h * sc[i]->v;
+      if (blocks > kMaxBlocksInMcu) return kCorrupt;
     }
     for (int i = 0; i < ns; ++i) {   // latch the quant tables (jdinput.c)
       Comp& k = *sc[i];
+      if (k.latched) continue;
       if (!qt_defined[k.tq]) return kCorrupt;
       memcpy(k.qt, qt[k.tq], sizeof(k.qt));
-      k.scanned = true;
+      k.latched = true;
     }
-    Bits br{d, n, pos};
-    int last_dc[3] = {0, 0, 0};
-    int next_rst = 0;
+    // the scan's kind and its tables (jdhuff.c / jdphuff.c start_pass)
+    enum { kSeq, kDcFirst, kDcRefine, kAcFirst, kAcRefine } kind = kSeq;
+    if (progressive) {
+      const bool dc_band = ss == 0;
+      bool bad = dc_band ? se != 0 : (ss > se || se > 63 || ns != 1);
+      if (ah != 0 && al != ah - 1) bad = true;
+      if (al > 13) bad = true;
+      if (bad) return kCorrupt;
+      kind = dc_band ? (ah ? kDcRefine : kDcFirst) : (ah ? kAcRefine : kAcFirst);
+      for (int i = 0; i < ns; ++i) {
+        Comp& k = *sc[i];
+        for (int c = std::min(ss, 1); c <= std::max(se, 9); ++c)
+          k.prev_bits[c] = scans > 1 ? k.coef_bits[c] : 0;
+        for (int c = ss; c <= se; ++c) k.coef_bits[c] = al;
+      }
+    }
+    for (int i = 0; i < ns; ++i) {
+      if (kind == kSeq || kind == kDcFirst) {
+        if (td[i] > 3 || !dc[td[i]].defined || !dc[td[i]].valid || !dc[td[i]].dc_ok)
+          return kCorrupt;
+      }
+      if (kind != kDcFirst && kind != kDcRefine) {
+        if (ta[i] > 3 || !ac[ta[i]].defined || !ac[ta[i]].valid) return kCorrupt;
+      }
+    }
+
+    Bits br{&src, pos};
+    int last_dc[kMaxComps] = {0, 0, 0, 0};
+    unsigned eobrun = 0;
+    bool insufficient = false, overflow = false;
     int64_t todo = restart_interval;
-    auto mcu_start = [&]() -> int {
+    const int p1 = 1 << al, m1 = -(1 << al);
+
+    auto block_of = [](Comp& k, int64_t by, int64_t bx) {
+      return k.coef + (by * k.bw + bx) * 64;
+    };
+    // one block of this scan into `blk` (component index i of the scan)
+    auto decode_one = [&](int i, int16_t* blk) {
+      switch (kind) {
+        case kSeq:
+          decode_block(&br, dc[td[i]], ac[ta[i]], &last_dc[i], blk);
+          break;
+        case kDcFirst: {
+          const int s = br.decode(dc[td[i]]);
+          int diff = 0;
+          if (s) diff = extend(br.get(s), s);
+          const int64_t v = int64_t(last_dc[i]) + diff;
+          if (v > INT32_MAX || v < INT32_MIN) overflow = true;   // JERR_BAD_DCT_COEF
+          last_dc[i] = static_cast<int>(v);
+          blk[0] = shifted(last_dc[i], al);
+          break;
+        }
+        case kDcRefine:
+          if (br.get(1)) blk[0] = static_cast<int16_t>(blk[0] | p1);
+          break;
+        case kAcFirst: {
+          if (eobrun > 0) {
+            --eobrun;
+            break;
+          }
+          const Huff& t = ac[ta[i]];
+          for (int k = ss; k <= se; ++k) {
+            const int rs = br.decode(t);
+            int r = rs >> 4;
+            const int s = rs & 15;
+            if (s) {
+              k += r;
+              blk[kNatural[k]] = shifted(extend(br.get(s), s), al);
+            } else if (r == 15) {
+              k += 15;
+            } else {
+              eobrun = 1u << r;
+              if (r) eobrun += br.get(r);
+              --eobrun;
+              break;
+            }
+          }
+          break;
+        }
+        case kAcRefine: {
+          const Huff& t = ac[ta[i]];
+          int k = ss;
+          if (eobrun == 0) {
+            for (; k <= se; ++k) {
+              const int rs = br.decode(t);
+              int r = rs >> 4;
+              int s = rs & 15;
+              if (s) {
+                s = br.get(1) ? p1 : m1;   // a size other than 1 is corrupt; libjpeg goes on
+              } else if (r != 15) {
+                eobrun = 1u << r;
+                if (r) eobrun += br.get(r);
+                break;
+              }
+              do {
+                int16_t* c = blk + kNatural[k];
+                if (*c != 0) {
+                  if (br.get(1) && (*c & p1) == 0)
+                    *c = static_cast<int16_t>(*c >= 0 ? *c + p1 : *c + m1);
+                } else if (--r < 0) {
+                  break;
+                }
+                ++k;
+              } while (k <= se);
+              if (s) blk[kNatural[k]] = static_cast<int16_t>(s);
+            }
+          }
+          if (eobrun > 0) {
+            for (; k <= se; ++k) {
+              int16_t* c = blk + kNatural[k];
+              if (*c != 0 && br.get(1) && (*c & p1) == 0)
+                *c = static_cast<int16_t>(*c >= 0 ? *c + p1 : *c + m1);
+            }
+            --eobrun;
+          }
+          break;
+        }
+      }
+    };
+    auto mcu_start = [&]() {
       if (restart_interval) {
         if (todo == 0) {
-          if (int s = restart(&br, &next_rst)) return s;
-          last_dc[0] = last_dc[1] = last_dc[2] = 0;
+          restart(&br, &insufficient);
+          for (int& v : last_dc) v = 0;
+          eobrun = 0;
           todo = restart_interval;
         }
         --todo;
       }
-      return kOk;
     };
     if (ns == 1) {   // non-interleaved: one block per MCU, image blocks only
       Comp& k = *sc[0];
       for (int by = 0; by < k.hb; ++by) {
         for (int bx = 0; bx < k.wb; ++bx) {
-          if (int s = mcu_start()) return s;
-          int16_t* blk = k.coef + (int64_t(by) * k.bw + bx) * 64;
-          if (int s = decode_block(&br, dc[td[0]], ac[ta[0]], &last_dc[0], blk)) return s;
-          if (br.overrun()) return kTruncated;
+          if (!insufficient) last_good_row = by / k.v;
+          mcu_start();
+          if (insufficient) continue;
+          decode_one(0, block_of(k, by, bx));
+          if (br.overrun()) insufficient = true;
         }
       }
     } else {
-      int blocks = 0;
-      for (int i = 0; i < ns; ++i) blocks += sc[i]->h * sc[i]->v;
-      if (blocks > kMaxBlocksInMcu) return kCorrupt;
       for (int my = 0; my < mcuy; ++my) {
         for (int mx = 0; mx < mcux; ++mx) {
-          if (int s = mcu_start()) return s;
+          if (!insufficient) last_good_row = my;
+          mcu_start();
+          if (insufficient) continue;
           for (int i = 0; i < ns; ++i) {
             Comp& k = *sc[i];
-            for (int v = 0; v < k.v; ++v) {
-              for (int h = 0; h < k.h; ++h) {
-                const int64_t by = int64_t(my) * k.v + v, bx = int64_t(mx) * k.h + h;
-                int16_t* blk = k.coef + (by * k.bw + bx) * 64;
-                if (int s = decode_block(&br, dc[td[i]], ac[ta[i]], &last_dc[i], blk)) return s;
-              }
-            }
+            for (int v = 0; v < k.v; ++v)
+              for (int h = 0; h < k.h; ++h)
+                decode_one(i, block_of(k, int64_t(my) * k.v + v, int64_t(mx) * k.h + h));
           }
-          if (br.overrun()) return kTruncated;
+          if (br.overrun()) insufficient = true;
         }
       }
     }
     pos = br.pos;   // the marker that ended the scan, or data before it
-    return kOk;
+    return overflow ? kCorrupt : kOk;
   }
 
-  // The marker loop. With `coefs` null it stops after the frame header
-  // (a probe); otherwise it decodes every scan into buffers laid out from
-  // `want` (the probe's info) and ends at EOI.
+  // The marker loop (jdmarker.c read_markers). A probe (`decoding` false)
+  // stops at the first SOS, as jpeg_read_header does; a decode lays the
+  // coefficient buffers out from `want` (the probe's info) and ends at EOI.
   int run(const int32_t* want, int16_t* coefs, uint16_t* qtabs) {
-    if (n < 4 || d[0] != 0xFF || d[1] != 0xD8) return kNotJpeg;
+    if (src.n < 2 || src.d[0] != 0xFF || src.d[1] != 0xD8) return kNotJpeg;
+    decoding = coefs != nullptr;
     pos = 2;
     for (;;) {
       const int m = next_marker();
-      if (m < 0) return kTruncated;
       int s = kOk;
       if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC) {
         s = read_sof(m);
-        if (s || !coefs) return s;
-        if (memcmp(info, want, sizeof(info)) != 0) return kCorrupt;
-        int16_t* at = coefs;
-        for (int c = 0; c < ncomp; ++c) {
-          comp[c].coef = at;
-          at += int64_t(comp[c].bh) * comp[c].bw * 64;
+        if (!s && decoding) {
+          if (memcmp(info, want, 15 * sizeof(int32_t)) != 0) return kCorrupt;
+          int16_t* at_c = coefs;
+          for (int c = 0; c < ncomp; ++c) {
+            comp[c].coef = at_c;
+            at_c += int64_t(comp[c].bh) * comp[c].bw * 64;
+          }
         }
       } else if (m == 0xDA) {
         s = read_sos();
+        if (!s && !decoding) return kOk;
       } else if (m == 0xD9) {
-        if (!have_sof) return kCorrupt;
-        for (int c = 0; c < ncomp; ++c)
-          if (!comp[c].scanned) return kCorrupt;
-        for (int c = 0; c < ncomp; ++c) memcpy(qtabs + 64 * c, comp[c].qt, sizeof(comp[c].qt));
+        if (in_headers) return src.eof ? kTruncated : kCorrupt;   // no image
+        if (!decoding) return kOk;
+        for (int c = 0; c < ncomp; ++c) {
+          if (comp[c].latched) {
+            memcpy(qtabs + 64 * c, comp[c].qt, sizeof(comp[c].qt));
+          } else {
+            memset(qtabs + 64 * c, 0, sizeof(comp[c].qt));
+          }
+        }
         return kOk;
       } else if (m == 0xDB) {
         s = read_dqt();
@@ -519,17 +922,17 @@ struct Decoder {
       } else if (m >= 0xE0 && m <= 0xEF) {
         s = read_app(m);
       } else if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) {
-        continue;   // standalone markers
-      } else if (m == 0xFE || (m >= 0xF0 && m <= 0xFD)) {
-        size_t end;   // COM, JPGn
+        continue;   // parameterless markers
+      } else if (m == 0xFE || m == 0xDC || m == 0xCC) {
+        size_t end;   // COM, DNL, DAC (arithmetic frames are refused at their SOF)
         s = segment(&end);
         if (!s) pos = end;
-      } else if (m == 0xCC) {
-        s = kUnsupported;   // arithmetic coding
+      } else if (m == 0xD8) {
+        s = kCorrupt;   // a second SOI
       } else {
-        s = kCorrupt;   // JPG, DNL, DHP, EXP, a second SOI, reserved
+        s = kCorrupt;   // JPGn, DHP, EXP, reserved
       }
-      if (s) return s;
+      if (s) return s == kCorrupt && src.eof ? kTruncated : s;
     }
   }
 };
@@ -540,31 +943,43 @@ struct Decoder {
 // A stream is eligible when it has three YCbCr components sampled 2x2, 1x1,
 // 1x1, is exactly (eh, ew) with both multiples of 16, and its Cb and Cr use
 // one quant table; every other stream gets ok = 0 (the caller decodes it in
-// full), as the JAX package's native/ingest.cpp check_420_header. At these
-// sizes the padded block grid is the image: Y holds (eh/8)(ew/8) blocks, Cb
-// and Cr a quarter of that each.
+// full), as the JAX package's native/ingest.cpp check_420_header. That
+// takes progressive and truncated streams too. At these sizes the padded
+// block grid is the image: Y holds (eh/8)(ew/8) blocks, Cb and Cr a
+// quarter of that each.
 
+// One stream's coefficients, quant tables and extra (kExtraLen) fields.
 int jpeg_decode_coefs_impl(const uint8_t* data, size_t len, const int32_t* info,
-                           int16_t* coefs, uint16_t* qtabs) {
+                           int16_t* coefs, uint16_t* qtabs, int32_t* extra, bool smooth) {
   Decoder dec(data, len);
-  return dec.run(info, coefs, qtabs);
+  const int s = dec.run(info, coefs, qtabs);
+  if (s == kOk) {
+    extra[0] = dec.src.eof;
+    extra[1] = dec.needs_smoothing();
+    if (extra[1] && smooth) dec.smooth();
+  }
+  return s;
 }
 
 // Probes `data` and decodes its coefficients into `coefs` (zeroed here; Y,
 // Cb, Cr blocks one after another) when the stream is eligible; qt gets the
-// luma and the chroma table. 0 when eligible and decoded.
+// luma and the chroma table. `smooth`: block-smooth them where libjpeg's
+// sample output would (not libjpeg's coefficient output). 0 when eligible
+// and decoded.
 int wire_decode_coefs(const uint8_t* data, size_t len, int eh, int ew, int16_t* coefs,
-                      uint16_t* qt) {
+                      uint16_t* qt, bool smooth) {
   Decoder probe(data, len);
   if (probe.run(nullptr, nullptr, nullptr) != kOk) return 1;
   const int32_t* info = probe.info;
   if (eh % 16 || ew % 16 || info[0] != eh || info[1] != ew || info[2] != 3) return 1;
+  if (info[15] != kYCbCr) return 1;
   if (info[7] != 2 || info[8] != 2 || info[9] != 1 || info[10] != 1 || info[11] != 1 ||
       info[12] != 1 || probe.comp[1].tq != probe.comp[2].tq)
     return 1;
   memset(coefs, 0, size_t(eh / 8) * (ew / 8) * 3 / 2 * 64 * sizeof(int16_t));
   uint16_t latched[3 * 64];
-  if (jpeg_decode_coefs_impl(data, len, info, coefs, latched) != kOk) return 1;
+  int32_t extra[kExtraLen];
+  if (jpeg_decode_coefs_impl(data, len, info, coefs, latched, extra, smooth) != kOk) return 1;
   // a DQT between the Cb and Cr scans could latch two tables on one slot
   if (memcmp(latched + 64, latched + 128, 64 * sizeof(uint16_t)) != 0) return 1;
   memcpy(qt, latched, 2 * 64 * sizeof(uint16_t));
@@ -675,22 +1090,25 @@ int jpeg_probe(const uint8_t* data, size_t len, int32_t* info) {
   return s;
 }
 
-// Coefficients and quant tables of one stream whose probe gave `info`. The
-// coefficient buffer must be zeroed; 0 or a negative status.
+int jpeg_extra_len(void) { return kExtraLen; }
+
+// Coefficients, quant tables and extra fields of one stream whose probe
+// gave `info`. The coefficient buffer must be zeroed; 0 or a negative
+// status.
 int jpeg_decode_coefs(const uint8_t* data, size_t len, const int32_t* info,
-                      int16_t* coefs, uint16_t* qtabs) {
-  return jpeg_decode_coefs_impl(data, len, info, coefs, qtabs);
+                      int16_t* coefs, uint16_t* qtabs, int32_t* extra) {
+  return jpeg_decode_coefs_impl(data, len, info, coefs, qtabs, extra, true);
 }
 
 // jpeg_decode_coefs over n streams on up to n_threads threads (0: one per
-// core); statuses into rcs.
+// core); statuses into rcs, extra fields into extras (n, kExtraLen).
 void jpeg_decode_coefs_batch(const uint8_t* const* datas, const size_t* lens,
                              const int32_t* infos, int16_t* const* coefs,
                              uint16_t* const* qtabs, int n, int n_threads,
-                             int32_t* rcs) {
+                             int32_t* rcs, int32_t* extras) {
   pooled(n, n_threads, [&](int i, int) {
     rcs[i] = jpeg_decode_coefs_impl(datas[i], lens[i], infos + int64_t(i) * kInfoLen,
-                                    coefs[i], qtabs[i]);
+                                    coefs[i], qtabs[i], extras + int64_t(i) * kExtraLen, true);
   });
 }
 
@@ -705,7 +1123,8 @@ void jpeg_wire_coefs_batch(const uint8_t* const* datas, const size_t* lens, int 
   pooled(n, n_threads, [&](int i, int) {
     int16_t* row = out + int64_t(i) * (blocks + 2) * 64;
     uint16_t* qt = reinterpret_cast<uint16_t*>(row + blocks * 64);
-    ok[i] = wire_decode_coefs(datas[i], lens[i], eh, ew, row, qt) == 0;
+    // JAX's coef plane takes libjpeg's coefficients, which are not smoothed
+    ok[i] = wire_decode_coefs(datas[i], lens[i], eh, ew, row, qt, false) == 0;
     if (!ok[i]) memset(qt, 0, 2 * 64 * sizeof(uint16_t));
   });
 }
@@ -713,8 +1132,9 @@ void jpeg_wire_coefs_batch(const uint8_t* const* datas, const size_t* lens, int 
 // The "ycbcr420" wire plane of n streams: row i of `out` (eh * ew * 3/2
 // bytes) gets stream i's Y plane (eh, ew), then Cb and Cr (eh/2, ew/2),
 // the samples of the inverse DCT without upsampling, as libjpeg's
-// raw_data_out gives them. ok[i] as jpeg_wire_coefs_batch; a row of a
-// stream that is not eligible is left as it was.
+// raw_data_out gives them (block-smoothed where it smooths). ok[i] as
+// jpeg_wire_coefs_batch; a row of a stream that is not eligible is left as
+// it was.
 void jpeg_wire_raw420_batch(const uint8_t* const* datas, const size_t* lens, int n, int eh,
                             int ew, uint8_t* out, int n_threads, int32_t* ok) {
   const int hb = eh / 8, wb = ew / 8;
@@ -725,7 +1145,7 @@ void jpeg_wire_raw420_batch(const uint8_t* const* datas, const size_t* lens, int
     std::vector<int16_t>& coefs = scratch[t];
     coefs.resize(yb * 3 / 2 * 64);
     uint16_t qt[2 * 64];
-    ok[i] = wire_decode_coefs(datas[i], lens[i], eh, ew, coefs.data(), qt) == 0;
+    ok[i] = wire_decode_coefs(datas[i], lens[i], eh, ew, coefs.data(), qt, true) == 0;
     if (!ok[i]) return;
     uint8_t* y = out + int64_t(i) * eh * ew * 3 / 2;
     idct_plane(coefs.data(), qt, hb, wb, y);

@@ -38,9 +38,10 @@ constexpr int32_t kOneHalf = int32_t(1) << (kScaleBits - 1);
 
 constexpr int32_t fix(double x) { return static_cast<int32_t>(x * (1 << kScaleBits) + 0.5); }
 
-// One component's samples (ch, cw), up by (sx, sy) in {1, 2} as jdsample.c
-// picks the filter (ops/jpeg_decode._upsample): h2v2 and h2v1 fancy when
-// the component is wider than 2 samples, else replication; h1v2 fancy.
+// One component's samples (ch, cw), up by whole factors (sx, sy) as
+// jdsample.c picks the method (ops/jpeg_decode._upsample): h2v2 and h2v1
+// fancy when the component is wider than 2 samples, h1v2 fancy, and
+// replication for every other ratio.
 std::vector<uint8_t> upsample(const uint8_t* p, int pitch, int ch, int cw, int sx, int sy) {
   const int oh = ch * sy, ow = cw * sx;
   std::vector<uint8_t> out(static_cast<size_t>(oh) * ow);
@@ -50,15 +51,14 @@ std::vector<uint8_t> upsample(const uint8_t* p, int pitch, int ch, int cw, int s
     return p[static_cast<size_t>(y) * pitch + x];
   };
   const bool small = cw <= 2;
+  const bool fancy = (sx == 2 && sy <= 2 && !small) || (sx == 1 && sy == 2);
   for (int y = 0; y < ch; ++y) {
     for (int x = 0; x < cw; ++x) {
       const int32_t c = at(y, x);
-      if (sx == 1 && sy == 1) {
-        out[static_cast<size_t>(y) * ow + x] = static_cast<uint8_t>(c);
-      } else if (sx == 2 && small) {
+      if (!fancy) {
         for (int dy = 0; dy < sy; ++dy)
-          for (int dx = 0; dx < 2; ++dx)
-            out[static_cast<size_t>(y * sy + dy) * ow + 2 * x + dx] = static_cast<uint8_t>(c);
+          for (int dx = 0; dx < sx; ++dx)
+            out[static_cast<size_t>(y * sy + dy) * ow + sx * x + dx] = static_cast<uint8_t>(c);
       } else if (sx == 2 && sy == 2) {
         // triangle filter over columns of (3 * row + the row above/below)
         for (int dy = 0; dy < 2; ++dy) {
@@ -86,13 +86,16 @@ std::vector<uint8_t> upsample(const uint8_t* p, int pitch, int ch, int cw, int s
   return out;
 }
 
-// A stream -> (h, w, 3) BGR u8, libjpeg's default decode; 0 or the
-// entropy decoder's negative status.
+// A stream -> (h, w, 3) BGR u8, libjpeg's default decode to BGR as the
+// JAX package's prep_frame runs it; 0 or a negative status: the entropy
+// decoder's, or -6 for CMYK and YCCK (utils/jpeg_ingest.STATUS).
 int decode_bgr(const uint8_t* data, size_t len, std::vector<uint8_t>* bgr, int* out_h,
                int* out_w) {
   Decoder probe(data, len);
   if (const int s = probe.run(nullptr, nullptr, nullptr)) return s;
   const int32_t* info = probe.info;
+  const int space = info[15];
+  if (space == kCMYK || space == kYCCK) return -6;
   const int height = info[0], width = info[1], ncomp = info[2];
   const int hmax = info[3], vmax = info[4], mcux = info[5], mcuy = info[6];
   std::vector<int64_t> offset(ncomp + 1, 0);
@@ -100,7 +103,10 @@ int decode_bgr(const uint8_t* data, size_t len, std::vector<uint8_t>* bgr, int* 
     offset[c + 1] = offset[c] + int64_t(mcuy) * info[8 + 2 * c] * mcux * info[7 + 2 * c] * 64;
   std::vector<int16_t> coefs(offset[ncomp], 0);
   std::vector<uint16_t> qtabs(static_cast<size_t>(ncomp) * 64);
-  if (const int s = jpeg_decode_coefs_impl(data, len, info, coefs.data(), qtabs.data())) return s;
+  int32_t extra[kExtraLen];
+  if (const int s = jpeg_decode_coefs_impl(data, len, info, coefs.data(), qtabs.data(), extra,
+                                           true))
+    return s;
 
   std::vector<std::vector<uint8_t>> planes(ncomp);
   for (int c = 0; c < ncomp; ++c) {
@@ -123,6 +129,12 @@ int decode_bgr(const uint8_t* data, size_t len, std::vector<uint8_t>* bgr, int* 
   const size_t n = static_cast<size_t>(height) * width;
   if (ncomp == 1) {
     for (size_t i = 0; i < n; ++i) o[3 * i] = o[3 * i + 1] = o[3 * i + 2] = planes[0][i];
+  } else if (space == kRGB) {
+    for (size_t i = 0; i < n; ++i) {
+      o[3 * i] = planes[2][i];
+      o[3 * i + 1] = planes[1][i];
+      o[3 * i + 2] = planes[0][i];
+    }
   } else {   // jdcolor.c ycc_rgb_convert
     auto clamp = [](int32_t v) { return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v)); };
     for (size_t i = 0; i < n; ++i) {

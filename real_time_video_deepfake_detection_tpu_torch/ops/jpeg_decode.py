@@ -3,18 +3,22 @@
 Port of real_time_video_deepfake_detection_tpu/ops/jpeg_decode.py
 (`samples_from_coefs`, `bgr_from_ycbcr420`, `bgr_from_coefs_420`),
 generalised by `bgr_from_components` to every stream the port's entropy
-decoder accepts (csrc/jpeg_entropy.cpp): 1 or 3 components, sampling
-factors 1-2, any image size. The steps are libjpeg's default decode, bit for
-bit:
+decoder accepts (csrc/jpeg_entropy.cpp): 1, 3 or 4 components, sampling
+factors 1-4 in whole ratios, any image size, sequential or progressive.
+The steps are libjpeg-turbo 2.1.5's default decode, bit for bit:
 
   dequantise -> jpeg_idct_islow + 128, clamped to [0, 255]
   -> each component cropped to its true size ceil(W*h/hmax) x
      ceil(H*v/vmax): libjpeg upsamples from the last real row and column
      (jdmainct.c set_bottom_pointers, jdsample.c), not the padded blocks
-  -> upsampling as jdsample.c picks it: h2v2 and h2v1 fancy when the
-     component is wider than 2 samples, else replication; h1v2 fancy
-  -> ycc_rgb_convert (grayscale replicated to three channels, as
-     IMREAD_COLOR returns it) -> crop to H x W.
+  -> upsampling as jdsample.c jinit_upsampler picks it: h2v2 and h2v1
+     fancy when the component is wider than 2 samples, else replication;
+     h1v2 fancy; any other whole ratio (4:1:1's h4v1, 4:1:0's h4v2) by
+     replication (int_upsample)
+  -> colour: ycc_rgb_convert for YCbCr, a channel swap for RGB, grayscale
+     replicated to three channels (as IMREAD_COLOR returns it); CMYK as
+     cv2.imdecode converts libjpeg's CMYK output to BGR, and YCCK through
+     libjpeg's ycck_cmyk_convert first -> crop to H x W.
 
 `scale=M` below 8 is libjpeg-turbo's DCT-scaled decode at M/8
 (ops/jpeg_scaled.py): each component's scaled IDCT size, the output
@@ -72,31 +76,60 @@ def bgr_from_coefs_420(coef_y: torch.Tensor, coef_c: torch.Tensor,
 
 
 def _upsample(plane: torch.Tensor, sx: int, sy: int, fancy: bool = True) -> torch.Tensor:
-    """(B, ch, cw) component at its true size, up by (sx, sy) in {1, 2}.
-    jdsample.c filters only when `fancy` (the smallest IDCT size is above
-    1) and, across, only a component wider than 2 samples; else it
-    replicates."""
+    """(B, ch, cw) component at its true size, up by whole factors (sx,
+    sy), as jdsample.c picks the method: h2v1 and h2v2 filter only when
+    `fancy` (the smallest IDCT size is above 1) and the component is wider
+    than 2 samples, h1v2 when `fancy`; everything else replicates."""
     small = not fancy or plane.shape[-1] <= 2
-    if (sx, sy) == (2, 2):
-        if small:
-            return plane.repeat_interleave(2, dim=-1).repeat_interleave(2, dim=-2)
+    if (sx, sy) == (2, 2) and not small:
         return h2v2_fancy_upsample(plane)
-    if (sx, sy) == (2, 1):
-        return plane.repeat_interleave(2, dim=-1) if small else h2v1_fancy_upsample(plane)
-    if (sx, sy) == (1, 2):
-        return h1v2_fancy_upsample(plane) if fancy else plane.repeat_interleave(2, dim=-2)
+    if (sx, sy) == (2, 1) and not small:
+        return h2v1_fancy_upsample(plane)
+    if (sx, sy) == (1, 2) and fancy:
+        return h1v2_fancy_upsample(plane)
+    if sx > 1:
+        plane = plane.repeat_interleave(sx, dim=-1)
+    if sy > 1:
+        plane = plane.repeat_interleave(sy, dim=-2)
     return plane
+
+
+def _bgr_from_cmyk(c, m, y, k) -> torch.Tensor:
+    """cv2's conversion of libjpeg's CMYK output (icvCvt_CMYK2BGR_8u_C4C3R):
+    each of C, M, Y becomes k - ((255 - x) * k >> 8)."""
+    k = k.to(torch.int32)
+    out = [k - (((255 - x.to(torch.int32)) * k) >> 8) for x in (y, m, c)]
+    return torch.stack(out, dim=-1).to(torch.uint8)
+
+
+def planes_to_bgr(planes: Sequence[torch.Tensor], color: str) -> torch.Tensor:
+    """Full-size component planes (B, H, W) -> (B, H, W, 3) u8 BGR for the
+    colour space `color` ("gray", "ycbcr", "rgb", "cmyk" or "ycck")."""
+    if color == "gray":
+        return planes[0].to(torch.uint8)[..., None].expand(-1, -1, -1, 3).contiguous()
+    if color == "ycbcr":
+        return ycbcr_to_bgr_jpeg(*planes)
+    if color == "rgb":
+        return torch.stack([planes[2], planes[1], planes[0]], dim=-1).to(torch.uint8)
+    if color == "cmyk":
+        return _bgr_from_cmyk(*planes)
+    if color == "ycck":   # jdcolor.c ycck_cmyk_convert: C, M, Y = 255 - R, G, B
+        bgr = ycbcr_to_bgr_jpeg(*planes[:3]).to(torch.int32)
+        return _bgr_from_cmyk(255 - bgr[..., 2], 255 - bgr[..., 1], 255 - bgr[..., 0],
+                              planes[3])
+    raise ValueError(f"unknown JPEG colour space {color!r}")
 
 
 def bgr_from_components(coefs: Sequence[torch.Tensor], qtabs: torch.Tensor,
                         factors: Sequence[Tuple[int, int]], height: int,
-                        width: int, scale: int = 8) -> torch.Tensor:
+                        width: int, scale: int = 8, color: str = "") -> torch.Tensor:
     """A batch of same-layout streams -> (B, ceil(height*scale/8),
     ceil(width*scale/8), 3) u8 BGR.
 
     coefs[c]: (B, bh_c, bw_c, 64) int16, component c's padded block grid in
     natural order; qtabs (B, n_components, 64); factors[c] = (h_c, v_c).
-    One component is grayscale, three are YCbCr. `scale` in 1..8 is
+    `color` names the colour space (planes_to_bgr); by default one
+    component is grayscale and three are YCbCr. `scale` in 1..8 is
     libjpeg's scale_num over a scale_denom of 8."""
     hmax = max(h for h, _ in factors)
     vmax = max(v for _, v in factors)
@@ -118,6 +151,4 @@ def bgr_from_components(coefs: Sequence[torch.Tensor], qtabs: torch.Tensor,
         up = _upsample(plane[:, :ch, :cw], hmax * scale // (h * k),
                        vmax * scale // (v * k), fancy=scale > 1)
         planes.append(up[:, :out_h, :out_w])
-    if len(planes) == 1:
-        return planes[0].to(torch.uint8)[..., None].expand(-1, -1, -1, 3).contiguous()
-    return ycbcr_to_bgr_jpeg(*planes)
+    return planes_to_bgr(planes, color or ("gray" if len(planes) == 1 else "ycbcr"))

@@ -13,7 +13,9 @@ requests with the reference's JSON response. Two modes:
   - device detect (ServerConfig.device_detect): the request thread only
     enqueues the JPEG bytes (or conforms a decoded frame to
     detect_capture_hw); the batcher entropy-decodes the tick's JPEGs in one
-    pooled host call, reconstructs and conforms them on the engine's device,
+    pooled host call, reconstructs and conforms them on the engine's device
+    (a JPEG libjpeg's route refuses is decoded on the host by cv2's route,
+    utils/image_decode.cv2_route, as the JAX tick falls back to cv2),
     and runs serving/batcher.make_device_step_detect (SSD detection,
     resizes, crop/align, CLAHE with clahe_device, classification, tracker);
     face_bbox comes back in the client frame's coordinates. With a wire
@@ -38,8 +40,9 @@ clip_probability and clip_frames. In host-prep mode
 `analyze_jpeg` takes the JAX engine's route: where the prep it would run
 is the heuristic face rung, the resize aligner and the host CLAHE
 (`_native_prep_eligible`), one GIL-free host call does the whole of it
-(utils/native_prep.prep_frame, csrc/prep_host.cpp); otherwise it decodes
-with the port's decoder and calls `analyze`. With
+(utils/native_prep.prep_frame, csrc/prep_host.cpp); otherwise, or when
+that call refuses the stream, it decodes on the JAX server's ladder
+(utils/image_decode.decode_frame) and calls `analyze`. With
 ServerConfig.ingest_scaled_decode the device-detect tick's pooled decode
 reconstructs each JPEG at libjpeg's DCT scale M/8, the largest whose
 output still covers twice the capture size, before the resize, as the JAX
@@ -76,9 +79,10 @@ from ..state.tracker import (
 from ..state.tree import tree_map
 from ..utils.host_resize import resize_analysis
 from ..utils.jpeg_ingest import (
-    WIRE_PLANES, JpegError, decode_coefs_batch, decode_jpeg, decode_wire_into, frames_at,
+    WIRE_PLANES, JpegError, decode_coefs_batch, decode_wire_into, frames_at,
     log_refusal, wire_buffer, wire_views,
 )
+from ..utils.image_decode import cv2_route, decode_frame
 from ..utils.native_prep import prep_frame
 from .batcher import (
     StreamStates, clip_head_spec, device_step_compact, init_stream_states,
@@ -515,18 +519,21 @@ class MultiStreamEngine:
         bytes; the batcher decodes the whole tick's JPEGs in one pooled call
         (request threads do no image work). Host-prep mode: decode, resize,
         detect, CLAHE and align in one GIL-free host call when
-        `_native_prep_eligible`, else decode here (utils/jpeg_ingest.
-        decode_jpeg), then analyze(). A stream the decoder refuses gives
-        {"error": "Invalid image format", "status": 400}."""
+        `_native_prep_eligible` and its libjpeg route decodes the stream,
+        else decode here on the JAX server's ladder (utils/image_decode.
+        decode_frame: native, then cv2), then analyze(). A stream both
+        routes refuse gives {"error": "Invalid image format", "status":
+        400}."""
         if self._detect_steps is None:
-            if not self._native_prep_eligible():
-                frame = decode_jpeg(data)
+            r = None
+            if self._native_prep_eligible():
+                t0 = time.time()
+                r = prep_frame(data, self.cfg.forensic.analysis_size,
+                               self.cfg.mtcnn_image_size)
+            if r is None:
+                frame = decode_frame(data)
                 return dict(_INVALID_IMAGE) if frame is None else self.analyze(
                     frame, stream_id, timeout)
-            t0 = time.time()
-            r = prep_frame(data, self.cfg.forensic.analysis_size, self.cfg.mtcnn_image_size)
-            if r is None:
-                return dict(_INVALID_IMAGE)
             frame256, aligned, box = r
             slot = self.slot_for(stream_id)
             if aligned is not None and self._faces_dtype == np.float32:
@@ -665,15 +672,23 @@ class MultiStreamEngine:
         reconstruct each same-layout group as one batch on the engine's
         device and conform it to detect_capture_hw (ops/resize, the JAX
         package's resize), at libjpeg's DCT scale with
-        ingest_scaled_decode. Refused streams are answered 400 here."""
+        ingest_scaled_decode. A stream the libjpeg route refuses falls back
+        to the cv2 route on the host and the cv2-exact resize, as the JAX
+        tick's does; one both refuse is answered 400 here."""
         hw = tuple(self.server_cfg.detect_capture_hw)
         kept = []
         for p, jc in zip(entries, decode_coefs_batch([p.jpeg for p in entries],
                                                      self.server_cfg.prep_threads)):
             if isinstance(jc, JpegError):
-                log_refusal(str(jc))
-                p.result = dict(_INVALID_IMAGE)
-                p.event.set()
+                f = cv2_route(p.jpeg)
+                if f is None:
+                    log_refusal(f"native: {jc}")
+                    p.result = dict(_INVALID_IMAGE)
+                    p.event.set()
+                    continue
+                if p.need_dims:
+                    p.orig_hw = f.shape[:2] if f.shape[:2] != hw else None
+                p.frame_capture = f if f.shape[:2] == hw else resize_analysis(f, *hw)
                 continue
             if p.need_dims:   # the header scan failed: the decode knows the size
                 p.orig_hw = (jc.height, jc.width) if (jc.height, jc.width) != hw else None
@@ -930,7 +945,7 @@ def create_batched_app(engine: Optional[MultiStreamEngine] = None,
             if data[:2] == b"\xff\xd8":
                 result = engine.analyze_jpeg(data, sid)
             else:
-                frame = _decode_frame(data)   # None: the port decodes JPEG only
+                frame = _decode_frame(data)   # None: both routes refuse it
                 if frame is None:
                     return jsonify({"error": "Invalid image format"}, 400)
                 result = engine.analyze(frame, sid)

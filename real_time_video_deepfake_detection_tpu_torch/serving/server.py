@@ -12,10 +12,12 @@ Chrome extension (extension/content.js) works unchanged:
 Rate limiting: >= 100 ms between /analyze requests -> 429 with
 retry_after_ms (backend_server.py:61-80).
 
-Frames are decoded by the port's own baseline JPEG decoder
-(utils/jpeg_ingest.py); there is no cv2 rung, so progressive, arithmetic
-and 12-bit JPEGs, PNG and BMP answer 400 "Invalid image format", the reason
-logged once.
+Frames are decoded by the port's own decoders on the JAX server's ladder
+(utils/image_decode.decode_frame): bytes that start FF D8 through the
+libjpeg route, then the cv2 route (JPEG with CMYK and YCCK, PNG, BMP, EXIF
+orientation). What both refuse (arithmetic-coded and 12-bit JPEGs, the
+other formats cv2 reads, a stream neither libjpeg nor cv2 decodes) answers
+400 "Invalid image format", the reasons logged once.
 
     python -m real_time_video_deepfake_detection_tpu_torch.serving.server [--batched ...]
 """
@@ -40,7 +42,7 @@ from ..core.config import DetectorConfig, ServerConfig
 from ..models import backbones
 from ..models.temporal_head import TemporalHead
 from ..pipeline.detector import DeepfakeDetector
-from ..utils.jpeg_ingest import decode_jpeg
+from ..utils.image_decode import decode_frame
 from .batcher import clip_head_spec
 from .wsgi import App, Request, Response, jsonify
 
@@ -48,9 +50,10 @@ logger = logging.getLogger(__name__)
 
 
 def _decode_frame(data: bytes) -> Optional[np.ndarray]:
-    """Image bytes -> BGR u8 (H, W, 3), libjpeg's default decode of a
-    baseline JPEG; None (the reason logged once) for anything else."""
-    return decode_jpeg(data)
+    """Image bytes -> BGR u8 (H, W, 3) on the JAX server's ladder (native
+    libjpeg route for FF D8, then the cv2 route); None (the reasons logged
+    once) when both refuse."""
+    return decode_frame(data)
 
 
 def _device_strings(device: Union[str, torch.device]) -> Tuple[str, Optional[str]]:

@@ -10,18 +10,21 @@ loader only decodes and resizes to the (size + 20) canvas; every random
 decision runs on the device (train/augment.py).
 
 The JAX package reads images with cv2.imread and cv2.resize(INTER_LINEAR)
-on host threads. Here a batch is loaded in one pass by the port's baseline
-JPEG decoder and the cv2-exact resize, which give the same bytes: one
-pooled entropy decode on the host (utils/jpeg_ingest.py, C threads, the
-GIL released), then one reconstruction per JPEG layout (ops/jpeg_decode.py)
-and one resize per source size (ops/resize.resize_bilinear_u8_cv2 with
-OpenCV's border rows), batched in torch on the loader's device: on the
-trainer's card the host's share is the entropy decode alone. A file the
-decoder does not support (progressive or arithmetic JPEG, PNG, any other
-format) raises UnsupportedImage, which the loader does not swallow:
-substituting another sample would silently change the training set. A
-corrupt or unreadable file is substituted, as in the JAX package
-(train.py:512-513).
+on host threads. Here a batch is loaded in one pass on cv2.imread's route
+(utils/image_decode) and the cv2-exact resize, which give the same bytes:
+one pooled entropy decode of the batch's JPEGs on the host
+(utils/jpeg_ingest.py, C threads, the GIL released), then one
+reconstruction per JPEG layout (ops/jpeg_decode.py), each image turned by
+its EXIF orientation, and one resize per source size
+(ops/resize.resize_bilinear_u8_cv2 with OpenCV's border rows), batched in
+torch on the loader's device: on the trainer's card the host's share is
+the entropy decode alone. PNG and BMP files decode on the host
+(utils/png.py, utils/bmp.py). A file cv2 would refuse (a truncated or
+corrupt JPEG, a damaged PNG, anything unreadable) is substituted, as in the
+JAX package (train.py:512-513). A file the port cannot decode although cv2
+might (an arithmetic-coded JPEG, WebP, TIFF and the other formats the port
+lacks) raises UnsupportedImage, which the loader does not swallow:
+substituting another sample would silently change the training set.
 """
 
 from __future__ import annotations
@@ -35,10 +38,12 @@ import numpy as np
 import torch
 
 from ..ops.resize import resize_bilinear_u8_cv2
+from ..utils.exif import apply_orientation, jpeg_orientation
+from ..utils.image_decode import JPEG_SIGNATURE, cv2_route, unported_format
 from ..utils.jpeg_ingest import JpegError, decode_coefs_batch, reconstruct
 
-# JpegError statuses of a damaged stream (truncated, corrupt); every other
-# refusal is a format the decoder does not support
+# JpegError statuses of a stream cv2 refuses too (truncated, corrupt); every
+# other refusal is a stream the port cannot decode
 _DAMAGED = (-2, -3)
 
 
@@ -56,8 +61,7 @@ class DeepfakeDataset:
             self.samples.append((str(p), 0))
         for p in sorted((self.dir / "fake").glob("*.jpg")):
             self.samples.append((str(p), 1))
-        # PNGs are listed as in the JAX package (so the sampling is the
-        # same); loading one raises UnsupportedImage
+        # also accept png (the tooling writes jpg; users may add png)
         for label, sub in ((0, "real"), (1, "fake")):
             for p in sorted((self.dir / sub).glob("*.png")):
                 self.samples.append((str(p), label))
@@ -75,8 +79,8 @@ class DeepfakeDataset:
         return self.image_size + (20 if self.split == "train" else 0)
 
     def load_image(self, idx: int) -> np.ndarray:
-        """(s, s, 3) RGB u8 at load_size(). OSError for an unreadable or
-        damaged file, UnsupportedImage for a format the decoder refuses."""
+        """(s, s, 3) RGB u8 at load_size(). OSError for a file cv2.imread
+        refuses, UnsupportedImage for one the port cannot decode."""
         img = self.load_images([idx])[0]
         if isinstance(img, Exception):
             raise img
@@ -95,18 +99,32 @@ class DeepfakeDataset:
                     todo.append((k, path, f.read()))
             except OSError as e:
                 out[k] = e
+        s = self.load_size()
+
+        def resized(bgr: torch.Tensor) -> torch.Tensor:
+            return resize_bilinear_u8_cv2(bgr, s, s, cv2_rows=True).flip(-1)
+
+        jpegs = [t for t in todo if t[2].startswith(JPEG_SIGNATURE)]
         groups: dict = {}
-        for (k, path, _), r in zip(todo, decode_coefs_batch([d for *_, d in todo], n_threads)):
+        for (k, path, data), r in zip(jpegs, decode_coefs_batch([d for *_, d in jpegs],
+                                                                n_threads, route="cv2")):
             if isinstance(r, JpegError):
                 out[k] = (OSError if r.status in _DAMAGED else UnsupportedImage)(f"{path}: {r}")
             else:
-                groups.setdefault(r.layout, []).append((k, r))
-        s = self.load_size()
-        for members in groups.values():
-            bgr = reconstruct([r for _, r in members], device)
-            rgb = resize_bilinear_u8_cv2(bgr, s, s, cv2_rows=True).flip(-1)
-            for (k, _), img in zip(members, rgb):
+                groups.setdefault((r.layout, jpeg_orientation(data)), []).append((k, r))
+        for (_, orientation), members in groups.items():
+            bgr = apply_orientation(reconstruct([r for _, r in members], device), orientation)
+            for (k, _), img in zip(members, resized(bgr)):
                 out[k] = img
+        for k, path, data in todo:
+            if data.startswith(JPEG_SIGNATURE):
+                continue
+            frame = cv2_route(data)   # PNG, BMP
+            if frame is None:
+                out[k] = UnsupportedImage(f"{path}: a format the port does not decode") \
+                    if unported_format(data) else OSError(f"{path}: cv2.imread refuses it")
+            else:
+                out[k] = resized(torch.from_numpy(frame).to(device)[None])[0]
         return out
 
 

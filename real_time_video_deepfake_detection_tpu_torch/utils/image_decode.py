@@ -1,0 +1,91 @@
+"""The two decode ladders of the JAX package, without cv2 or libjpeg.
+
+The JAX package decodes an image by one of two routes, and the port takes
+the same one at each entry point:
+
+- `native_route`: its libjpeg decode to BGR (native/ingest.cpp, the
+  single-stream server, the device-detect tick's pooled decode, host prep).
+  Sequential and progressive JPEGs, truncated ones too (libjpeg pads them),
+  grayscale, YCbCr and RGB; no EXIF orientation.
+- `cv2_route`: cv2.imdecode / cv2.imread with IMREAD_COLOR (the fallback
+  of every native entry point, and the training loader). JPEG (CMYK and
+  YCCK too, but not a stream that ends before its EOI marker), PNG and
+  BMP, each turned by its EXIF orientation.
+
+`decode_frame` is the single-stream server's ladder (server.py:40-49):
+bytes that start FF D8 try the native route, then the cv2 route. What
+both routes refuse gives None, its reason logged once; the formats cv2
+reads and the port does not (WebP, GIF, TIFF, PxM, Sun raster, JPEG 2000,
+AVIF, HDR, OpenEXR) and arithmetic-coded JPEGs are refused with that
+reason.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import bmp, exif, png
+from .jpeg_ingest import decode_jpeg, log_refusal
+
+JPEG_SIGNATURE = b"\xff\xd8\xff"   # cv2's JPEG decoder signature
+
+
+# Leading bytes of the formats cv2.imdecode reads and the port does not
+_UNPORTED = (b"RIFF", b"GIF87a", b"GIF89a", b"II*\x00", b"MM\x00*", b"\x59\xa6\x6a\x95",
+             b"\x00\x00\x00\x0cjP  ", b"\xff\x4f\xff\x51", b"#?RADIANCE", b"#?RGBE",
+             b"\x76\x2f\x31\x01", b"PF", b"Pf") + tuple(b"P%d" % i for i in range(1, 8))
+
+
+def unported_format(data: bytes) -> bool:
+    """Whether `data` looks like an image in a format that cv2 reads and
+    the port does not decode (WebP, GIF, TIFF, Sun raster, JPEG 2000,
+    Radiance HDR, OpenEXR, PxM/PFM, or AVIF)."""
+    return data.startswith(_UNPORTED) or data[4:12] in (b"ftypavif", b"ftypavis")
+
+
+def _oriented(frame: np.ndarray, orientation: int) -> np.ndarray:
+    return exif.apply_orientation(torch.from_numpy(frame), orientation).numpy()
+
+
+def _refused(why: str) -> None:
+    log_refusal(why)
+    return None
+
+
+def native_route(data: bytes) -> Optional[np.ndarray]:
+    """The JAX package's libjpeg decode: (H, W, 3) u8 BGR, or None (the
+    reason logged once)."""
+    return decode_jpeg(data, "native")
+
+
+def cv2_route(data: bytes) -> Optional[np.ndarray]:
+    """cv2.imdecode(data, IMREAD_COLOR): (H, W, 3) u8 BGR, or None (the
+    reason logged once)."""
+    if data.startswith(JPEG_SIGNATURE):
+        frame = decode_jpeg(data, "cv2")
+        return None if frame is None else _oriented(frame, exif.jpeg_orientation(data))
+    if data.startswith(png.SIGNATURE):
+        r = png.decode_png(data)
+        if r is None:
+            return _refused("PNG that cv2 refuses")
+        frame, exif_block = r
+        return _oriented(frame, exif.tiff_orientation(exif_block))
+    if data.startswith(bmp.SIGNATURE):
+        frame = bmp.decode_bmp(data)
+        return frame if frame is not None else _refused("BMP that cv2 refuses")
+    return _refused("not a JPEG, PNG or BMP image (cv2 reads more formats; the port "
+                    "decodes these three)")
+
+
+def decode_frame(data: bytes) -> Optional[np.ndarray]:
+    """The single-stream server's ladder: native first for bytes that start
+    FF D8, then the cv2 route. None when both refuse, each reason logged
+    once."""
+    if data[:2] == b"\xff\xd8":
+        frame = native_route(data)
+        if frame is not None:
+            return frame
+    return cv2_route(data)

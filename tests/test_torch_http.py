@@ -7,9 +7,8 @@ at channels (8, 8, 16, 16), 240x320 captures), fed the committed JPEG
 fixtures. Same status codes and JSON keys; integer, string and bbox fields
 equal; probabilities within TOL = 1e-5 (measured: float rounding only). The
 deviations are the documented ones: /health and /stats name the device
-"cpu" (the JAX app "cpu:0"), and the port answers 400 for what its decoder
-refuses (progressive and truncated JPEGs, PNG, BMP), which the JAX app
-decodes with libjpeg or cv2. Also the engine's stream table (isolation, LRU
+"cpu" (the JAX app "cpu:0"). Progressive and truncated JPEGs, PNG and BMP
+get the JAX app's responses (its libjpeg route, then its cv2 route). Also the engine's stream table (isolation, LRU
 eviction, invalid requests never evict, atomic admit, eviction clears the
 rate stamp, stale requests fail), the multipart parser against the JAX
 one, the threaded server over real sockets (64 clients at once), the
@@ -217,14 +216,17 @@ def _png_bmp_progressive_truncated():
             _read("progressive_720x405_q85.jpg"), _read("truncated_720x405_q85.jpg")]
 
 
-def test_single_stream_refuses_what_its_decoder_does_not_decode(models):
-    _, _, spec_t = models
-    ta = TS.create_app(DeepfakeDetector(_cfgs()[1], spec=spec_t, device="cpu"),
-                       TSC(min_request_interval=0.0))
-    for data in _png_bmp_progressive_truncated():
-        r = _post(ta, "/analyze", data)
-        assert r.status_code == 400 and r.get_json() == {"error": "Invalid image format"}
-    assert ta.detector.frame_count == 0
+def test_single_stream_decodes_png_bmp_progressive_truncated_as_jax(models):
+    spec_j, pj, spec_t = models
+    cj, ct = _cfgs()
+    ja = JS.create_app(j_detector.DeepfakeDetector(cj, params=pj, spec=spec_j),
+                       JSC(min_request_interval=0.0))
+    ta = TS.create_app(DeepfakeDetector(ct, params=params_from_jax(pj), spec=spec_t,
+                                        device="cpu"), TSC(min_request_interval=0.0))
+    for i, data in enumerate(_png_bmp_progressive_truncated()):
+        r = _same_response(_post(ja, "/analyze", data), _post(ta, "/analyze", data), i)
+        assert "error" not in r
+    assert ta.detector.frame_count == 4
 
 
 def test_single_stream_rate_limit_matches_jax(models):
@@ -289,9 +291,10 @@ def test_batched_app_matches_jax(models, ssd, jnp_lab, monkeypatch, mode):
         for body in (None, b"not an image", b"\xff\xd8 not a jpeg either"):
             _same_response(_post(ja, "/analyze", body, stream_id="c"),
                            _post(ta, "/analyze", body, stream_id="c"), body)
-        for data in _png_bmp_progressive_truncated():
-            r = _post(ta, "/analyze", data, stream_id="d")
-            assert r.status_code == 400 and r.get_json() == {"error": "Invalid image format"}
+        for i, data in enumerate(_png_bmp_progressive_truncated()):
+            r = _same_response(_post(ja, "/analyze", data, stream_id="d"),
+                               _post(ta, "/analyze", data, stream_id="d"), ("formats", i))
+            assert "error" not in r
         if mode == "device_detect":
             # a failed header scan: the client dims come from the pooled decode
             data = _read("frame_720x405_q85_420.jpg")

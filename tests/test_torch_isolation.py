@@ -26,7 +26,8 @@ def test_every_port_module_imports_without_jax():
     assert len(mods) > 20
     p = port.__name__ + "."
     assert {p + "parallel.tensor_parallel", p + "ops.jpeg_scaled", p + "cli.fetch_weights",
-            p + "data_tools.dfdc_download"} <= set(mods)
+            p + "data_tools.dfdc_download", p + "utils.image_decode", p + "utils.exif",
+            p + "utils.png", p + "utils.bmp"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "for blocked in ('jax', 'cv2', 'PIL', 'orbax', 'requests'):\n"
@@ -171,6 +172,29 @@ def test_video_entry_points_import_neither_jax_nor_cv2():
         "bad = [m for m, v in sys.modules.items() if v is not None and (\n"
         "       m.split('.')[0] in ('jax', 'jaxlib', 'cv2')\n"
         "       or m.startswith('real_time_video_deepfake_detection_tpu.'))]\n"
+        "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=REPO))
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
+def test_image_decoders_decode_without_jax_cv2_or_pil():
+    """The decoders of every format (utils/image_decode, exif, png, bmp)
+    load and decode with jax, cv2 and PIL blocked."""
+    data = os.path.join(REPO, "tests", "data", "torch_formats")
+    code = (
+        "import os, sys\n"
+        "for blocked in ('jax', 'jaxlib', 'cv2', 'PIL'):\n"
+        "    sys.modules[blocked] = None\n"
+        "from real_time_video_deepfake_detection_tpu_torch.utils import image_decode\n"
+        f"d = {data!r}\n"
+        "for name in ('prog_420_83x41.jpg', 'cmyk_83x41.jpg', 'exif6_83x41.jpg',\n"
+        "             'png_adam7_rgb8_83x41.png', 'bmp_rle8_83x41.bmp'):\n"
+        "    with open(os.path.join(d, name), 'rb') as fh:\n"
+        "        assert image_decode.decode_frame(fh.read()) is not None, name\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cv2', 'PIL')\n"
+        "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                        text=True, timeout=300,

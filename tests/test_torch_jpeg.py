@@ -55,15 +55,20 @@ def _cv2(data: bytes):
 
 @pytest.mark.parametrize("name", sorted(DIGESTS))
 def test_fixture_decodes_like_cv2_and_the_jax_server(name):
+    """Every fixture, progressive and truncated ones too, as the JAX
+    server's libjpeg route decodes it; equal to cv2 where cv2 decodes it
+    (cv2 refuses the truncated stream)."""
     entry, data = DIGESTS[name], _read(name)
     out = decode_jpeg(data)
-    if not entry["port_decodes"]:   # progressive, truncated
-        assert out is None
-        return
-    assert out is not None and list(out.shape) == entry["shape"]
-    assert hashlib.sha256(out.tobytes()).hexdigest() == entry["sha256"]
-    np.testing.assert_array_equal(out, _cv2(data))
+    assert entry["port_decodes"]
+    assert out is not None and list(out.shape) == entry["native"]["shape"]
+    assert hashlib.sha256(out.tobytes()).hexdigest() == entry["native"]["sha256"]
     np.testing.assert_array_equal(out, j_decode_frame(data))
+    if entry["sha256"] is None:
+        assert _cv2(data) is None and decode_jpeg(data, "cv2") is None
+    else:
+        assert entry["sha256"] == entry["native"]["sha256"]
+        np.testing.assert_array_equal(out, _cv2(data))
 
 
 @settings(max_examples=40, deadline=None, derandomize=True,
@@ -147,13 +152,20 @@ def test_pooled_decode_conformed_equals_the_jax_device_detect_ingest():
         np.testing.assert_array_equal(frame.numpy(), want[i])
 
 
-def test_refusals_carry_their_reason():
-    refused = {b"": -1, b"\x89PNG\r\n\x1a\n....": -1,
-               _read("progressive_720x405_q85.jpg"): -4,
-               _read("truncated_720x405_q85.jpg"): -2}
-    out = decode_coefs_batch(list(refused))
-    for r, status in zip(out, refused.values()):
-        assert isinstance(r, JpegError) and r.status == status
+def test_refusals_carry_their_reason_by_route():
+    """Not-JPEG bytes are refused on both routes; the progressive stream
+    decodes on both; the truncated one decodes on the libjpeg route and is
+    refused (-2) on cv2's, as cv2 refuses it."""
+    cases = [(b"", -1, -1), (b"\x89PNG\r\n\x1a\n....", -1, -1),
+             (_read("progressive_720x405_q85.jpg"), None, None),
+             (_read("truncated_720x405_q85.jpg"), None, -2)]
+    for k, route in enumerate(("native", "cv2")):
+        out = decode_coefs_batch([c[0] for c in cases], route=route)
+        for r, case in zip(out, cases):
+            if case[1 + k] is None:
+                assert not isinstance(r, JpegError), route
+            else:
+                assert isinstance(r, JpegError) and r.status == case[1 + k], route
     with pytest.raises(JpegError):
         decode_coefs(b"\xff\xd8\xff\xd9")
 

@@ -1,8 +1,8 @@
 """The one-call host prep of host-prep serving (utils/native_prep.prep_frame,
 csrc/prep_host.cpp) against the JAX package's (utils/native_ingest.
 prep_frame, native/ingest.cpp) byte for byte: the analysis frame, the face
-box and the aligned face, on every committed JPEG fixture the port's
-decoder accepts and on seeded synthetic JPEGs of other sizes and
+box and the aligned face, on every committed JPEG fixture (progressive and
+truncated ones too) and on seeded synthetic JPEGs of other sizes and
 samplings; each stage against its Python counterpart (decode_jpeg,
 resize_analysis, detect_heuristic, preprocess_face_quality with the
 native Lab rung, the resize aligner); and the engine's route: analyze_jpeg
@@ -120,10 +120,17 @@ def test_prep_frame_stages_equal_the_python_route(name):
 
 
 @pytest.mark.parametrize("name", REFUSED + ("not a jpeg",))
-def test_prep_frame_refuses_what_the_decoder_refuses(name):
+def test_prep_frame_decodes_what_jax_prep_decodes(name):
+    """Progressive and truncated streams prepare as JAX's prep_frame
+    prepares them (libjpeg pads the truncated one); what it refuses, the
+    port refuses."""
     data = b"\x89PNG not a jpeg" if name == "not a jpeg" else _read(name)
-    assert decode_jpeg(data) is None
-    assert prep_frame(data) is None
+    want = JN.prep_frame(data)
+    if want is None:
+        assert decode_jpeg(data) is None and prep_frame(data) is None
+    else:
+        _assert_same(prep_frame(data), want)
+        _assert_same(prep_frame(data), _python_route(data))
     with pytest.raises(ValueError):
         prep_frame(_read(FIXTURES[0]), (0, 256))
 
@@ -176,9 +183,9 @@ def test_engine_takes_the_one_call_route_and_answers_as_analyze(monkeypatch):
             faces += "face_bbox" in got
         assert faces == 3
         assert spy.calls == {"prep_frame": len(names), "analyze": 0}
-        # a stream the decoder refuses answers 400
-        assert one.analyze_jpeg(_read(REFUSED[0]), "s") == {"error": "Invalid image format",
-                                                             "status": 400}
+        # a stream both routes refuse answers 400
+        assert one.analyze_jpeg(b"\xff\xd8\xff corrupt", "s") == {
+            "error": "Invalid image format", "status": 400}
     finally:
         one.shutdown()
         two.shutdown()

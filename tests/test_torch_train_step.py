@@ -123,14 +123,14 @@ def test_lr_group_partition_equals_jax(which):
         assert len(set(got)) >= 2
 
 
-def _jax_fused_draws(key, spec_j, cfg):
-    """The draws fused_train_step makes from its state's key, in the port's
-    layout, and the key it leaves."""
+def _jax_fused_draws(key, spec_j, cfg, n: int = B):
+    """The draws fused_train_step makes from its state's key for a batch
+    of `n`, in the port's layout, and the key it leaves."""
     rng, k_aug, k_mix, k_drop = jax.random.split(key, 4)
-    per = jax.random.split(k_aug, B)
+    per = jax.random.split(k_aug, n)
     aug = stack_draws([jax_draws(k, BIG, SIZE) for k in per])
-    mix = jax_mixup_draws(k_mix, B, SIZE, SIZE, cfg.mixup_alpha, cfg.cutmix_alpha)
-    masks = jax_masks(k_drop, spec_j, B, cfg.head_dropout, (spec_j.head_filters,) + HEAD_DIMS[:2])
+    mix = jax_mixup_draws(k_mix, n, SIZE, SIZE, cfg.mixup_alpha, cfg.cutmix_alpha)
+    masks = jax_masks(k_drop, spec_j, n, cfg.head_dropout, (spec_j.head_filters,) + HEAD_DIMS[:2])
     return {"augment": aug, "mixup": mix, "masks": masks}, (k_aug, k_mix, k_drop)
 
 

@@ -1,7 +1,7 @@
 """The port's trainer on the CPU: main over a dataset of the JPEG fixtures
 (files, the log's keys, resume, early stop, the calibrator), the loader's
 batches against the JAX package's BatchLoader (cv2) bit for bit, an
-unsupported image named, the CLI's flags and defaults against the JAX
+unported format named, the CLI's flags and defaults against the JAX
 parser, the clip-head trainer from the JAX head's parameters, and the
 device rule (CUDA unless --device cpu; a rank per card when several are
 usable)."""
@@ -104,11 +104,21 @@ def test_loader_batches_equal_jax_loader(tmp_path):
         assert n == len(tl)
 
 
-def test_unsupported_image_raises_naming_the_file(tmp_path):
+def test_unported_image_raises_naming_the_file(tmp_path):
+    """A format cv2 reads and the port does not (WebP, under a .png name)
+    raises; a progressive JPEG loads as the JAX loader loads it."""
+    import cv2
     ds = _dataset(tmp_path / "ds", extra=("progressive_720x405_q85.jpg",))
+    tds, jds = TD.DeepfakeDataset(ds, "train", 32), JD.DeepfakeDataset(ds, "train", 32)
+    i = [p for p, _ in tds.samples].index(os.path.join(tds.dir, "fake",
+                                                       "progressive_720x405_q85.jpg"))
+    np.testing.assert_array_equal(tds.load_image(i), jds.load_image(i))
+    webp = cv2.imencode(".webp", np.zeros((40, 40, 3), np.uint8))[1].tobytes()
+    with open(os.path.join(ds, "train", "fake", "webp.png"), "wb") as fh:
+        fh.write(webp)
     loader = TD.BatchLoader(TD.DeepfakeDataset(ds, "train", 32), 16, shuffle=False,
                             drop_last=False, num_workers=2)
-    with pytest.raises(TD.UnsupportedImage, match="progressive_720x405_q85.jpg"):
+    with pytest.raises(TD.UnsupportedImage, match="webp.png"):
         for _ in loader:
             pass
     # a damaged file is replaced by another sample, as in the JAX loader

@@ -3,9 +3,8 @@
 through utils/jpeg_ingest.py) against the JAX package's libjpeg one
 (utils/native_ingest.decode_coefs_batch, decode_raw420_batch) byte for byte,
 padded rows and zeroed quant tables included; the eligibility flags against
-JAX's on JAX's mixed batch, whose progressive entry is the one stated
-difference (the port's entropy decoder refuses progressive streams, so they
-take the full decode, which answers 400); the port's wire step against JAX
+JAX's on JAX's mixed batch, its progressive entry included; the port's wire
+step against JAX
 make_device_step_detect_wire on the same arrays, for both planes, at the
 small size and tolerance of tests/test_torch_detect_tick.py; and a
 wire-plane engine against a bgr-plane engine on the same requests: the same
@@ -82,13 +81,15 @@ def _mixed_batch():
             _jpeg(_frame(480, 640, 6), 50)]
 
 
-def test_wire_eligibility_equals_jax_but_for_progressive():
+def test_wire_eligibility_equals_jax_progressive_included():
     datas = _mixed_batch()
     for port, jax_fn in ((J.decode_coefs_wire_batch, NI.decode_coefs_batch),
                          (J.decode_raw420_batch, NI.decode_raw420_batch)):
-        want, got = jax_fn(datas, 480, 640)[-1], port(datas, 480, 640)[-1]
-        assert list(want) == [True, False, False, False, False, True, True, True, True]
-        assert list(got) == [True, False, False, False, False, True, False, True, True]
+        want, got = jax_fn(datas, 480, 640), port(datas, 480, 640)
+        assert list(want[-1]) == [True, False, False, False, False, True, True, True, True]
+        assert list(got[-1]) == list(want[-1])
+        for a, b in zip(got[:-1], want[:-1]):   # the progressive row too
+            np.testing.assert_array_equal(a[6], b[6])
 
 
 @pytest.mark.parametrize("pad_to", [0, 16])
@@ -207,11 +208,11 @@ def test_wire_engine_answers_like_the_bgr_engine(ssd, plane):
             else:
                 assert b[k] == a[k], (i, k)
     r = got[plane]
-    assert [x.get("status") for x in r[4:6]] == [400, 400]
+    assert [x.get("status") for x in r[4:6]] == [None, 400]
     box = r[2].get("face_bbox")
     assert box is not None and box["x"] + box["width"] <= 640 and box["y"] + box["height"] <= 480
-    assert [x.get("frame_count") for x in r] == [1, 2, 3, 4, None, None, 5]
-    assert wire_rows == [1, 1, 1], "three eligible requests went through the wire"
+    assert [x.get("frame_count") for x in r] == [1, 2, 3, 4, 5, None, 6]
+    assert wire_rows == [1, 1, 1, 1], "four eligible requests (one progressive) took the wire"
 
 
 def test_wire_engine_rejects_what_jax_rejects():

@@ -1,14 +1,17 @@
 """Write the JPEG fixtures of the PyTorch port's decoder tests and of
 chip_smoke.py into tests/data/torch_jpeg/, with digests.json: for each
 file, the sha256 and shape of cv2.imdecode(..., IMREAD_COLOR)'s output (null
-where cv2 refuses the stream), and
-whether the port's decoder must accept it (progressive and truncated
-streams are refused).
+where cv2 refuses the stream), under "native" those of the JAX package's
+libjpeg decode (utils/native_ingest.decode_jpeg; it pads the truncated
+stream), and whether the port's libjpeg route must decode it (now every
+file).
 
     python tools/make_torch_jpeg_fixtures.py
 
-Needs cv2 (the encoder and the reference decoder); deterministic from its
-seed, so a rerun with the same cv2 rewrites the same bytes.
+Needs cv2 (the encoder and the reference decoder) and the JAX package's
+native library (g++ and libjpeg's headers; JAX itself does not run);
+deterministic from its seed, so a rerun with the same cv2 rewrites the same
+bytes.
 """
 
 from __future__ import annotations
@@ -17,11 +20,13 @@ import hashlib
 import json
 import os
 
+import sys
+
 import cv2
 import numpy as np
 
-OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                   "tests", "data", "torch_jpeg")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OUT = os.path.join(REPO, "tests", "data", "torch_jpeg")
 SEED = 0
 
 
@@ -52,7 +57,15 @@ def encode(img, quality=85, sampling=None, optimize=False, restart=0,
     return buf.tobytes()
 
 
+def digest(img):
+    """{"sha256", "shape"} of a decoded frame, or both None."""
+    return {"sha256": None if img is None else hashlib.sha256(img.tobytes()).hexdigest(),
+            "shape": None if img is None else list(img.shape)}
+
+
 def main() -> None:
+    sys.path.insert(0, REPO)
+    from real_time_video_deepfake_detection_tpu.utils.native_ingest import decode_jpeg
     rng = np.random.default_rng(SEED)
     frame = face_frame(405, 720, rng)        # the extension's 16:9 capture
     small = face_frame(241, 319, rng)        # odd sizes: partial MCUs
@@ -83,9 +96,9 @@ def main() -> None:
         with open(os.path.join(OUT, name), "wb") as fh:
             fh.write(data)
         img = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
-        digests[name] = {"sha256": None if img is None else hashlib.sha256(img.tobytes()).hexdigest(),
-                         "shape": None if img is None else list(img.shape),
-                         "port_decodes": not name.startswith(("progressive", "truncated"))}
+        native = decode_jpeg(data)
+        digests[name] = dict(digest(img), native=digest(native),
+                             port_decodes=native is not None)
     with open(os.path.join(OUT, "digests.json"), "w") as fh:
         json.dump({"cv2": cv2.__version__, "files": digests}, fh, indent=1, sort_keys=True)
         fh.write("\n")
