@@ -7,7 +7,9 @@ Drives the port (real_time_video_deepfake_detection_tpu_torch) on the card,
 in phases, each printing one JSON line:
 
   1. device   the card's name and power limit; TF32 off for convolutions
-              and matmuls
+              and matmuls; whether NVDEC (libnvcuvid.so.1, with
+              cuvidGetDecoderCaps for H.264 High and MPEG-4 Part 2, 8-bit
+              4:2:0) and FFmpeg's libavcodec load, on a line of its own
   2. build    nvcc builds the package's CUDA kernels (csrc/*.cu, sm_90a)
   3. kernels  each kernel against its plain torch version at main-path
               shapes and at the edge inputs its layout is sensitive to
@@ -51,7 +53,8 @@ in phases, each printing one JSON line:
               decode (progressive and truncated streams included), the
               reconstruction on the card byte for byte against the CPU's; the entropy and
               reconstruction times of the extension's 720x405 frame and the
-              pooled decode of 16
+              pooled decode of 16, and the entropy time of the same frame
+              arithmetic-coded (sequential and progressive)
   9. http     two servers on 127.0.0.1, driven with multipart POSTs of the
               720x405 fixtures: (a) the single-stream app over
               DeepfakeDetector (full-size B0): /health, 12 /analyze 150 ms
@@ -201,7 +204,11 @@ in phases, each printing one JSON line:
               ms per frame at batch_frames 256; (e)
               data_tools/face_extract.preextract of the train videos with
               the synthetic SSD on the card and on the CPU: the same JPEG
-              files byte for byte; crops/s
+              files byte for byte; crops/s; (f) utils/mp4.demux of the
+              mp4/mov fixtures (tests/data/torch_mp4): sample tables equal
+              to libavformat's packets, frame counts and fps to
+              cv2.VideoCapture's, the fragmented and audio-only files
+              refused, VideoReader's reason naming the codec; ms a demux
  19. final    the last modules: (a) TemporalHead.forward_blockwise at the
               config-5 head's width (768 features, dim 256, depth 2, 4
               heads, window 64) over 4 streams x 4,096 frames, block 63,
@@ -236,8 +243,11 @@ in phases, each printing one JSON line:
               one input of each kind through the batched device-detect app
               (full-size B0) on the card and on the CPU, responses alike
               (floats within 1e-3, boxes within 1 px), every kernel launched
-              in every tick, the launches counted from 0; (c) the
-              progressive 640x480 stream and a cut of it through the coef
+              in every tick, the launches counted from 0; the same for the
+              arithmetic-coded, lossless and 12-bit fixtures of
+              tests/data/torch_jpeg_modes, (a) and (b) both; (c) the
+              progressive 640x480 stream and a cut of it, and an
+              arithmetic-coded 640x480 stream, through the coef
               plane, its reconstruction on the card equal to the digest;
               (d) the training loader on the card over a mixed dataset,
               each image equal to cv2's decode resized; (e) host ms of the
@@ -427,6 +437,102 @@ def backbone_state(ctx, name: str = "b0"):
 
 # ----------------------------------------------------------------- phases
 
+# cuviddec.h enums: cudaVideoCodec_MPEG4 = 2, _H264 = 4; cudaVideoChromaFormat_420 = 1
+_CUVID_CODECS = (("h264_high_8bit_420", 4), ("mpeg4_part2_8bit_420", 2))
+
+
+def _cuvid_caps(nvcuvid, codec: int) -> dict:
+    """cuvidGetDecoderCaps for `codec`, 8-bit 4:2:0, under torch's primary
+    context of device 0 made current through libcuda; when that call fails,
+    once more under a context of its own (cuCtxCreate), to tell a context
+    fault from a decoder the machine does not expose."""
+    import ctypes
+    import torch
+
+    class Caps(ctypes.Structure):   # CUVIDDECODECAPS, the fields every SDK has
+        _fields_ = [("eCodecType", ctypes.c_int), ("eChromaFormat", ctypes.c_int),
+                    ("nBitDepthMinus8", ctypes.c_uint), ("reserved1", ctypes.c_uint * 3),
+                    ("bIsSupported", ctypes.c_ubyte), ("nNumNVDECs", ctypes.c_ubyte),
+                    ("nOutputFormatMask", ctypes.c_ushort), ("nMaxWidth", ctypes.c_uint),
+                    ("nMaxHeight", ctypes.c_uint), ("nMaxMBCount", ctypes.c_uint),
+                    ("nMinWidth", ctypes.c_ushort), ("nMinHeight", ctypes.c_ushort),
+                    ("tail", ctypes.c_ubyte * 128)]
+
+    torch.zeros(1, device="cuda")   # the primary context exists
+    cuda = ctypes.CDLL("libcuda.so.1")
+    dev, ctx = ctypes.c_int(), ctypes.c_void_p()
+    for call, args in (("cuInit", (0,)), ("cuDeviceGet", (ctypes.byref(dev), 0)),
+                       ("cuDevicePrimaryCtxRetain", (ctypes.byref(ctx), dev)),
+                       ("cuCtxPushCurrent_v2", (ctx,))):
+        rc = getattr(cuda, call)(*args)
+        if rc:
+            return {"error": f"{call} returned {rc}"}
+    try:
+        caps = Caps(eCodecType=codec, eChromaFormat=1, nBitDepthMinus8=0)
+        rc = nvcuvid.cuvidGetDecoderCaps(ctypes.byref(caps))
+    finally:
+        cuda.cuCtxPopCurrent_v2(ctypes.byref(ctypes.c_void_p()))
+        cuda.cuDevicePrimaryCtxRelease_v2(dev)
+    if rc:
+        own = ctypes.c_void_p()
+        rc_own = cuda.cuCtxCreate_v2(ctypes.byref(own), 0, dev)
+        if rc_own == 0:
+            try:
+                caps = Caps(eCodecType=codec, eChromaFormat=1, nBitDepthMinus8=0)
+                rc_own = nvcuvid.cuvidGetDecoderCaps(ctypes.byref(caps))
+            finally:
+                cuda.cuCtxDestroy_v2(own)
+        if rc_own:
+            return {"error": f"cuvidGetDecoderCaps returned {rc} (CUresult) under the "
+                             f"primary context and {rc_own} under a context of its own"}
+    return {"bIsSupported": caps.bIsSupported, "nNumNVDECs": caps.nNumNVDECs,
+            "nMaxWidth": caps.nMaxWidth, "nMaxHeight": caps.nMaxHeight,
+            "nMaxMBCount": caps.nMaxMBCount}
+
+
+def _mp4_decoder_probe() -> dict:
+    """Whether the machine's libraries could decode mp4 video: NVDEC's
+    libnvcuvid.so.1 (with its decoder caps for H.264 High and MPEG-4 Part
+    2) and FFmpeg's libavcodec load with ctypes, and their versions. A
+    missing library is reported as missing; nothing uses either."""
+    import ctypes
+    import ctypes.util
+    out = {}
+    try:
+        nvcuvid = ctypes.CDLL("libnvcuvid.so.1")
+    except OSError as e:
+        out["libnvcuvid"] = {"loaded": False, "error": str(e)}
+    else:
+        with open("/proc/self/maps") as fh:   # the file the loader resolved, with its version
+            paths = {line.split()[-1] for line in fh if "libnvcuvid" in line}
+        info = {"loaded": True, "files": sorted(paths)}
+        cuda = ctypes.CDLL("libcuda.so.1")
+        version = ctypes.c_int()
+        if cuda.cuDriverGetVersion(ctypes.byref(version)) == 0:
+            info["cuda_driver_version"] = version.value
+        for label, codec in _CUVID_CODECS:
+            try:
+                info[label] = _cuvid_caps(nvcuvid, codec)
+            except (OSError, AttributeError) as e:
+                info[label] = {"error": str(e)}
+        out["libnvcuvid"] = info
+    names = [n for n in (ctypes.util.find_library("avcodec"),) if n] + [
+        f"libavcodec.so.{v}" for v in range(62, 56, -1)] + ["libavcodec.so"]
+    for name in names:
+        try:
+            avcodec = ctypes.CDLL(name)
+        except OSError:
+            continue
+        avcodec.avcodec_version.restype = ctypes.c_uint
+        v = avcodec.avcodec_version()
+        out["libavcodec"] = {"loaded": True, "name": name,
+                             "version": f"{v >> 16}.{(v >> 8) & 255}.{v & 255}"}
+        break
+    else:
+        out["libavcodec"] = {"loaded": False, "tried": names}
+    return out
+
+
 def phase_device(ctx):
     import torch
     torch.backends.cudnn.allow_tf32 = False
@@ -438,7 +544,10 @@ def phase_device(ctx):
     line = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unavailable"
     print(line, flush=True)
     ctx["name"], ctx["smi"], ctx["peaks"] = name, line, card_peaks(name)
+    probe = _mp4_decoder_probe()
+    print(json.dumps({"mp4_decoders": probe, "card": line}), flush=True)
     return {"name": name, "nvidia_smi": line, "count": torch.cuda.device_count(),
+            "mp4_decoders": probe,
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
             "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
@@ -1404,6 +1513,8 @@ def _ssd_bf16_tick(net, model, cfg, xg):
 # ------------------------------------------------------------ decode, http
 
 JPEG_DIR = os.path.join(REPO, "tests", "data", "torch_jpeg")
+JPEG_MODES_DIR = os.path.join(REPO, "tests", "data", "torch_jpeg_modes")
+ARITH_FRAMES = ("arith_seq_720x405_420.jpg", "arith_prog_720x405_420.jpg")
 FRAME_JPEG = "frame_720x405_q85_420.jpg"   # the extension's 16:9 capture
 # the fixtures that hold the extension's 720x405 frame, the HTTP phase's traffic
 HTTP_JPEGS = (FRAME_JPEG, "q50_720x405_420.jpg", "q95_720x405_420.jpg")
@@ -1452,6 +1563,12 @@ def phase_decode(ctx):
 
     frame = data[FRAME_JPEG]
     jc = J.decode_coefs(frame)
+    modes = {}
+    for k in ARITH_FRAMES:   # the same frame arithmetic-coded, sequential and progressive
+        with open(os.path.join(JPEG_MODES_DIR, k), "rb") as fh:
+            modes[k] = fh.read()
+        if not (J.decode_jpeg(modes[k]) == J.decode_jpeg(frame)).all():
+            raise AssertionError(f"{k} decodes to other pixels than {FRAME_JPEG}")
 
     def host_ms(fn, n=30):
         fn()
@@ -1481,6 +1598,8 @@ def phase_decode(ctx):
             "g++_build_and_load_s": build_s, "cpu_threads": torch.get_num_threads(),
             "frame": FRAME_JPEG,
             "entropy_ms_one_frame": host_ms(lambda: J.decode_coefs(frame)),
+            "entropy_ms_one_frame_arithmetic": {
+                k: host_ms(lambda d=modes[k]: J.decode_coefs(d)) for k in ARITH_FRAMES},
             "reconstruct_cpu_ms_one_frame": host_ms(lambda: J.reconstruct([jc], "cpu"), n=10),
             "decode_jpeg_cpu_ms_one_frame": host_ms(lambda: J.decode_jpeg(frame), n=10),
             "pooled_entropy_ms_16_frames": host_ms(lambda: J.decode_coefs_batch(batch16)),
@@ -3977,10 +4096,57 @@ def _face_extract(ctx, root: str):
             "crops_per_s_card": written / tg}
 
 
+MP4_DIR = os.path.join(REPO, "tests", "data", "torch_mp4")
+
+
+def _mp4_demux():
+    """(f) utils/mp4.demux of every mp4/mov fixture: its sample table
+    against libavformat's packets (packets.json), frame count and fps
+    against cv2.VideoCapture's, the refusals, VideoReader's reason; host ms
+    of a demux."""
+    import numpy as np
+    from real_time_video_deepfake_detection_tpu_torch.utils import mp4
+    from real_time_video_deepfake_detection_tpu_torch.utils.video import VideoReader
+    with open(os.path.join(MP4_DIR, "packets.json")) as fh:
+        records = json.load(fh)["files"]
+    out = {}
+    for name, rec in sorted(records.items()):
+        path = os.path.join(MP4_DIR, name)
+        with open(path, "rb") as fh:
+            data = fh.read()
+        want = rec["libavformat"]
+        try:
+            track = mp4.demux(data)
+        except mp4.Mp4Error as e:
+            if want is not None and "fragmented" not in name:
+                raise AssertionError(f"mp4 {name}: refused ({e}), libavformat reads it")
+            out[name] = {"refused": str(e)}
+            continue
+        table = np.stack([track.offsets, track.sizes, track.dts, track.pts,
+                          track.keyframes.astype(np.int64)], 1).tolist()
+        cv = rec["cv2"]
+        if table != want["packets"] or (track.frame_count, track.fps) != (
+                cv["frame_count"], cv["fps"]):
+            raise AssertionError(f"mp4 {name}: the sample table or the counts differ")
+        reason = VideoReader(path).reason
+        if "decode is not ported yet" not in reason:
+            raise AssertionError(f"mp4 {name}: VideoReader says {reason!r}")
+        t = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            mp4.demux(data)
+            t.append((time.perf_counter() - t0) * 1e3)
+        out[name] = {"codec": track.codec_name, "samples": len(table),
+                     "frame_count": track.frame_count, "fps": track.fps,
+                     "demux_host_ms": statistics.median(t), "bytes": len(data)}
+    return {"files": out}
+
+
 def phase_video(ctx):
     """Video in: (a) the Motion-JPEG writer and reader, (b) the single-video
     analyzer card against CPU, (c) the batched analyzer over 4 videos, (d)
-    the clip-head trainer's CLI, (e) the face pre-extraction."""
+    the clip-head trainer's CLI, (e) the face pre-extraction, (f) the mp4
+    demuxer."""
     import torch
     from real_time_video_deepfake_detection_tpu_torch.train.checkpoint import save_checkpoint
     os.environ["HAARCASCADE_DIR"] = HAAR_DIR
@@ -3994,7 +4160,8 @@ def phase_video(ctx):
         for name, fn in (("single", lambda: _analyze_single(root, path, weights)),
                          ("multi", lambda: _analyze_multi(root, weights)),
                          ("clip_head", lambda: _clip_head_cli(ctx, root, weights)),
-                         ("face_extract", lambda: _face_extract(ctx, root))):
+                         ("face_extract", lambda: _face_extract(ctx, root)),
+                         ("mp4_demux", _mp4_demux)):
             times[name] = time.time() - t0
             parts[name] = fn()
             print(json.dumps({"video": name, "card": ctx["smi"], **parts[name]}), flush=True)
@@ -4379,27 +4546,40 @@ FORMATS_DIR = os.path.join(REPO, "tests", "data", "torch_formats")
 # and a progressive stream cut inside their scans (libjpeg pads them, and
 # block-smooths the progressive one), and a stream cut inside its headers,
 # which both routes refuse
+# (and from tests/data/torch_jpeg_modes) arithmetic-coded sequential,
+# progressive, CMYK, DAC-conditioned and cut streams, lossless RGB frames
+# (one subsampled), and a gray lossless and a 12-bit frame, which both
+# routes refuse as JAX's do
 FORMAT_APP_INPUTS = (
     "prog_420_83x41.jpg", "prog_420_640x480.jpg", "s411_83x41.jpg", "s440_83x41.jpg",
     "rgb_adobe_83x41.jpg", "cmyk_83x41.jpg", "ycck_83x41.jpg", "exif6_83x41.jpg",
     "png_rgb16_83x41.png", "png_adam7_palette2_83x41.png", "bmp_rle8_83x41.bmp",
     "bmp32_83x41.bmp", "base_420_83x41.jpg@649", "prog_420_83x41.jpg@272",
-    "base_420_83x41.jpg@304")
+    "base_420_83x41.jpg@304", "arith_seq_720x405_420.jpg", "arith_prog_s411_83x41.jpg",
+    "arith_seq_cmyk_83x41.jpg", "arith_prog_dac_s444_319x241.jpg",
+    "arith_prog_420_83x41.jpg@537", "lossless_rgb_p5_83x41.jpg",
+    "lossless_sub_2x2_rgb_83x41.jpg", "lossless_gray_p1_83x41.jpg",
+    "bits12_sof1_rgb_83x41.jpg")
+FORMAT_APP_REFUSED = ("base_420_83x41.jpg@304", "lossless_gray_p1_83x41.jpg",
+                      "bits12_sof1_rgb_83x41.jpg")
 FORMAT_LOADER_INPUTS = ("prog_420_83x41.jpg", "exif6_83x41.jpg", "exif3_83x41.jpg",
                         "png_rgb8_83x41.png", "png_exif6_83x41.png", "cmyk_83x41.jpg",
-                        "s411_83x41.jpg", "png_adam7_rgb16_83x41.png")
+                        "s411_83x41.jpg", "png_adam7_rgb16_83x41.png",
+                        "arith_prog_s411_83x41.jpg", "arith_seq_cmyk_83x41.jpg",
+                        "lossless_rgb_p2_83x41.jpg", "lossless_sub_2x1_rgb_83x41.jpg")
 
 
-def _format_inputs():
-    """({key: bytes}, digests) of tests/data/torch_formats: "<file>@<n>" is
+def _format_inputs(directory=FORMATS_DIR):
+    """({key: bytes}, digests) of tests/data/torch_formats (or another
+    fixture directory with a digests.json of its inputs): "<file>@<n>" is
     the first n bytes of <file>."""
-    with open(os.path.join(FORMATS_DIR, "digests.json")) as fh:
+    with open(os.path.join(directory, "digests.json")) as fh:
         digests = json.load(fh)["inputs"]
     files, out = {}, {}
     for key in digests:
         name, _, cut = key.partition("@")
         if name not in files:
-            with open(os.path.join(FORMATS_DIR, name), "rb") as fh:
+            with open(os.path.join(directory, name), "rb") as fh:
                 files[name] = fh.read()
         out[key] = files[name][:int(cut)] if cut else files[name]
     return out, digests
@@ -4440,8 +4620,8 @@ def _formats_on_card(inputs, digests):
         if data.startswith(ID.JPEG_SIGNATURE):
             try:
                 jc = J.decode_coefs(data, "cv2")
-            except J.JpegError:
-                got = None
+            except J.JpegError as err:   # a lossless frame decodes on the host
+                got = ID.cv2_route(data) if err.status == J.LOSSLESS else None
             else:
                 got = exif.apply_orientation(J.reconstruct([jc], "cuda")[0],
                                              exif.jpeg_orientation(data)).cpu().numpy()
@@ -4509,8 +4689,8 @@ def _formats_http(ctx, inputs):
         card.shutdown()
         cpu.shutdown()
     statuses = {k: st for k, (st, _) in got.items()}
-    if statuses["base_420_83x41.jpg@304"] != 400 or \
-            sum(st == 200 for st in statuses.values()) != len(statuses) - 1:
+    if {k for k, st in statuses.items() if st != 200} != set(FORMAT_APP_REFUSED) or \
+            any(statuses[k] != 400 for k in FORMAT_APP_REFUSED):
         problems.append(f"statuses {statuses}")
     for i, tl in enumerate(tick_launches):
         if min(tl.values()) <= 0:
@@ -4555,7 +4735,8 @@ def _formats_wire(engine, op, url_bgr, inputs):
     from real_time_video_deepfake_detection_tpu_torch.utils import jpeg_ingest as J
     full = inputs["prog_420_640x480.jpg"]
     sos = [i for i in range(len(full) - 1) if full[i:i + 2] == b"\xff\xda"]
-    streams = {"progressive": full, "progressive_cut": full[:(sos[2] + sos[3]) // 2]}
+    streams = {"progressive": full, "progressive_cut": full[:(sos[2] + sos[3]) // 2],
+               "arithmetic": inputs["arith_seq_640x480_420.jpg"]}
     # the plane's reconstruction on the card equals the libjpeg decode
     cy, cc, qt, ok = J.decode_coefs_wire_batch([full], 480, 640)
     frame = bgr_from_coefs_420(torch.from_numpy(cy).cuda(), torch.from_numpy(cc).cuda(),
@@ -4576,12 +4757,12 @@ def _formats_wire(engine, op, url_bgr, inputs):
             for name, data in streams.items():
                 a = _http(op, url + "/analyze", data, sid=f"w-{name}")[:2]
                 out[name] = a[0]
-                if name == "progressive":   # the cut one: libjpeg's unsmoothed coefficients
+                if name != "progressive_cut":   # it carries libjpeg's unsmoothed coefficients
                     b = _http(op, url_bgr + "/analyze", data, sid=f"w-{name}")[:2]
                     problems += _response_diff(a, b, name, tol=1e-6)[1]
     finally:
         eng.shutdown()
-    if problems or rows != [1, 1] or set(out.values()) != {200}:
+    if problems or rows != [1] * len(streams) or set(out.values()) != {200}:
         raise AssertionError(f"coef plane: wire rows {rows}; " + "; ".join(problems[:4]))
     return {"statuses": out, "wire_rows": rows, "reconstruction_equals_digest": True}
 
@@ -4599,7 +4780,10 @@ def _formats_loader(inputs, digests):
         for i, name in enumerate(FORMAT_LOADER_INPUTS):
             d = os.path.join(root, "val", ("real", "fake")[i % 2])
             os.makedirs(d, exist_ok=True)
-            shutil.copy(os.path.join(FORMATS_DIR, name), os.path.join(d, name))
+            src = os.path.join(FORMATS_DIR, name)
+            if not os.path.exists(src):
+                src = os.path.join(JPEG_MODES_DIR, name)
+            shutil.copy(src, os.path.join(d, name))
         ds = TD.DeepfakeDataset(root, "val", 224)
         loader = TD.BatchLoader(ds, 4, shuffle=False, drop_last=False, num_workers=4,
                                 device="cuda")
@@ -4687,16 +4871,20 @@ def _formats_timing(inputs):
 
 def phase_formats(ctx):
     """Every image the JAX package decodes on its serving and training
-    paths: (a) the fixtures' frames on the card against the digests,
-    (b) the batched device-detect app on the card against the CPU app,
-    launches counted, (c) a progressive stream through the coef plane,
-    (d) the loader on the card over mixed formats, (e) decode times."""
+    paths: (a) the fixtures' frames on the card against the digests, the
+    arithmetic, lossless and 12-bit ones too, (b) the batched device-detect
+    app on the card against the CPU app, launches counted, (c) a
+    progressive and an arithmetic stream through the coef plane, (d) the
+    loader on the card over mixed formats, (e) decode times."""
     inputs, digests = _format_inputs()
+    modes, mode_digests = _format_inputs(JPEG_MODES_DIR)
+    everything = {**inputs, **modes}
     t0 = time.time()
     out = {"card": ctx["smi"]}
     for key, fn in (("on_card", lambda: _formats_on_card(inputs, digests)),
-                    ("http", lambda: _formats_http(ctx, inputs)),
-                    ("loader", lambda: _formats_loader(inputs, digests)),
+                    ("jpeg_modes_on_card", lambda: _formats_on_card(modes, mode_digests)),
+                    ("http", lambda: _formats_http(ctx, everything)),
+                    ("loader", lambda: _formats_loader(everything, {**digests, **mode_digests})),
                     ("timing", lambda: _formats_timing(inputs))):
         t = time.time()
         out[key] = fn()

@@ -1,30 +1,36 @@
 // JPEG entropy decoder: the host half of the port's JPEG decode.
 //
-// Parses a JPEG stream and Huffman-decodes it into quantised DCT
+// Parses a JPEG stream and entropy-decodes it into quantised DCT
 // coefficients, nothing more; dequantisation, the inverse DCT, upsampling
 // and colour conversion run in torch (ops/jpeg_decode.py), where they equal
 // libjpeg-turbo 2.1.5's default decode bit for bit. Plain C interface,
 // bound with ctypes (utils/jpeg_ingest.py), built with g++ at first use.
 //
 // Accepted as libjpeg-turbo 2.1.5 accepts them: SOF0/SOF1 (sequential) and
-// SOF2 (progressive) Huffman frames at 8-bit precision with 1, 3 or 4
+// SOF2 (progressive) Huffman frames and SOF9 (sequential) and SOF10
+// (progressive) arithmetic-coded frames, at 8-bit precision with 1, 3 or 4
 // components and sampling factors 1-4 whose ratios are whole numbers; DQT
-// with 8- and 16-bit tables, DHT, DRI with RST0-7 (a misplaced restart
-// marker is resynchronised as jdmarker.c does), APPn/COM/DNL skipped (APP0
-// JFIF and APP14 Adobe decide the colour space as jdapimin.c does), byte
-// stuffing, fill bytes, EOI; in a sequential frame, Huffman slots 0 and 1
-// that no DHT defines before the first scan get the standard tables, as
-// libjpeg-turbo installs them. Arithmetic-coded, lossless and hierarchical
-// frames, 12-bit precision, other component counts and fractional sampling
-// ratios return a negative code, as does every stream libjpeg stops on.
+// with 8- and 16-bit tables, DHT, DAC (the arithmetic conditioning), DRI
+// with RST0-7 (a misplaced restart marker is resynchronised as jdmarker.c
+// does), APPn/COM/DNL skipped (APP0 JFIF and APP14 Adobe decide the colour
+// space as jdapimin.c does), byte stuffing, fill bytes, EOI; in a sequential
+// Huffman frame, Huffman slots 0 and 1 that no DHT defines before the first
+// scan get the standard tables, as libjpeg-turbo installs them. Lossless
+// and hierarchical frames, 12-bit precision, other component counts and
+// fractional sampling ratios return a negative code from the coefficient
+// entries, as does every stream libjpeg stops on. A lossless (SOF3) frame
+// of 8-bit samples has an entry of its own, jpeg_decode_lossless, which
+// returns samples (the cv2 route decodes it; libjpeg-turbo 2.1.5 does not).
 //
 // A stream that ends early decodes as libjpeg's memory source decodes it:
-// the data is followed by fake EOI markers (FF D9, repeated), the MCU in
-// progress is finished with zero bits, and the rest of the restart
-// interval is left as it was (all zero in a sequential scan); a later
+// the data is followed by fake EOI markers (FF D9, repeated). A Huffman
+// scan finishes the MCU in progress with zero bits and leaves the rest of
+// the restart interval as it was (all zero in a sequential scan); a later
 // restart marker found in the data resumes decoding (jdhuff.c,
-// jdphuff.c). The caller learns that the end was passed (cv2.imdecode
-// refuses such a stream). A progressive frame whose first AC coefficients
+// jdphuff.c). An arithmetic scan reads a marker, and the end, as zero
+// bytes and goes on decoding them (jdarith.c); a bad code stops the rest of
+// its restart interval. The caller learns that the end was passed
+// (cv2.imdecode refuses such a stream). A progressive frame whose first AC coefficients
 // are not all exact (in practice a truncated one) is block-smoothed as
 // jdcoefct.c decompress_smooth_data smooths it, on the coefficients, before
 // they leave this file. The bytes come from the network: every read is
@@ -72,6 +78,7 @@ enum Status {
   kCorrupt = -3,
   kUnsupported = -4,
   kTooLarge = -5,
+  kLossless = -7,   // a lossless (SOF3) frame, which the coefficient entries do not decode
 };
 
 enum ColorSpace { kGray = 0, kYCbCr = 1, kRGB = 2, kCMYK = 3, kYCCK = 4 };
@@ -124,6 +131,7 @@ struct Huff {
   bool defined = false;        // a DHT gave it
   bool valid = false;          // jpeg_make_d_derived_tbl accepts it
   bool dc_ok = false;          // every symbol <= 15 (usable as a DC table)
+  bool lossless_ok = false;    // every symbol <= 16 (usable in a lossless scan)
   uint8_t look_len[256];       // 8-bit lookahead: code length, 0 = longer
   uint8_t look_sym[256];
   int32_t maxcode[18];
@@ -172,8 +180,11 @@ bool build_huff(const uint8_t* counts, const uint8_t* syms, int nsym, Huff* h) {
   }
   memset(h->val, 0, sizeof(h->val));
   memcpy(h->val, syms, static_cast<size_t>(nsym));
-  h->dc_ok = true;
-  for (int i = 0; i < nsym; ++i) h->dc_ok = h->dc_ok && syms[i] <= 15;
+  h->dc_ok = h->lossless_ok = true;
+  for (int i = 0; i < nsym; ++i) {
+    h->dc_ok = h->dc_ok && syms[i] <= 15;
+    h->lossless_ok = h->lossless_ok && syms[i] <= 16;
+  }
   return true;
 }
 
@@ -264,6 +275,103 @@ struct Bits {
   }
 };
 
+// jaricom.c jpeg_aritab (ITU-T T.81 Table D.2): Qe << 16 | Next_Index_MPS
+// << 8 | Switch_MPS << 7 | Next_Index_LPS; entry 113 is the fixed 0.5
+// estimate of ITU-T T.851.
+constexpr uint32_t kAriTab[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617,
+    0x00e50719, 0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09,
+    0x00030d0a, 0x00010d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227,
+    0x17b91328, 0x1182142a, 0x0cef152b, 0x09a1162d, 0x072f172e, 0x055c1830,
+    0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36, 0x01441d38, 0x00f51e39,
+    0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320, 0x002c0921,
+    0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d,
+    0x0861314e, 0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633,
+    0x02d43734, 0x025c3835, 0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39,
+    0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d, 0x008f203d, 0x5b1241c1, 0x4d044250,
+    0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a, 0x0d514e4b,
+    0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f,
+    0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669,
+    0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
+    0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171};
+
+constexpr int kArithTables = 16;   // NUM_ARITH_TBLS
+constexpr int kDcBins = 64, kAcBins = 256;
+
+// The arithmetic decoder's registers and input (jdarith.c arith_decode and
+// get_byte). A marker met in the data, or the fake EOI after its end, is
+// not consumed by the scan: from then on the decoder reads zero bytes.
+struct Arith {
+  Source* src;
+  size_t pos;
+  bool stopped = false;   // at a marker: marker_at is its last FF
+  size_t marker_at = 0;
+  int64_t c = 0, a = 0;
+  int ct = -16;           // -16: two bytes to read; -1: a bad code stopped the segment
+
+  // where the marker search after this segment starts
+  size_t where() const { return stopped ? marker_at : pos; }
+  void reset(size_t at, bool at_marker) {
+    pos = marker_at = at;
+    stopped = at_marker;
+    c = a = 0;
+    ct = -16;
+  }
+  int next_byte() {
+    if (stopped) return 0;
+    int d = src->at(pos++);
+    if (d != 0xFF) return d;
+    do d = src->at(pos++);
+    while (d == 0xFF);
+    if (d == 0) return 0xFF;   // a stuffed zero
+    stopped = true;
+    marker_at = pos - 2;
+    return 0;
+  }
+  // ITU-T T.81 D.2: one binary decision with the statistics bin *st
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | next_byte();
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;   // the two initial bytes are in
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    uint32_t qe = kAriTab[sv & 0x7F];
+    const int nl = qe & 0xFF;
+    qe >>= 8;
+    const int nm = qe & 0xFF;
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
+
 inline int extend(uint32_t v, int s) {
   return v < (uint32_t(1) << (s - 1)) ? static_cast<int>(v) - (1 << s) + 1
                                       : static_cast<int>(v);
@@ -281,6 +389,7 @@ struct Comp {
   int16_t* coef = nullptr;
   bool latched = false;
   uint16_t qt[64];               // latched at the component's first scan
+  int point_transform = 0;       // lossless: the Al its scan gave
   int coef_bits[64];             // jdphuff.c coef_bits (progressive)
   int prev_bits[64];             // their values before the last scan that set them
 };
@@ -289,7 +398,13 @@ struct Decoder {
   Source src;
   size_t pos = 0;
   int32_t info[kInfoLen] = {0};
-  bool have_sof = false, progressive = false, in_headers = true, multi_scan = false;
+  bool have_sof = false, progressive = false, arith = false, in_headers = true;
+  bool multi_scan = false;
+  bool accept_lossless = false;   // the lossless entry: SOF3 is decoded, other frames refused
+  bool lossless = false;
+  int precision = 8;
+  uint8_t* lossless_out = nullptr;   // (H, W, C) samples of a lossless decode
+  std::vector<int32_t> samples[kMaxComps];   // lossless: each component's sample plane
   bool saw_jfif = false, saw_adobe = false;
   int adobe_transform = -1;
   int ncomp = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
@@ -297,13 +412,18 @@ struct Decoder {
   uint16_t qt[4][64];
   bool qt_defined[4] = {false, false, false, false};
   Huff dc[4], ac[4];
+  uint8_t dc_L[kArithTables], dc_U[kArithTables], ac_K[kArithTables];   // DAC
   int restart_interval = 0;
   int next_rst = 0;
   int scans = 0;                 // SOS markers read (input_scan_number)
   int last_good_row = 0;         // jdcoefct.c last_good_iMCU_row
   bool decoding = false;         // false: a probe, which stops at the first SOS
 
-  Decoder(const uint8_t* data, size_t len) : src{data, len} {}
+  Decoder(const uint8_t* data, size_t len) : src{data, len} {
+    memset(dc_L, 0, sizeof(dc_L));   // jdmarker.c get_soi's defaults
+    memset(dc_U, 1, sizeof(dc_U));
+    memset(ac_K, 5, sizeof(ac_K));
+  }
 
   uint8_t at(size_t i) { return src.at(i); }
   int u16(size_t i) { return (at(i) << 8) | at(i + 1); }
@@ -332,19 +452,26 @@ struct Decoder {
     size_t end;
     if (have_sof) return kCorrupt;
     if (int s = segment(&end)) return s;
-    const int precision = at(pos);
+    precision = at(pos);
     const int height = u16(pos + 1), width = u16(pos + 3);
     ncomp = at(pos + 5);
     pos += 6;
-    if (marker != 0xC0 && marker != 0xC1 && marker != 0xC2) return kUnsupported;
-    progressive = marker == 0xC2;
+    lossless = marker == 0xC3;
+    if (lossless != accept_lossless) return lossless ? kLossless : kUnsupported;
+    if (marker != 0xC0 && marker != 0xC1 && marker != 0xC2 && marker != 0xC9 &&
+        marker != 0xCA && !lossless)
+      return kUnsupported;
+    progressive = marker == 0xC2 || marker == 0xCA;
+    arith = marker >= 0xC9;
     if (height == 0 || width == 0 || ncomp == 0) return kCorrupt;   // DNL: refused too
     if (end - pos != static_cast<size_t>(3 * ncomp)) return kCorrupt;
-    if (precision != 8) return kUnsupported;
+    // a lossless frame of 2-8 bits fits 8-bit samples (cv2 refuses 12 and 16)
+    if (lossless ? precision < 2 || precision > 8 : precision != 8) return kUnsupported;
     if (ncomp != 1 && ncomp != 3 && ncomp != 4) return kUnsupported;
     if (height > kMaxDimension || width > kMaxDimension) return kCorrupt;
     if (int64_t(height) * width > kMaxPixels) return kTooLarge;
     hmax = vmax = 1;
+    const int bs = lossless ? 1 : 8;   // samples per block side (jdinput.c: 1 in lossless mode)
     for (int c = 0; c < ncomp; ++c) {
       Comp& k = comp[c];
       k.id = at(pos);
@@ -363,8 +490,8 @@ struct Decoder {
     // jdsample.c: only whole upsampling ratios ("Fractional sampling")
     for (int c = 0; c < ncomp; ++c)
       if (hmax % comp[c].h || vmax % comp[c].v) return kUnsupported;
-    mcux = (width + 8 * hmax - 1) / (8 * hmax);
-    mcuy = (height + 8 * vmax - 1) / (8 * vmax);
+    mcux = (width + bs * hmax - 1) / (bs * hmax);
+    mcuy = (height + bs * vmax - 1) / (bs * vmax);
     info[0] = height;
     info[1] = width;
     info[2] = ncomp;
@@ -372,14 +499,15 @@ struct Decoder {
     info[4] = vmax;
     info[5] = mcux;
     info[6] = mcuy;
+    info[16] = precision;
     for (int c = 0; c < ncomp; ++c) {
       Comp& k = comp[c];
       info[7 + 2 * c] = k.h;
       info[8 + 2 * c] = k.v;
       k.bw = mcux * k.h;
       k.bh = mcuy * k.v;
-      k.wb = static_cast<int>((int64_t(width) * k.h + 8 * hmax - 1) / (8 * hmax));
-      k.hb = static_cast<int>((int64_t(height) * k.v + 8 * vmax - 1) / (8 * vmax));
+      k.wb = static_cast<int>((int64_t(width) * k.h + bs * hmax - 1) / (bs * hmax));
+      k.hb = static_cast<int>((int64_t(height) * k.v + bs * vmax - 1) / (bs * vmax));
     }
     have_sof = true;
     pos = end;
@@ -424,6 +552,25 @@ struct Decoder {
     return kOk;
   }
 
+  // jdmarker.c get_dac: the conditioning of arithmetic tables Tb (Tc 0: DC
+  // L and U, Tc 1: AC K)
+  int read_dac() {
+    size_t end;
+    if (int s = segment(&end)) return s;
+    for (; end - pos >= 2; pos += 2) {
+      const int index = at(pos), val = at(pos + 1);
+      if (index >= 2 * kArithTables) return kCorrupt;
+      if (index >= kArithTables) {
+        ac_K[index - kArithTables] = static_cast<uint8_t>(val);
+      } else {
+        dc_L[index] = static_cast<uint8_t>(val & 15);
+        dc_U[index] = static_cast<uint8_t>(val >> 4);
+        if (dc_L[index] > dc_U[index]) return kCorrupt;
+      }
+    }
+    return pos == end ? kOk : kCorrupt;
+  }
+
   int read_dri() {
     size_t end;
     if (int s = segment(&end)) return s;
@@ -455,7 +602,7 @@ struct Decoder {
       if (saw_jfif) return kYCbCr;
       if (saw_adobe) return adobe_transform == 0 ? kRGB : kYCbCr;
       if (comp[0].id == 82 && comp[1].id == 71 && comp[2].id == 66) return kRGB;
-      return kYCbCr;
+      return lossless ? kRGB : kYCbCr;   // libjpeg-turbo 3 takes a lossless frame as RGB
     }
     if (saw_adobe) return adobe_transform == 0 ? kCMYK : kYCCK;
     return kCMYK;
@@ -603,9 +750,11 @@ struct Decoder {
   }
 
   // jdmarker.c read_restart_marker with jpeg_resync_to_restart, at a
-  // restart boundary; `insufficient` is the entropy decoder's flag.
-  void restart(Bits* br, bool* insufficient) {
-    pos = br->pos;
+  // restart boundary, the marker search starting at `at`. Sets *resume to
+  // where the next segment starts; true when the marker found there was
+  // left unread (the segment then reads as empty).
+  bool read_restart(size_t at, size_t* resume) {
+    pos = at;
     int m = next_marker();   // the marker the reader stopped at, or the next
     bool unread = true;
     if (m == 0xD0 + next_rst) {
@@ -633,12 +782,16 @@ struct Decoder {
       }
     }
     next_rst = (next_rst + 1) & 7;
-    if (unread) {
-      br->reset(pos - 2, true);   // at the marker: the next segment reads as empty
-    } else {
-      br->reset(pos, false);
-      *insufficient = false;
-    }
+    *resume = unread ? pos - 2 : pos;
+    return unread;
+  }
+
+  // A Huffman scan's restart; `insufficient` is the entropy decoder's flag.
+  void restart(Bits* br, bool* insufficient) {
+    size_t at;
+    const bool unread = read_restart(br->pos, &at);
+    br->reset(at, unread);
+    if (!unread) *insufficient = false;
   }
 
   // One sequential block (jdhuff.c decode_mcu): only nonzero AC
@@ -660,6 +813,301 @@ struct Decoder {
         if (r != 15) break;
         k += 15;
       }
+    }
+  }
+
+  enum ScanKind { kSeq, kDcFirst, kDcRefine, kAcFirst, kAcRefine };
+
+  // One arithmetic-coded scan (jdarith.c): its statistics areas and DC
+  // predictions start at zero and restart with each restart interval.
+  int decode_arith_scan(Comp* const* sc, int ns, const int* td, const int* ta, ScanKind kind,
+                        int ss, int se, int al) {
+    uint8_t dc_stats[kArithTables][kDcBins], ac_stats[kArithTables][kAcBins];
+    uint8_t fixed_bin = 113;
+    int last_dc[kMaxComps] = {0, 0, 0, 0}, dc_ctx[kMaxComps] = {0, 0, 0, 0};
+    const bool uses_dc = kind == kSeq || kind == kDcFirst;
+    const bool uses_ac = kind == kSeq || kind == kAcFirst || kind == kAcRefine;
+    Arith ar{&src, pos};
+    auto start = [&]() {
+      for (int i = 0; i < ns; ++i) {
+        if (uses_dc) {
+          memset(dc_stats[td[i]], 0, kDcBins);
+          last_dc[i] = dc_ctx[i] = 0;
+        }
+        if (uses_ac) memset(ac_stats[ta[i]], 0, kAcBins);
+      }
+    };
+    start();
+    const int p1 = 1 << al, m1 = -(1 << al);
+
+    // Figures F.19-F.24: a DC difference of the scan's component i
+    auto dc_diff = [&](int i, int* diff) {
+      uint8_t* stats = dc_stats[td[i]];
+      uint8_t* st = stats + dc_ctx[i];
+      if (ar.decode(st) == 0) {
+        dc_ctx[i] = 0;
+        *diff = 0;
+        return true;
+      }
+      const int sign = ar.decode(st + 1);
+      st += 2 + sign;
+      int m = ar.decode(st);
+      if (m) {
+        st = stats + 20;
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000) return false;   // JWRN_ARITH_BAD_CODE
+          ++st;
+        }
+      }
+      const int t = td[i];
+      if (m < ((1 << dc_L[t]) >> 1))
+        dc_ctx[i] = 0;
+      else if (m > ((1 << dc_U[t]) >> 1))
+        dc_ctx[i] = 12 + sign * 4;
+      else
+        dc_ctx[i] = 4 + sign * 4;
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      *diff = sign ? -v : v;
+      return true;
+    };
+    // Figure F.20: the AC coefficients k0..k1 of a block, first pass,
+    // scaled by 2^shift
+    auto ac_first = [&](int i, int16_t* blk, int k0, int k1, int shift) {
+      uint8_t* stats = ac_stats[ta[i]];
+      const int kk = ac_K[ta[i]];
+      for (int k = k0; k <= k1; ++k) {
+        uint8_t* st = stats + 3 * (k - 1);
+        if (ar.decode(st)) break;   // EOB
+        while (ar.decode(st + 1) == 0) {
+          st += 3;
+          if (++k > k1) return false;   // spectral overflow
+        }
+        const int sign = ar.decode(&fixed_bin);
+        st += 2;
+        int m = ar.decode(st);
+        if (m && ar.decode(st)) {
+          m <<= 1;
+          st = stats + (k <= kk ? 189 : 217);
+          while (ar.decode(st)) {
+            if ((m <<= 1) == 0x8000) return false;   // magnitude overflow
+            ++st;
+          }
+        }
+        int v = m;
+        st += 14;
+        while (m >>= 1)
+          if (ar.decode(st)) v |= m;
+        v += 1;
+        if (sign) v = -v;
+        blk[kNatural[k]] = static_cast<int16_t>(static_cast<uint32_t>(v) << shift);
+      }
+      return true;
+    };
+    // one block of component i; false when a bad code stops the segment
+    auto decode_one = [&](int i, int16_t* blk) {
+      switch (kind) {
+        case kSeq:
+        case kDcFirst: {
+          int diff;
+          if (!dc_diff(i, &diff)) return false;
+          last_dc[i] = static_cast<int>(static_cast<uint32_t>(last_dc[i] + diff) & 0xFFFF);
+          if (kind == kDcFirst) {
+            blk[0] = shifted(last_dc[i], al);
+            return true;
+          }
+          blk[0] = static_cast<int16_t>(last_dc[i]);
+          return ac_first(i, blk, 1, 63, 0);
+        }
+        case kDcRefine:
+          if (ar.decode(&fixed_bin)) blk[0] = static_cast<int16_t>(blk[0] | p1);
+          return true;
+        case kAcFirst:
+          return ac_first(i, blk, ss, se, al);
+        case kAcRefine: {
+          uint8_t* stats = ac_stats[ta[i]];
+          int kex = se;   // the previous stage's end of block
+          while (kex > 0 && !blk[kNatural[kex]]) --kex;
+          for (int k = ss; k <= se; ++k) {
+            uint8_t* st = stats + 3 * (k - 1);
+            if (k > kex && ar.decode(st)) break;   // EOB
+            for (;;) {
+              int16_t* c = blk + kNatural[k];
+              if (*c) {
+                if (ar.decode(st + 2)) *c = static_cast<int16_t>(*c < 0 ? *c + m1 : *c + p1);
+                break;
+              }
+              if (ar.decode(st + 1)) {
+                *c = static_cast<int16_t>(ar.decode(&fixed_bin) ? m1 : p1);
+                break;
+              }
+              st += 3;
+              if (++k > se) return false;   // spectral overflow
+            }
+          }
+          return true;
+        }
+      }
+      return true;
+    };
+    int64_t todo = restart_interval;
+    // jdarith.c process_restart, then whether the MCU is decoded
+    auto mcu_start = [&]() {
+      if (restart_interval) {
+        if (todo == 0) {
+          size_t at;
+          const bool unread = read_restart(ar.where(), &at);
+          ar.reset(at, unread);
+          start();
+          todo = restart_interval;
+        }
+        --todo;
+      }
+      return ar.ct != -1;
+    };
+    if (ns == 1) {   // non-interleaved: one block per MCU, image blocks only
+      Comp& k = *sc[0];
+      for (int by = 0; by < k.hb; ++by) {
+        for (int bx = 0; bx < k.wb; ++bx) {
+          last_good_row = by / k.v;
+          if (mcu_start() && !decode_one(0, k.coef + (int64_t(by) * k.bw + bx) * 64))
+            ar.ct = -1;
+        }
+      }
+    } else {
+      for (int my = 0; my < mcuy; ++my) {
+        for (int mx = 0; mx < mcux; ++mx) {
+          last_good_row = my;
+          if (!mcu_start()) continue;
+          for (int i = 0; i < ns && ar.ct != -1; ++i) {
+            Comp& k = *sc[i];
+            for (int v = 0; v < k.v && ar.ct != -1; ++v)
+              for (int h = 0; h < k.h; ++h) {
+                int16_t* blk = k.coef + ((int64_t(my) * k.v + v) * k.bw + int64_t(mx) * k.h + h) * 64;
+                if (!decode_one(i, blk)) {
+                  ar.ct = -1;
+                  break;
+                }
+              }
+          }
+        }
+      }
+    }
+    pos = ar.where();   // the marker that ended the scan, or data before it
+    return kOk;
+  }
+
+  // One lossless scan (libjpeg-turbo 3: jdlhuff.c, jddiffct.c, jdlossls.c):
+  // Huffman-coded differences, an MCU row at a time, each component's rows
+  // undifferenced with predictor Ss; the first row of the scan, of each
+  // restart interval and of each MCU row met after the data ran out
+  // predicts from the left only, from 2^(P - Pt - 1) at its first sample.
+  int decode_lossless_scan(Comp* const* sc, int ns, const int* td, int ss, int se, int ah,
+                           int al) {
+    if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= precision) return kCorrupt;
+    for (int i = 0; i < ns; ++i)
+      if (td[i] > 3 || !dc[td[i]].defined || !dc[td[i]].valid || !dc[td[i]].lossless_ok)
+        return kCorrupt;
+    const bool interleaved = ns > 1;
+    const int mcus_per_row = interleaved ? mcux : sc[0]->wb;
+    const int mcu_rows = interleaved ? mcuy : sc[0]->hb;
+    if (restart_interval % mcus_per_row) return kCorrupt;   // JERR_BAD_RESTART
+    const int restart_rows = restart_interval / mcus_per_row;
+    std::vector<int32_t> diffs[kMaxComps];
+    bool first[kMaxComps];
+    int rh[kMaxComps], rw[kMaxComps];   // an MCU row's rows and samples a row, per component
+    for (int i = 0; i < ns; ++i) {
+      rh[i] = interleaved ? sc[i]->v : 1;
+      rw[i] = interleaved ? mcux * sc[i]->h : sc[i]->wb;
+      diffs[i].assign(size_t(rh[i]) * rw[i], 0);
+      first[i] = true;
+      sc[i]->point_transform = al;
+    }
+    const int init = 1 << (precision - al - 1);
+    Bits br{&src, pos};
+    bool insufficient = false;
+    int rows_to_go = restart_rows;
+    for (int my = 0; my < mcu_rows; ++my) {
+      if (restart_interval) {
+        if (rows_to_go == 0) {
+          restart(&br, &insufficient);
+          for (int i = 0; i < ns; ++i) first[i] = true;
+          rows_to_go = restart_rows;
+        }
+        --rows_to_go;
+      }
+      if (insufficient) {   // zero differences from a reset predictor
+        for (int i = 0; i < ns; ++i) {
+          std::fill(diffs[i].begin(), diffs[i].end(), 0);
+          first[i] = true;
+        }
+      } else {
+        for (int mx = 0; mx < mcus_per_row; ++mx) {
+          for (int i = 0; i < ns; ++i) {
+            const int h = interleaved ? sc[i]->h : 1;
+            for (int yy = 0; yy < rh[i]; ++yy) {
+              for (int xx = 0; xx < h; ++xx) {
+                const int t = br.decode(dc[td[i]]);
+                int d = 0;
+                if (t == 16) {
+                  d = 32768;
+                } else if (t) {
+                  d = extend(br.get(t), t);
+                }
+                diffs[i][size_t(yy) * rw[i] + mx * h + xx] = d;
+              }
+            }
+          }
+        }
+        if (br.overrun()) insufficient = true;
+      }
+      for (int i = 0; i < ns; ++i) {
+        Comp& k = *sc[i];
+        const int c = static_cast<int>(&k - comp);
+        for (int yy = 0; yy < rh[i]; ++yy) {
+          const int y = my * rh[i] + yy;
+          undifference(&samples[c][size_t(y) * k.wb], first[i] ? nullptr
+                       : &samples[c][size_t(y - 1) * k.wb], &diffs[i][size_t(yy) * rw[i]],
+                       k.wb, ss, init);
+          first[i] = false;
+        }
+      }
+    }
+    pos = br.pos;
+    return kOk;
+  }
+
+  // jdlossls.c: one row of samples from its differences, predicted from
+  // `prev` (the row above) with predictor `ps`, or from the left only
+  // (from `init` at the first sample) when prev is null; modulo 2^16.
+  static void undifference(int32_t* row, const int32_t* prev, const int32_t* diff, int w,
+                           int ps, int init) {
+    if (!prev) {
+      int32_t ra = (diff[0] + init) & 0xFFFF;
+      row[0] = ra;
+      for (int x = 1; x < w; ++x) row[x] = ra = (diff[x] + ra) & 0xFFFF;
+      return;
+    }
+    int32_t rb = prev[0];
+    int32_t ra = (diff[0] + rb) & 0xFFFF;
+    row[0] = ra;
+    for (int x = 1; x < w; ++x) {
+      const int32_t rc = rb;
+      rb = prev[x];
+      int32_t p;
+      switch (ps) {
+        case 1: p = ra; break;
+        case 2: p = rb; break;
+        case 3: p = rc; break;
+        case 4: p = ra + rb - rc; break;
+        case 5: p = ra + ((rb - rc) >> 1); break;
+        case 6: p = rb + ((ra - rc) >> 1); break;
+        default: p = (ra + rb) >> 1; break;
+      }
+      row[x] = ra = (diff[x] + p) & 0xFFFF;
     }
   }
 
@@ -695,7 +1143,7 @@ struct Decoder {
       if (!decoding) return kOk;
       const uint8_t* std_tables[4][2] = {{kDcLumBits, kDcVals}, {kDcChromBits, kDcVals},
                                          {kAcLumBits, kAcLumVals}, {kAcChromBits, kAcChromVals}};
-      for (int t = 0; t < 4 && !progressive; ++t) {   // jdhuff.c only, not jdphuff.c
+      for (int t = 0; t < 4 && !progressive && !arith; ++t) {   // jdhuff.c only
         Huff* h = t < 2 ? &dc[t] : &ac[t - 2];
         if (h->defined) continue;
         int nsym = 0;
@@ -711,6 +1159,7 @@ struct Decoder {
       for (int i = 0; i < ns; ++i) blocks += sc[i]->h * sc[i]->v;
       if (blocks > kMaxBlocksInMcu) return kCorrupt;
     }
+    if (lossless) return decode_lossless_scan(sc, ns, td, ss, se, ah, al);
     for (int i = 0; i < ns; ++i) {   // latch the quant tables (jdinput.c)
       Comp& k = *sc[i];
       if (k.latched) continue;
@@ -718,8 +1167,8 @@ struct Decoder {
       memcpy(k.qt, qt[k.tq], sizeof(k.qt));
       k.latched = true;
     }
-    // the scan's kind and its tables (jdhuff.c / jdphuff.c start_pass)
-    enum { kSeq, kDcFirst, kDcRefine, kAcFirst, kAcRefine } kind = kSeq;
+    // the scan's kind and its tables (jdhuff.c / jdphuff.c / jdarith.c start_pass)
+    ScanKind kind = kSeq;
     if (progressive) {
       const bool dc_band = ss == 0;
       bool bad = dc_band ? se != 0 : (ss > se || se > 63 || ns != 1);
@@ -734,6 +1183,7 @@ struct Decoder {
         for (int c = ss; c <= se; ++c) k.coef_bits[c] = al;
       }
     }
+    if (arith) return decode_arith_scan(sc, ns, td, ta, kind, ss, se, al);
     for (int i = 0; i < ns; ++i) {
       if (kind == kSeq || kind == kDcFirst) {
         if (td[i] > 3 || !dc[td[i]].defined || !dc[td[i]].valid || !dc[td[i]].dc_ok)
@@ -879,12 +1329,29 @@ struct Decoder {
     return overflow ? kCorrupt : kOk;
   }
 
+  // The lossless samples into lossless_out, (H, W, C) u8, each component
+  // replicated to the frame's size (libjpeg-turbo 3 does not filter in
+  // lossless mode), shifted left by its point transform.
+  void write_lossless() {
+    const int height = info[0], width = info[1];
+    for (int c = 0; c < ncomp; ++c) {
+      const Comp& k = comp[c];
+      const int rx = hmax / k.h, ry = vmax / k.v;
+      for (int y = 0; y < height; ++y) {
+        const int32_t* row = &samples[c][size_t(y / ry) * k.wb];
+        uint8_t* o = lossless_out + size_t(y) * width * ncomp + c;
+        for (int x = 0; x < width; ++x)
+          o[size_t(x) * ncomp] = static_cast<uint8_t>(row[x / rx] << k.point_transform);
+      }
+    }
+  }
+
   // The marker loop (jdmarker.c read_markers). A probe (`decoding` false)
   // stops at the first SOS, as jpeg_read_header does; a decode lays the
   // coefficient buffers out from `want` (the probe's info) and ends at EOI.
   int run(const int32_t* want, int16_t* coefs, uint16_t* qtabs) {
     if (src.n < 2 || src.d[0] != 0xFF || src.d[1] != 0xD8) return kNotJpeg;
-    decoding = coefs != nullptr;
+    decoding = coefs != nullptr || lossless_out != nullptr;
     pos = 2;
     for (;;) {
       const int m = next_marker();
@@ -893,6 +1360,11 @@ struct Decoder {
         s = read_sof(m);
         if (!s && decoding) {
           if (memcmp(info, want, 15 * sizeof(int32_t)) != 0) return kCorrupt;
+          if (lossless) {
+            for (int c = 0; c < ncomp; ++c)
+              samples[c].assign(size_t(mcuy) * comp[c].v * comp[c].wb, 0);
+            continue;
+          }
           int16_t* at_c = coefs;
           for (int c = 0; c < ncomp; ++c) {
             comp[c].coef = at_c;
@@ -905,6 +1377,10 @@ struct Decoder {
       } else if (m == 0xD9) {
         if (in_headers) return src.eof ? kTruncated : kCorrupt;   // no image
         if (!decoding) return kOk;
+        if (lossless) {
+          write_lossless();
+          return kOk;
+        }
         for (int c = 0; c < ncomp; ++c) {
           if (comp[c].latched) {
             memcpy(qtabs + 64 * c, comp[c].qt, sizeof(comp[c].qt));
@@ -923,8 +1399,10 @@ struct Decoder {
         s = read_app(m);
       } else if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) {
         continue;   // parameterless markers
-      } else if (m == 0xFE || m == 0xDC || m == 0xCC) {
-        size_t end;   // COM, DNL, DAC (arithmetic frames are refused at their SOF)
+      } else if (m == 0xCC) {
+        s = read_dac();
+      } else if (m == 0xFE || m == 0xDC) {
+        size_t end;   // COM, DNL
         s = segment(&end);
         if (!s) pos = end;
       } else if (m == 0xD8) {
@@ -986,68 +1464,78 @@ int wire_decode_coefs(const uint8_t* data, size_t len, int eh, int ew, int16_t* 
   return 0;
 }
 
-// jpeg_idct_islow (jidctint.c), the C twin of ops/jpeg.idct_islow: int32
-// arithmetic that wraps as torch's does (here in uint32, where wrapping is
-// defined), columns then rows, + 128 and clamped to [0, 255] as
-// ops/jpeg_decode.samples_from_coefs.
+// jpeg_idct_islow as libjpeg-turbo's x86 SIMD routines compute it
+// (jidctint-avx2.asm / -sse2.asm), the C twin of
+// ops/jpeg_decode.samples_islow_simd: the dequantisation and the sums
+// in0 +- in4, in7 + in3, in5 + in1 wrap to 16 bits, the rotations are
+// exact in 32 bits (pmaddwd), each pass's outputs saturate to 16 bits, a
+// block whose coefficient rows 1-7 are zero takes the column pass's DC
+// shortcut, and the samples saturate to [0, 255].
 constexpr int kConstBits = 13, kPass1Bits = 2;
-constexpr uint32_t F_0_298631336 = 2446, F_0_390180644 = 3196, F_0_541196100 = 4433,
-                   F_0_765366865 = 6270, F_0_899976223 = 7373, F_1_175875602 = 9633,
-                   F_1_501321110 = 12299, F_1_847759065 = 15137, F_1_961570560 = 16069,
-                   F_2_053119869 = 16819, F_2_562915447 = 20995, F_3_072711026 = 25172;
+constexpr int32_t F_0_298631336 = 2446, F_0_390180644 = 3196, F_0_541196100 = 4433,
+                  F_0_765366865 = 6270, F_0_899976223 = 7373, F_1_175875602 = 9633,
+                  F_1_501321110 = 12299, F_1_847759065 = 15137, F_1_961570560 = 16069,
+                  F_2_053119869 = 16819, F_2_562915447 = 20995, F_3_072711026 = 25172;
 
-inline uint32_t descale(uint32_t x, int n) {
-  return static_cast<uint32_t>(static_cast<int32_t>(x + (uint32_t(1) << (n - 1))) >> n);
+inline int32_t wrap16(int32_t x) { return static_cast<int16_t>(static_cast<uint16_t>(x)); }
+// int32 arithmetic that wraps, as the vector registers' does
+inline int32_t add32(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));
+}
+inline int32_t sub32(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) - static_cast<uint32_t>(b));
+}
+inline int32_t descale_sat16(int32_t x, int n) {
+  const int32_t v = add32(x, int32_t(1) << (n - 1)) >> n;
+  return v < -32768 ? -32768 : (v > 32767 ? 32767 : v);
 }
 
-void idct_1d(const uint32_t* in, int stride, uint32_t* out, int shift) {
-  const uint32_t d0 = in[0], d1 = in[stride], d2 = in[2 * stride], d3 = in[3 * stride],
-                 d4 = in[4 * stride], d5 = in[5 * stride], d6 = in[6 * stride],
-                 d7 = in[7 * stride];
-  uint32_t z1 = (d2 + d6) * F_0_541196100;
-  const uint32_t tmp2 = z1 + d6 * (0u - F_1_847759065);
-  const uint32_t tmp3 = z1 + d2 * F_0_765366865;
-  const uint32_t tmp0 = (d0 + d4) << kConstBits;
-  const uint32_t tmp1 = (d0 - d4) << kConstBits;
-  const uint32_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-  const uint32_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-  uint32_t t0 = d7, t1 = d5, t2 = d3, t3 = d1;
-  z1 = t0 + t3;
-  uint32_t z2 = t1 + t2, z3 = t0 + t2, z4 = t1 + t3;
-  const uint32_t z5 = (z3 + z4) * F_1_175875602;
-  t0 *= F_0_298631336;
-  t1 *= F_2_053119869;
-  t2 *= F_3_072711026;
-  t3 *= F_1_501321110;
-  z1 *= 0u - F_0_899976223;
-  z2 *= 0u - F_2_562915447;
-  z3 = z3 * (0u - F_1_961570560) + z5;
-  z4 = z4 * (0u - F_0_390180644) + z5;
-  t0 += z1 + z3;
-  t1 += z2 + z4;
-  t2 += z2 + z3;
-  t3 += z1 + z4;
-  out[0] = descale(tmp10 + t3, shift);
-  out[stride] = descale(tmp11 + t2, shift);
-  out[2 * stride] = descale(tmp12 + t1, shift);
-  out[3 * stride] = descale(tmp13 + t0, shift);
-  out[4 * stride] = descale(tmp13 - t0, shift);
-  out[5 * stride] = descale(tmp12 - t1, shift);
-  out[6 * stride] = descale(tmp11 - t2, shift);
-  out[7 * stride] = descale(tmp10 - t3, shift);
+void idct_1d(const int32_t* in, int stride, int32_t* out, int shift) {
+  const int32_t d0 = in[0], d1 = in[stride], d2 = in[2 * stride], d3 = in[3 * stride],
+                d4 = in[4 * stride], d5 = in[5 * stride], d6 = in[6 * stride],
+                d7 = in[7 * stride];
+  const int32_t tmp0 = static_cast<int32_t>(static_cast<uint32_t>(wrap16(d0 + d4)) << kConstBits);
+  const int32_t tmp1 = static_cast<int32_t>(static_cast<uint32_t>(wrap16(d0 - d4)) << kConstBits);
+  const int32_t tmp2 = d2 * F_0_541196100 + d6 * (F_0_541196100 - F_1_847759065);
+  const int32_t tmp3 = d2 * (F_0_541196100 + F_0_765366865) + d6 * F_0_541196100;
+  const int32_t tmp10 = add32(tmp0, tmp3), tmp13 = sub32(tmp0, tmp3);
+  const int32_t tmp11 = add32(tmp1, tmp2), tmp12 = sub32(tmp1, tmp2);
+  const int32_t z3 = wrap16(d7 + d3), z4 = wrap16(d5 + d1);
+  const int32_t r3 = z3 * (F_1_175875602 - F_1_961570560) + z4 * F_1_175875602;
+  const int32_t r4 = z3 * F_1_175875602 + z4 * (F_1_175875602 - F_0_390180644);
+  const int32_t t0 = add32(d7 * (F_0_298631336 - F_0_899976223) + d1 * -F_0_899976223, r3);
+  const int32_t t1 = add32(d5 * (F_2_053119869 - F_2_562915447) + d3 * -F_2_562915447, r4);
+  const int32_t t2 = add32(d5 * -F_2_562915447 + d3 * (F_3_072711026 - F_2_562915447), r3);
+  const int32_t t3 = add32(d7 * -F_0_899976223 + d1 * (F_1_501321110 - F_0_899976223), r4);
+  out[0] = descale_sat16(add32(tmp10, t3), shift);
+  out[stride] = descale_sat16(add32(tmp11, t2), shift);
+  out[2 * stride] = descale_sat16(add32(tmp12, t1), shift);
+  out[3 * stride] = descale_sat16(add32(tmp13, t0), shift);
+  out[4 * stride] = descale_sat16(sub32(tmp13, t0), shift);
+  out[5 * stride] = descale_sat16(sub32(tmp12, t1), shift);
+  out[6 * stride] = descale_sat16(sub32(tmp11, t2), shift);
+  out[7 * stride] = descale_sat16(sub32(tmp10, t3), shift);
 }
 
 // One block's samples into an 8x8 window of a plane with row pitch `pitch`.
 void idct_block(const int16_t* coef, const uint16_t* qt, uint8_t* dst, int pitch) {
-  uint32_t deq[64], ws[64], sp[64];
-  for (int i = 0; i < 64; ++i)
-    deq[i] = static_cast<uint32_t>(int32_t(coef[i]) * int32_t(qt[i]));
-  for (int c = 0; c < 8; ++c) idct_1d(deq + c, 8, ws + c, kConstBits - kPass1Bits);
+  int32_t deq[64], ws[64], sp[64];
+  bool dc_only = true;
+  for (int i = 0; i < 64; ++i) {
+    deq[i] = wrap16(int32_t(coef[i]) * int32_t(qt[i]));
+    if (i >= 8 && coef[i]) dc_only = false;
+  }
+  if (dc_only) {
+    for (int c = 0; c < 8; ++c)
+      for (int r = 0; r < 8; ++r) ws[8 * r + c] = wrap16(deq[c] * 4);
+  } else {
+    for (int c = 0; c < 8; ++c) idct_1d(deq + c, 8, ws + c, kConstBits - kPass1Bits);
+  }
   for (int r = 0; r < 8; ++r) idct_1d(ws + 8 * r, 1, sp + 8 * r, kConstBits + kPass1Bits + 3);
   for (int r = 0; r < 8; ++r) {
     for (int c = 0; c < 8; ++c) {
-      const int32_t v = static_cast<int32_t>(sp[8 * r + c] + 128u);
-      dst[r * pitch + c] = static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
+      const int32_t v = sp[8 * r + c];
+      dst[r * pitch + c] = static_cast<uint8_t>((v < -128 ? -128 : (v > 127 ? 127 : v)) + 128);
     }
   }
 }
@@ -1092,12 +1580,40 @@ int jpeg_probe(const uint8_t* data, size_t len, int32_t* info) {
 
 int jpeg_extra_len(void) { return kExtraLen; }
 
+// A lossless (SOF3) stream of 2- to 8-bit samples. With out null, its frame
+// header into info (info[16] the precision); else its (H, W, C) u8 samples
+// into out, for the info its probe gave. Any other frame returns
+// kUnsupported; a stream that ends early kTruncated (cv2 refuses it). 0 or
+// a negative status.
+int jpeg_decode_lossless(const uint8_t* data, size_t len, int32_t* info, uint8_t* out) {
+  Decoder dec(data, len);
+  dec.accept_lossless = true;
+  dec.lossless_out = out;
+  int s = dec.run(info, nullptr, nullptr);
+  if (!out) memcpy(info, dec.info, sizeof(dec.info));
+  if (s == kOk && dec.src.eof) s = kTruncated;
+  return s;
+}
+
 // Coefficients, quant tables and extra fields of one stream whose probe
 // gave `info`. The coefficient buffer must be zeroed; 0 or a negative
 // status.
 int jpeg_decode_coefs(const uint8_t* data, size_t len, const int32_t* info,
                       int16_t* coefs, uint16_t* qtabs, int32_t* extra) {
   return jpeg_decode_coefs_impl(data, len, info, coefs, qtabs, extra, true);
+}
+
+// Samples of n streams' blocks as libjpeg-turbo's SIMD islow computes them
+// (the C twin of ops/jpeg_decode.samples_islow_simd, which takes it for CPU
+// tensors): coefs (n, nb, 64) int16 natural order, qtabs (n, 64) uint16,
+// out (n, nb, 64) u8.
+void jpeg_idct_islow_blocks(const int16_t* coefs, const uint16_t* qtabs, int n, int64_t nb,
+                            uint8_t* out) {
+  for (int i = 0; i < n; ++i)
+    for (int64_t b = 0; b < nb; ++b) {
+      const int64_t at = (int64_t(i) * nb + b) * 64;
+      idct_block(coefs + at, qtabs + int64_t(i) * 64, out + at, 8);
+    }
 }
 
 // jpeg_decode_coefs over n streams on up to n_threads threads (0: one per

@@ -7,7 +7,10 @@ decoder accepts (csrc/jpeg_entropy.cpp): 1, 3 or 4 components, sampling
 factors 1-4 in whole ratios, any image size, sequential or progressive.
 The steps are libjpeg-turbo 2.1.5's default decode, bit for bit:
 
-  dequantise -> jpeg_idct_islow + 128, clamped to [0, 255]
+  dequantise -> jpeg_idct_islow + 128, clamped to [0, 255], as its x86
+     SIMD routine computes it (`samples_islow_simd`: the same as the C
+     routine for the coefficients of any real encoder, and for the
+     out-of-range ones a damaged or cut arithmetic stream decodes to)
   -> each component cropped to its true size ceil(W*h/hmax) x
      ceil(H*v/vmax): libjpeg upsamples from the last real row and column
      (jdmainct.c set_bottom_pointers, jdsample.c), not the padded blocks
@@ -34,10 +37,12 @@ from typing import Sequence, Tuple
 import torch
 
 from .jpeg import (
-    h1v2_fancy_upsample, h2v1_fancy_upsample, h2v2_fancy_upsample, idct_islow,
-    ycbcr_to_bgr_jpeg,
+    F_0_298631336, F_0_390180644, F_0_541196100, F_0_765366865, F_0_899976223,
+    F_1_175875602, F_1_501321110, F_1_847759065, F_1_961570560, F_2_053119869,
+    F_2_562915447, F_3_072711026, h1v2_fancy_upsample, h2v1_fancy_upsample,
+    h2v2_fancy_upsample, idct_islow, ycbcr_to_bgr_jpeg,
 )
-from .jpeg_scaled import component_sizes, idct_scaled, scaled_dims
+from .jpeg_scaled import component_sizes, idct_scaled, samples_reduced_simd, scaled_dims
 
 
 def _blocks_to_plane_batch(samples: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -56,6 +61,62 @@ def samples_from_coefs(coef: torch.Tensor, qtab: torch.Tensor) -> torch.Tensor:
     b, nb, _ = deq.shape
     spatial = idct_islow(deq.reshape(b, nb, 8, 8)) + 128
     return torch.clamp(spatial, 0, 255).reshape(b, nb, 64)
+
+
+def _wrap16(x: torch.Tensor) -> torch.Tensor:
+    return ((x + 32768) & 0xFFFF) - 32768
+
+
+def _islow_simd_pass(d, shift: int):
+    """One pass of libjpeg-turbo's SIMD islow (jidctint-avx2.asm and
+    -sse2.asm, dodct) over 8 lanes of int16 values held in int32: the sums
+    in0 +- in4, in7 + in3 and in5 + in1 wrap to 16 bits, the rotations are
+    exact 32-bit pmaddwd pairs, each output saturates to 16 bits."""
+    d0, d1, d2, d3, d4, d5, d6, d7 = d
+    tmp0 = _wrap16(d0 + d4) << 13
+    tmp1 = _wrap16(d0 - d4) << 13
+    tmp2 = d2 * F_0_541196100 + d6 * (F_0_541196100 - F_1_847759065)
+    tmp3 = d2 * (F_0_541196100 + F_0_765366865) + d6 * F_0_541196100
+    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+    z3 = _wrap16(d7 + d3)
+    z4 = _wrap16(d5 + d1)
+    z3, z4 = (z3 * (F_1_175875602 - F_1_961570560) + z4 * F_1_175875602,
+              z3 * F_1_175875602 + z4 * (F_1_175875602 - F_0_390180644))
+    t0 = d7 * (F_0_298631336 - F_0_899976223) + d1 * -F_0_899976223 + z3
+    t1 = d5 * (F_2_053119869 - F_2_562915447) + d3 * -F_2_562915447 + z4
+    t2 = d5 * -F_2_562915447 + d3 * (F_3_072711026 - F_2_562915447) + z3
+    t3 = d7 * -F_0_899976223 + d1 * (F_1_501321110 - F_0_899976223) + z4
+    r = 1 << (shift - 1)
+    return [torch.clamp((x + r) >> shift, -32768, 32767) for x in (
+        tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0, tmp13 - t0, tmp12 - t1,
+        tmp11 - t2, tmp10 - t3)]
+
+
+def samples_islow_simd(coef: torch.Tensor, qtab: torch.Tensor) -> torch.Tensor:
+    """jpeg_idct_islow as libjpeg-turbo's x86 SIMD routines compute it
+    (the routine its decoder runs at full scale on an x86-64 host): coef
+    (B, nb, 64) int16 in natural order, qtab (B, 64) -> (B, nb, 64) int32
+    samples in [0, 255]. The dequantisation wraps to 16 bits; a block whose
+    coefficient rows 1-7 are all zero takes the column pass's DC shortcut
+    (its 16-bit shift wraps); the row pass saturates to 8 bits. CPU tensors
+    take the C twin (utils/jpeg_ingest.idct_islow_host), the same bytes at a
+    fraction of the time."""
+    if coef.device.type == "cpu":
+        from ..utils.jpeg_ingest import idct_islow_host
+        return idct_islow_host(coef, qtab)
+    return _samples_islow_simd_torch(coef, qtab)
+
+
+def _samples_islow_simd_torch(coef: torch.Tensor, qtab: torch.Tensor) -> torch.Tensor:
+    c = coef.to(torch.int32)
+    b, nb, _ = c.shape
+    x = _wrap16(c * qtab.to(torch.int32)[:, None, :]).reshape(b, nb, 8, 8)
+    ws = torch.stack(_islow_simd_pass([x[..., k, :] for k in range(8)], 11), dim=-2)
+    dc_only = (c.reshape(b, nb, 8, 8)[..., 1:, :] == 0).all(-1).all(-1)
+    ws = torch.where(dc_only[..., None, None], _wrap16(x[..., :1, :] << 2), ws)
+    out = torch.stack(_islow_simd_pass([ws[..., k] for k in range(8)], 18), dim=-1)
+    return (torch.clamp(out, -128, 127) + 128).reshape(b, nb, 64)
 
 
 def bgr_from_ycbcr420(y: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -139,9 +200,11 @@ def bgr_from_components(coefs: Sequence[torch.Tensor], qtabs: torch.Tensor,
     for c, (coef, (h, v)) in enumerate(zip(coefs, factors)):
         b, bh, bw, _ = coef.shape
         k = sizes[c]
-        if scale == 8:
-            s = samples_from_coefs(coef.reshape(b, bh * bw, 64), qtabs[:, c])
-            plane = _blocks_to_plane_batch(s, bh * 8, bw * 8)
+        if k in (2, 4, 8):   # the sizes libjpeg-turbo runs as SIMD routines
+            flat = coef.reshape(b, bh * bw, 64)
+            s = samples_islow_simd(flat, qtabs[:, c]) if k == 8 else (
+                samples_reduced_simd(flat, qtabs[:, c], k))
+            plane = s.reshape(b, bh, bw, k, k).transpose(2, 3).reshape(b, bh * k, bw * k)
         else:
             deq = coef.to(torch.int32) * qtabs[:, c].to(torch.int32)[:, None, None, :]
             blocks = idct_scaled(deq.reshape(b, bh, bw, 8, 8), k)

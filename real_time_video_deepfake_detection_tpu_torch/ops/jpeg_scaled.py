@@ -1,4 +1,4 @@
-"""libjpeg-turbo's DCT-scaled reconstruction (scale_num/8), in int32 torch.
+"""libjpeg-turbo's DCT-scaled reconstruction (scale_num/8), in integer torch.
 
 What `jpeg_start_decompress` does at `scale_num = M, scale_denom = 8` in
 libjpeg-turbo 2.1.5 (JPEG_LIB_VERSION 62), the decode the JAX package's
@@ -13,7 +13,11 @@ native ingest (native/ingest.cpp:74-80) selects from a size hint:
 - sizes 1, 2 and 4 are jidctred.c's reduced IDCTs (libjpeg 6b), sizes 3,
   5, 6, 7, 10, 12 and 14 jidctint.c's, 8 is jpeg_idct_islow; every one is
   the integer code as libjpeg writes it, through the range-limit table
-  (`idct_scaled`);
+  (`idct_scaled`). On an x86-64 host the decoder runs sizes 2, 4 and 8 as
+  its SIMD routines instead, which equal the C code on the coefficients of
+  any real encoder and differ on out-of-range ones (16-bit wraps and
+  saturations): `samples_reduced_simd` here and
+  ops/jpeg_decode.samples_islow_simd are those routines;
 - jdsample.c filters (h2v1, h2v2 "fancy") only when the smallest IDCT size
   is above 1; otherwise it replicates (ops/jpeg_decode.bgr_from_components).
 
@@ -87,6 +91,68 @@ def _red2(d: Sequence[torch.Tensor], p1: bool) -> List[torch.Tensor]:
             + d[3] * (-_R_1_272758580) + d[1] * _R_3_624509785)
     n = (_CB - _P1 + 2) if p1 else (_CB + _P1 + 3 + 2)
     return [_descale(tmp10 + tmp0, n), _descale(tmp10 - tmp0, n)]
+
+
+def _wrap16(x: torch.Tensor) -> torch.Tensor:
+    return ((x + 32768) & 0xFFFF) - 32768
+
+
+def _sat16(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(x, -32768, 32767)
+
+
+def _red4_simd(d, shift: int):
+    """One pass of jsimd_idct_4x4_sse2 (jidctred-sse2.asm) over rows or
+    columns 0-3 and 5-7 of int16 values: exact 32-bit products and sums,
+    the outputs saturated to 16 bits."""
+    d0, d1, d2, d3, d5, d6, d7 = d
+    tmp0 = d0 << (_CB + 1)
+    tmp2 = d2 * _R_1_847759065 + d6 * -_R_0_765366865
+    tmp10, tmp12 = tmp0 + tmp2, tmp0 - tmp2
+    o0 = (d1 * _R_1_061594337 + d3 * -_R_2_172734803
+          + (d5 * _R_1_451774981 + d7 * -_R_0_211164243))
+    o2 = (d1 * _R_2_562915447 + d3 * _R_0_899976223
+          + (d5 * -_R_0_601344887 + d7 * -_R_0_509795579))
+    return [_sat16(_descale(v, shift)) for v in (tmp10 + o2, tmp12 + o0, tmp12 - o0,
+                                                   tmp10 - o2)]
+
+
+def _red2_odd(d1, d3, d5, d7):
+    return (d1 * _R_3_624509785 + d3 * -_R_1_272758580
+            + (d5 * _R_0_850430095 + d7 * -_R_0_720959822))
+
+
+def samples_reduced_simd(coef: torch.Tensor, qtab: torch.Tensor, size: int) -> torch.Tensor:
+    """jpeg_idct_4x4 (`size` 4) or jpeg_idct_2x2 (`size` 2) as libjpeg-
+    turbo's SSE2 routines compute them (jidctred-sse2.asm): coef (B, nb,
+    64) int16 in natural order, qtab (B, 64) -> (B, nb, size * size) int32
+    samples in [0, 255]. The dequantisation wraps to 16 bits; the 4x4
+    column pass takes a DC shortcut (a 16-bit shift that wraps) for a block
+    whose coefficient rows 1-3 and 5-7 are zero and saturates to 16 bits;
+    the 2x2 column pass keeps its DC term in 32 bits and saturates the odd
+    columns; the row pass saturates to 8 bits."""
+    c = coef.to(torch.int32)
+    b, nb, _ = c.shape
+    x = _wrap16(c * qtab.to(torch.int32)[:, None, :]).reshape(b, nb, 8, 8)
+    if size == 4:
+        ws = torch.stack(_red4_simd([x[..., k, :] for k in (0, 1, 2, 3, 5, 6, 7)],
+                                    _CB - _P1 + 1), dim=-2)
+        dc_only = (c.reshape(b, nb, 8, 8)[..., [1, 2, 3, 5, 6, 7], :] == 0).all(-1).all(-1)
+        ws = torch.where(dc_only[..., None, None], _wrap16(x[..., :1, :] << _P1), ws)
+        out = torch.stack(_red4_simd([ws[..., k] for k in (0, 1, 2, 3, 5, 6, 7)],
+                                     _CB + _P1 + 3 + 1), dim=-1)
+    elif size == 2:
+        tmp10 = x[..., 0, :] << (_CB + 2)
+        t0 = _red2_odd(x[..., 1, :], x[..., 3, :], x[..., 5, :], x[..., 7, :])
+        n = _CB - _P1 + 2
+        ws = torch.stack([_descale(tmp10 + t0, n), _descale(tmp10 - t0, n)], dim=-2)
+        t = _red2_odd(*(_sat16(ws[..., k]) for k in (1, 3, 5, 7)))
+        tmp10 = ws[..., 0] << (_CB + 2)
+        n = _CB + _P1 + 3 + 2
+        out = torch.stack([_descale(tmp10 + t, n), _descale(tmp10 - t, n)], dim=-1)
+    else:
+        raise ValueError(f"no SIMD routine of size {size}")
+    return (torch.clamp(out, -128, 127) + 128).reshape(b, nb, size * size)
 
 
 # ------------------------------------------ jidctint.c (libjpeg 7 and on)
@@ -323,14 +389,19 @@ _ROUTINES = {2: (_red2, 8), 3: (_int3, 3), 4: (_red4, 8), 5: (_int5, 5),
 
 def idct_scaled(deq: torch.Tensor, size: int) -> torch.Tensor:
     """jpeg_idct_{size}x{size} over (..., 8, 8) dequantised int32
-    coefficients -> (..., size, size) samples in [0, 255]."""
+    coefficients -> (..., size, size) samples in [0, 255]. As in the C
+    code on a 64-bit host, both passes compute in 64 bits (JLONG) and the
+    workspace between them holds 32-bit ints, which matters only for the
+    out-of-range coefficients of a damaged or cut stream."""
     x = deq.to(torch.int32)
     if size == 8:
         return range_limit(idct_islow(x))
     if size == 1:
         return range_limit(_descale(x[..., :1, :1], 3))
+    x = x.to(torch.int64)
     fn, cols = _ROUTINES[size]
     ws = torch.stack(fn([x[..., u, :cols] for u in range(8)], True), dim=-2)
+    ws = ((ws + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)   # (int) of each output
     if cols < 8:   # pass 2 reads no column past the ones pass 1 wrote
         ws = torch.nn.functional.pad(ws, (0, 8 - cols))
     out = torch.stack(fn([ws[..., v] for v in range(8)], False), dim=-1)

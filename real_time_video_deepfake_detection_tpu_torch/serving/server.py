@@ -14,8 +14,8 @@ retry_after_ms (backend_server.py:61-80).
 
 Frames are decoded by the port's own decoders on the JAX server's ladder
 (utils/image_decode.decode_frame): bytes that start FF D8 through the
-libjpeg route, then the cv2 route (JPEG with CMYK and YCCK, PNG, BMP, EXIF
-orientation). What both refuse (arithmetic-coded and 12-bit JPEGs, the
+libjpeg route, then the cv2 route (JPEG with CMYK and YCCK, lossless
+JPEG, PNG, BMP, EXIF orientation). What both refuse (12-bit JPEGs, the
 other formats cv2 reads, a stream neither libjpeg nor cv2 decodes) answers
 400 "Invalid image format", the reasons logged once.
 

@@ -18,13 +18,15 @@ reconstruction per JPEG layout (ops/jpeg_decode.py), each image turned by
 its EXIF orientation, and one resize per source size
 (ops/resize.resize_bilinear_u8_cv2 with OpenCV's border rows), batched in
 torch on the loader's device: on the trainer's card the host's share is
-the entropy decode alone. PNG and BMP files decode on the host
-(utils/png.py, utils/bmp.py). A file cv2 would refuse (a truncated or
-corrupt JPEG, a damaged PNG, anything unreadable) is substituted, as in the
-JAX package (train.py:512-513). A file the port cannot decode although cv2
-might (an arithmetic-coded JPEG, WebP, TIFF and the other formats the port
-lacks) raises UnsupportedImage, which the loader does not swallow:
-substituting another sample would silently change the training set.
+the entropy decode alone. PNG and BMP files and lossless JPEGs decode on
+the host (utils/png.py, utils/bmp.py, utils/jpeg_ingest.lossless_bgr). A
+file cv2 would refuse (a truncated or corrupt JPEG, a 12-bit one, a
+grayscale lossless one, a damaged PNG, anything unreadable) is
+substituted, as in the JAX package (train.py:512-513). A file the port
+cannot decode although cv2 might (WebP, TIFF and the other formats the
+port lacks, a JPEG over 2^25 pixels) raises UnsupportedImage, which the
+loader does not swallow: substituting another sample would silently
+change the training set.
 """
 
 from __future__ import annotations
@@ -40,11 +42,12 @@ import torch
 from ..ops.resize import resize_bilinear_u8_cv2
 from ..utils.exif import apply_orientation, jpeg_orientation
 from ..utils.image_decode import JPEG_SIGNATURE, cv2_route, unported_format
-from ..utils.jpeg_ingest import JpegError, decode_coefs_batch, reconstruct
+from ..utils.jpeg_ingest import LOSSLESS, JpegError, decode_coefs_batch, reconstruct
 
-# JpegError statuses of a stream cv2 refuses too (truncated, corrupt); every
-# other refusal is a stream the port cannot decode
-_DAMAGED = (-2, -3)
+# JpegError statuses of a stream cv2 refuses too (truncated, corrupt, 12- or
+# 16-bit and the other unsupported codings); every other refusal is a
+# stream the port cannot decode
+_DAMAGED = (-2, -3, -4)
 
 
 class UnsupportedImage(ValueError):
@@ -106,9 +109,12 @@ class DeepfakeDataset:
 
         jpegs = [t for t in todo if t[2].startswith(JPEG_SIGNATURE)]
         groups: dict = {}
+        lossless = set()   # decoded below as samples, on cv2's route
         for (k, path, data), r in zip(jpegs, decode_coefs_batch([d for *_, d in jpegs],
                                                                 n_threads, route="cv2")):
-            if isinstance(r, JpegError):
+            if isinstance(r, JpegError) and r.status == LOSSLESS:
+                lossless.add(k)
+            elif isinstance(r, JpegError):
                 out[k] = (OSError if r.status in _DAMAGED else UnsupportedImage)(f"{path}: {r}")
             else:
                 groups.setdefault((r.layout, jpeg_orientation(data)), []).append((k, r))
@@ -117,9 +123,9 @@ class DeepfakeDataset:
             for (k, _), img in zip(members, resized(bgr)):
                 out[k] = img
         for k, path, data in todo:
-            if data.startswith(JPEG_SIGNATURE):
+            if data.startswith(JPEG_SIGNATURE) and k not in lossless:
                 continue
-            frame = cv2_route(data)   # PNG, BMP
+            frame = cv2_route(data)   # PNG, BMP, lossless JPEG
             if frame is None:
                 out[k] = UnsupportedImage(f"{path}: a format the port does not decode") \
                     if unported_format(data) else OSError(f"{path}: cv2.imread refuses it")

@@ -5,19 +5,22 @@ the same one at each entry point:
 
 - `native_route`: its libjpeg decode to BGR (native/ingest.cpp, the
   single-stream server, the device-detect tick's pooled decode, host prep).
-  Sequential and progressive JPEGs, truncated ones too (libjpeg pads them),
-  grayscale, YCbCr and RGB; no EXIF orientation.
+  Sequential and progressive JPEGs, Huffman or arithmetic coded, truncated
+  ones too (libjpeg pads them), grayscale, YCbCr and RGB; no EXIF
+  orientation. Lossless JPEGs are refused, as libjpeg-turbo 2.1.5 refuses
+  them.
 - `cv2_route`: cv2.imdecode / cv2.imread with IMREAD_COLOR (the fallback
   of every native entry point, and the training loader). JPEG (CMYK and
-  YCCK too, but not a stream that ends before its EOI marker), PNG and
+  YCCK too, and lossless RGB and CMYK frames as cv2's libjpeg-turbo 3.1.2
+  decodes them, but not a stream that ends before its EOI marker), PNG and
   BMP, each turned by its EXIF orientation.
 
 `decode_frame` is the single-stream server's ladder (server.py:40-49):
 bytes that start FF D8 try the native route, then the cv2 route. What
-both routes refuse gives None, its reason logged once; the formats cv2
-reads and the port does not (WebP, GIF, TIFF, PxM, Sun raster, JPEG 2000,
-AVIF, HDR, OpenEXR) and arithmetic-coded JPEGs are refused with that
-reason.
+both routes refuse gives None, its reason logged once: 12- and 16-bit
+JPEGs (neither libjpeg build decodes them), and the formats cv2 reads and
+the port does not (WebP, GIF, TIFF, PxM, Sun raster, JPEG 2000, AVIF, HDR,
+OpenEXR), with that reason.
 """
 
 from __future__ import annotations

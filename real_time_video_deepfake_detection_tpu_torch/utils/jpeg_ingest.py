@@ -1,26 +1,29 @@
 """JPEG decode without cv2 or libjpeg: the port's counterpart of the decode
 half of real_time_video_deepfake_detection_tpu/utils/native_ingest.py.
 
-The host runs only the entropy (Huffman) decode, in C++
+The host runs only the entropy (Huffman or arithmetic) decode, in C++
 (csrc/jpeg_entropy.cpp, bound with ctypes); the reconstruction runs in
 torch on any device (ops/jpeg_decode.py). Together they equal libjpeg-turbo
 2.1.5's default decode, which is what the JAX package's native decode
-returns, for sequential and progressive Huffman streams with 1, 3 or 4
-components and sampling factors 1-4, truncated streams included (libjpeg
-pads them). Two routes decide what is refused, each with a reason:
+returns, for sequential and progressive streams, Huffman or arithmetic
+coded, with 1, 3 or 4 components and sampling factors 1-4, truncated
+streams included (libjpeg pads them). Two routes decide what is refused,
+each with a reason:
 
 - "native" (the JAX package's libjpeg decode to BGR): CMYK and YCCK
-  frames are refused, as libjpeg refuses to convert them to BGR;
+  frames are refused, as libjpeg refuses to convert them to BGR, and so
+  are lossless (SOF3) frames, which libjpeg-turbo 2.1.5 does not decode;
 - "cv2" (cv2.imdecode's JPEG decoder): a stream that ends before its EOI
   marker is refused, as cv2 refuses it; CMYK and YCCK convert to BGR as
-  cv2 converts them (utils/image_decode.py adds PNG, BMP and EXIF).
+  cv2 converts them; a lossless frame of 2- to 8-bit samples decodes as
+  cv2's libjpeg-turbo 3.1.2 decodes it (`lossless_bgr`; utils/
+  image_decode.py adds PNG, BMP and EXIF).
 
 A progressive frame whose first AC coefficients are inexact (in practice
 a truncated progressive upload) is block-smoothed as libjpeg smooths it
-(jdcoefct.c decompress_smooth_data, in csrc/jpeg_entropy.cpp).
-Arithmetic-coded, lossless and 12-bit streams are refused on both routes
-(libjpeg-turbo 2.1.5 decodes arithmetic ones; no fixture of one can be made
-here). `reconstruct` also takes libjpeg's DCT scaling (scale M/8,
+(jdcoefct.c decompress_smooth_data, in csrc/jpeg_entropy.cpp). 12-bit
+streams, which neither libjpeg-turbo build decodes, are refused on both
+routes. `reconstruct` also takes libjpeg's DCT scaling (scale M/8,
 ops/jpeg_scaled.py), and `frames_at` conforms a tick's streams to one size,
 scaled as the JAX package's fast pooled decode scales them
 (native/ingest.cpp:644-656).
@@ -43,7 +46,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..ops.jpeg_decode import bgr_from_components
+from ..ops.jpeg_decode import bgr_from_components, planes_to_bgr
 from ..ops.jpeg_scaled import pick_scale
 from ..ops.resize import resize_bilinear_u8_cv2
 from .host_build import build_host_library, csrc
@@ -55,12 +58,14 @@ EXTRA_LEN = 2   # kExtraLen
 COLOR_SPACES = ("gray", "ycbcr", "rgb", "cmyk", "ycck")   # info[15]
 ROUTES = ("native", "cv2")
 
+LOSSLESS = -7   # kLossless: a lossless (SOF3) frame
 STATUS = {-1: "not a JPEG stream", -2: "truncated JPEG stream",
           -3: "corrupt JPEG stream",
-          -4: "unsupported JPEG (only sequential or progressive Huffman, 8-bit, 1, 3 "
-              "or 4 components in whole sampling ratios is decoded)",
+          -4: "unsupported JPEG (12- or 16-bit samples, hierarchical or arithmetic "
+              "lossless coding, 2 components, or fractional sampling ratios)",
           -5: "JPEG larger than 2^25 pixels",
-          -6: "CMYK or YCCK JPEG (libjpeg does not convert it to BGR)"}
+          -6: "CMYK or YCCK JPEG (libjpeg does not convert it to BGR)",
+          LOSSLESS: "lossless JPEG (libjpeg-turbo 2.1.5 does not decode it)"}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -91,6 +96,10 @@ def library() -> ctypes.CDLL:
             if lib.jpeg_extra_len() != EXTRA_LEN:
                 raise RuntimeError("csrc/jpeg_entropy.cpp and utils/jpeg_ingest.py "
                                    "disagree on the extra layout")
+            lib.jpeg_idct_islow_blocks.argtypes = [_P, _P, ctypes.c_int, ctypes.c_int64, _P]
+            lib.jpeg_idct_islow_blocks.restype = None
+            lib.jpeg_decode_lossless.argtypes = [ctypes.c_char_p, ctypes.c_size_t, _P, _P]
+            lib.jpeg_decode_lossless.restype = ctypes.c_int
             lib.jpeg_decode_coefs_batch.argtypes = [_P, _P, _P, _P, _P, ctypes.c_int,
                                                     ctypes.c_int, _P, _P]
             lib.jpeg_decode_coefs_batch.restype = None
@@ -346,13 +355,64 @@ def log_refusal(reason: str) -> None:
     logging.getLogger(__name__).warning("refusing images: %s", reason)
 
 
+def idct_islow_host(coef: torch.Tensor, qtab: torch.Tensor) -> torch.Tensor:
+    """ops/jpeg_decode.samples_islow_simd on the host in C (the same bytes):
+    coef (B, nb, 64) int16 and qtab (B, 64) CPU tensors -> (B, nb, 64) int32."""
+    c = np.ascontiguousarray(coef.numpy(), np.int16)
+    q = np.ascontiguousarray(qtab.numpy().astype(np.uint16))
+    out = np.empty(c.shape, np.uint8)
+    library().jpeg_idct_islow_blocks(c.ctypes.data, q.ctypes.data, c.shape[0], c.shape[1],
+                                     out.ctypes.data)
+    return torch.from_numpy(out).to(torch.int32)
+
+
+def decode_lossless(data: bytes) -> Tuple[np.ndarray, str]:
+    """A lossless (SOF3) stream of 2- to 8-bit samples -> its (H, W, C) u8
+    samples, each component replicated to the frame's size and shifted by
+    its point transform, and its colour space (COLOR_SPACES; libjpeg-turbo
+    3 takes a 3-component frame without a JFIF or Adobe marker as RGB).
+    Raises JpegError."""
+    lib = library()
+    info = np.zeros(INFO_LEN, np.int32)
+    rc = lib.jpeg_decode_lossless(data, len(data), info.ctypes.data, None)
+    if rc == 0:
+        out = np.empty((int(info[0]), int(info[1]), int(info[2])), np.uint8)
+        rc = lib.jpeg_decode_lossless(data, len(data), info.ctypes.data, out.ctypes.data)
+    if rc != 0:
+        raise JpegError(rc)
+    return out, COLOR_SPACES[int(info[15])]
+
+
+def lossless_bgr(data: bytes) -> Optional[np.ndarray]:
+    """cv2.imdecode(IMREAD_COLOR) of a lossless stream: RGB samples as
+    BGR, CMYK converted as cv2 converts it; a grayscale, YCbCr or YCCK
+    frame is refused, as cv2's libjpeg-turbo (3.1.2) converts none of them
+    to BGR in lossless mode, and so is a cut stream. None (the reason
+    logged once) when refused."""
+    try:
+        samples, color = decode_lossless(data)
+    except JpegError as e:
+        log_refusal(str(e))
+        return None
+    if color == "rgb":
+        return np.ascontiguousarray(samples[..., ::-1])
+    if color == "cmyk":
+        planes = [torch.from_numpy(np.ascontiguousarray(samples[..., c]))[None] for c in range(4)]
+        return planes_to_bgr(planes, "cmyk")[0].numpy()
+    log_refusal(f"lossless {color} JPEG (cv2 converts none to BGR)")
+    return None
+
+
 def decode_jpeg(data: bytes, route: str = "native") -> Optional[np.ndarray]:
-    """JPEG bytes -> (H, W, 3) u8 BGR, libjpeg's default decode, on the CPU;
-    None (the reason logged once) when `route` (ROUTES) refuses the
-    stream. No EXIF orientation is applied."""
+    """JPEG bytes -> (H, W, 3) u8 BGR, libjpeg's default decode (on the
+    cv2 route, a lossless stream as cv2 decodes it), on the CPU; None (the
+    reason logged once) when `route` (ROUTES) refuses the stream. No EXIF
+    orientation is applied."""
     try:
         jc = decode_coefs(data, route)
     except JpegError as e:
+        if e.status == LOSSLESS and route == "cv2":
+            return lossless_bgr(data)
         log_refusal(str(e))
         return None
     return reconstruct([jc], "cpu")[0].numpy()

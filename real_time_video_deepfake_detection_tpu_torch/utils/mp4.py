@@ -1,0 +1,432 @@
+"""ISO-BMFF (mp4 / QuickTime mov) demuxer, in numpy and the standard
+library: the container layer under the JAX package's cv2.VideoCapture
+calls on mp4 files (data_tools/face_extract.py, train/clip_head.py,
+cli/analyze.py), as cv2's FFmpeg backend (libavformat's mov demuxer) reads
+the container.
+
+`demux(data)` finds the first video track and gives its codec (the sample
+entry's fourcc: 'avc1'/'avc3' H.264 with its avcC record: SPS, PPS and
+the NAL length size; 'mp4v' MPEG-4 Part 2 with the decoder config of its
+esds), its size, timescale and sample table: each sample's file offset,
+size, decode and presentation time and keyframe flag, as libavformat's
+packets give them (pos, size, dts, pts, AV_PKT_FLAG_KEY), and the frame
+count and fps that cv2.CAP_PROP_FRAME_COUNT and CAP_PROP_FPS report.
+
+Boxes read: ftyp, moov, mvhd, trak, tkhd, edts/elst, mdia, mdhd, hdlr,
+minf, stbl, stsd, stts, ctts, stss, stsc, stsz/stz2, stco/co64; 64-bit box
+sizes and a moov after the mdat. The edit list is applied as libavformat
+applies a plain one: leading empty edits delay every time, the first
+media edit's start time is subtracted (the B-frame delay x264 writes);
+samples are not dropped. The bytes come from the user: every read is
+bounds checked, and a table that points outside the file is refused.
+Refused with their reason (`Mp4Error`): a fragmented file (moof, or mvex
+in the moov), a file with no video track, one whose moov is cut or
+missing.
+
+No frame is decoded here: the frames are H.264 or MPEG-4 Part 2 bitstreams
+that the port does not decode yet (utils/video.VideoReader names the codec
+and the frame count as its reason).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import struct
+from typing import Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
+
+# The sample entries a video track may carry, and how they are named
+CODECS = {b"avc1": "H.264 (avc1)", b"avc3": "H.264 (avc3)", b"mp4v": "MPEG-4 Part 2 (mp4v)",
+          b"hvc1": "H.265 (hvc1)", b"hev1": "H.265 (hev1)", b"av01": "AV1 (av01)",
+          b"vp09": "VP9 (vp09)", b"mjpa": "Motion-JPEG (mjpa)", b"jpeg": "Motion-JPEG (jpeg)"}
+_TOP_LEVEL = (b"ftyp", b"moov", b"mdat", b"free", b"skip", b"wide", b"uuid", b"pdin", b"meta",
+              b"moof", b"mfra", b"styp", b"sidx")
+_INT_MAX = 2 ** 31 - 1
+
+
+class Mp4Error(ValueError):
+    """A file the demuxer refuses, with the reason."""
+
+
+@dataclasses.dataclass
+class AvcConfig:
+    """An avcC record (ISO/IEC 14496-15): the profile and level, the NAL
+    length size in bytes and the parameter sets."""
+    profile: int
+    level: int
+    nal_length_size: int
+    sps: List[bytes]
+    pps: List[bytes]
+
+
+@dataclasses.dataclass
+class VideoTrack:
+    """The first video track of a file. The sample arrays are in decode
+    order; times are in `timescale` units."""
+    codec: str                  # the sample entry's fourcc, e.g. "avc1"
+    width: int
+    height: int
+    timescale: int
+    offsets: np.ndarray         # (N,) int64 file offsets
+    sizes: np.ndarray           # (N,) int64
+    dts: np.ndarray             # (N,) int64
+    pts: np.ndarray             # (N,) int64
+    keyframes: np.ndarray       # (N,) bool
+    frame_count: int            # as cv2.CAP_PROP_FRAME_COUNT
+    fps: float                  # as cv2.CAP_PROP_FPS
+    avc: Optional[AvcConfig] = None
+    decoder_config: bytes = b""  # mp4v: the esds DecoderSpecificInfo (the VOL header)
+
+    @property
+    def codec_name(self) -> str:
+        return CODECS.get(self.codec.encode(), f"'{self.codec}'")
+
+
+def is_iso_bmff(head: bytes) -> bool:
+    """Whether a file's first bytes open an ISO-BMFF box (mp4, mov, m4v)."""
+    return len(head) >= 8 and head[4:8] in _TOP_LEVEL
+
+
+class _Reader:
+    """Bounds-checked big-endian reads from data[start:end]."""
+
+    def __init__(self, data: bytes, start: int, end: int):
+        self.data, self.pos, self.end = data, start, end
+
+    def take(self, n: int) -> bytes:
+        if n < 0 or self.pos + n > self.end:
+            raise Mp4Error("a box ends before its fields")
+        b = self.data[self.pos:self.pos + n]
+        self.pos += n
+        return b
+
+    def u8(self) -> int:
+        return self.take(1)[0]
+
+    def u16(self) -> int:
+        return struct.unpack(">H", self.take(2))[0]
+
+    def u32(self) -> int:
+        return struct.unpack(">I", self.take(4))[0]
+
+    def u64(self) -> int:
+        return struct.unpack(">Q", self.take(8))[0]
+
+    def array(self, n: int, dtype: str) -> np.ndarray:
+        """n big-endian values of `dtype` (a numpy code like ">u4")."""
+        size = np.dtype(dtype).itemsize
+        if n < 0 or n * size > self.end - self.pos:
+            raise Mp4Error("a table runs past its box")
+        a = np.frombuffer(self.data, dtype, n, self.pos)
+        self.pos += n * size
+        return a
+
+
+def _boxes(data: bytes, start: int, end: int) -> Iterator[Tuple[bytes, int, int]]:
+    """(type, payload start, payload end) of the boxes in data[start:end]."""
+    pos = start
+    while pos + 8 <= end:
+        size, kind = struct.unpack_from(">I4s", data, pos)
+        header = 8
+        if size == 1:
+            if pos + 16 > end:
+                raise Mp4Error(f"the {kind.decode('latin-1')} box is cut")
+            size = struct.unpack_from(">Q", data, pos + 8)[0]
+            header = 16
+        elif size == 0:
+            size = end - pos
+        if size < header or pos + size > end:
+            raise Mp4Error(f"the {kind.decode('latin-1')} box runs past its parent "
+                           "(a cut file?)")
+        yield kind, pos + header, pos + size
+        pos += size
+
+
+def _children(data: bytes, start: int, end: int) -> Dict[bytes, Tuple[int, int]]:
+    out: Dict[bytes, Tuple[int, int]] = {}
+    for kind, s, e in _boxes(data, start, end):
+        out.setdefault(kind, (s, e))
+    return out
+
+
+def _full(data: bytes, span: Tuple[int, int]) -> Tuple[int, _Reader]:
+    """(version, reader past the flags) of a full box."""
+    r = _Reader(data, *span)
+    version = r.u8()
+    r.take(3)
+    return version, r
+
+
+def _avcc(data: bytes, start: int, end: int) -> AvcConfig:
+    r = _Reader(data, start, end)
+    if r.u8() != 1:
+        raise Mp4Error("an avcC record of an unknown version")
+    profile = r.u8()
+    r.u8()
+    level = r.u8()
+    nal_length_size = (r.u8() & 3) + 1
+    sps = [r.take(r.u16()) for _ in range(r.u8() & 31)]
+    pps = [r.take(r.u16()) for _ in range(r.u8())]
+    return AvcConfig(profile, level, nal_length_size, sps, pps)
+
+
+def _descriptor(r: _Reader) -> Tuple[int, int]:
+    """(tag, payload length) of an MPEG-4 descriptor (ISO/IEC 14496-1)."""
+    tag = r.u8()
+    n = 0
+    for _ in range(4):
+        b = r.u8()
+        n = (n << 7) | (b & 0x7F)
+        if not b & 0x80:
+            break
+    return tag, n
+
+
+def _esds_config(data: bytes, start: int, end: int) -> bytes:
+    """The DecoderSpecificInfo of an esds box (its ES_Descriptor's
+    DecoderConfigDescriptor), or b""."""
+    _, r = _full(data, (start, end))
+    tag, _ = _descriptor(r)
+    if tag != 3:
+        return b""
+    r.u16()
+    flags = r.u8()
+    if flags & 0x80:
+        r.u16()
+    if flags & 0x40:
+        r.take(r.u8())
+    if flags & 0x20:
+        r.u16()
+    tag, _ = _descriptor(r)
+    if tag != 4:
+        return b""
+    r.take(13)
+    if r.pos >= r.end:
+        return b""
+    tag, n = _descriptor(r)
+    return r.take(n) if tag == 5 else b""
+
+
+def _sample_entry(data: bytes, stsd: Tuple[int, int]):
+    """(fourcc, width, height, avcC, decoder config) of the first sample
+    entry of an stsd box."""
+    _, r = _full(data, stsd)
+    if r.u32() < 1:
+        raise Mp4Error("the video track has no sample description")
+    entries = list(_boxes(data, r.pos, r.end))
+    if not entries:
+        raise Mp4Error("the video track has no sample description")
+    kind, s, e = entries[0]
+    # VisualSampleEntry: 6 reserved, data reference index, 16 predefined,
+    # width, height, resolutions, reserved, frame count, compressor name,
+    # depth, predefined: 78 bytes before its child boxes
+    er = _Reader(data, s, e)
+    er.take(24)
+    width, height = er.u16(), er.u16()
+    avc, config = None, b""
+    if e - s >= 78:
+        for ckind, cs, ce in _boxes(data, s + 78, e):
+            if ckind == b"avcC" and avc is None:
+                avc = _avcc(data, cs, ce)
+            elif ckind == b"esds" and not config:
+                config = _esds_config(data, cs, ce)
+    return kind, width, height, avc, config
+
+
+def _av_reduce(num: int, den: int, limit: int = _INT_MAX) -> Tuple[int, int]:
+    """libavutil's av_reduce for non-negative num, den: num/den in lowest
+    terms, or, past `limit`, the continued-fraction convergent it picks,
+    with its 64-bit integer wraps."""
+    m64 = (1 << 64) - 1
+
+    def s64(v):   # an unsigned 64-bit value as int64_t
+        v &= m64
+        return v - (1 << 64) if v >> 63 else v
+
+    g = math.gcd(num, den)
+    if g:
+        num, den = num // g, den // g
+    a0n, a0d, a1n, a1d = 0, 1, 1, 0
+    if num <= limit and den <= limit:
+        a1n, a1d, den = num, den, 0
+    while den:
+        x = num // den   # uint64_t
+        next_den = num - den * x
+        a2n, a2d = s64(x * a1n + a0n), s64(x * a1d + a0d)
+        if a2n > limit or a2d > limit:
+            if a1n:
+                x = (limit - a0n) // a1n
+            if a1d:
+                x = min(x, (limit - a0d) // a1d)
+            if (den * (2 * x * a1d + a0d)) & m64 > s64(num * a1d) & m64:
+                a1n, a1d = x * a1n + a0n, x * a1d + a0d
+            break
+        a0n, a0d, a1n, a1d = a1n, a1d, a2n, a2d
+        num, den = den, next_den
+    return a1n, a1d
+
+
+def _table(data: bytes, stbl: Dict[bytes, Tuple[int, int]], track_timescale: int,
+           edits: List[Tuple[int, int]], movie_timescale: int):
+    """The sample table arrays and (frame count, fps) of an stbl."""
+    if b"stsz" in stbl:
+        _, r = _full(data, stbl[b"stsz"])
+        uniform, count = r.u32(), r.u32()
+        sizes = (np.full(count, uniform, np.int64) if uniform
+                 else r.array(count, ">u4").astype(np.int64))
+    elif b"stz2" in stbl:
+        _, r = _full(data, stbl[b"stz2"])
+        r.take(3)
+        field, count = r.u8(), r.u32()
+        if field == 4:
+            packed = r.array((count + 1) // 2, "u1")
+            sizes = np.stack([packed >> 4, packed & 15], 1).reshape(-1)[:count].astype(np.int64)
+        elif field in (8, 16):
+            sizes = r.array(count, {8: "u1", 16: ">u2"}[field]).astype(np.int64)
+        else:
+            raise Mp4Error(f"an stz2 field size of {field} bits")
+    else:
+        raise Mp4Error("the video track has no sample sizes (stsz)")
+    n = len(sizes)
+    if b"stco" in stbl:
+        _, r = _full(data, stbl[b"stco"])
+        chunks = r.array(r.u32(), ">u4").astype(np.int64)
+    elif b"co64" in stbl:
+        _, r = _full(data, stbl[b"co64"])
+        chunks = r.array(r.u32(), ">u8").astype(np.int64)
+    else:
+        raise Mp4Error("the video track has no chunk offsets (stco / co64)")
+    if b"stsc" not in stbl:
+        raise Mp4Error("the video track has no sample-to-chunk table (stsc)")
+    _, r = _full(data, stbl[b"stsc"])
+    stsc = r.array(3 * r.u32(), ">u4").reshape(-1, 3).astype(np.int64)
+    # samples per chunk, from each run's first chunk to the next run's
+    per_chunk = np.zeros(len(chunks), np.int64)
+    for j, (first, count, _) in enumerate(stsc):
+        last = stsc[j + 1][0] - 1 if j + 1 < len(stsc) else len(chunks)
+        if first < 1 or last > len(chunks) or first > last + 1:
+            raise Mp4Error("the sample-to-chunk table points past the chunks")
+        per_chunk[first - 1:last] = count
+    if per_chunk.sum() < n:
+        raise Mp4Error("the chunks hold fewer samples than the sample sizes list")
+    chunk_of = np.repeat(np.arange(len(chunks)), per_chunk)[:n]
+    first_in_chunk = np.concatenate([[0], np.cumsum(per_chunk)[:-1]])[chunk_of]
+    csum = np.concatenate([[0], np.cumsum(sizes)])
+    offsets = chunks[chunk_of] + csum[np.arange(n)] - csum[first_in_chunk]
+    if n and (offsets.min() < 0 or (offsets + sizes).max() > len(data)):
+        raise Mp4Error("a sample lies outside the file (a cut file?)")
+    # decode times (stts) and the frame rate libavformat derives from them
+    if b"stts" not in stbl:
+        raise Mp4Error("the video track has no decode times (stts)")
+    _, r = _full(data, stbl[b"stts"])
+    stts = r.array(2 * r.u32(), ">u4").reshape(-1, 2).astype(np.int64)
+    deltas = np.repeat(stts[:, 1], stts[:, 0])
+    if len(deltas) < n:
+        deltas = np.concatenate([deltas, np.zeros(n - len(deltas), np.int64)])
+    dts = np.concatenate([[0], np.cumsum(deltas[:n])[:-1]]).astype(np.int64) if n else deltas[:0]
+    stts_count = int(stts[:, 0].sum())
+    stts_duration = int((stts[:, 0] * stts[:, 1]).sum())
+    cts = np.zeros(n, np.int64)
+    if b"ctts" in stbl:
+        _, r = _full(data, stbl[b"ctts"])
+        ctts = r.array(2 * r.u32(), ">u4").reshape(-1, 2)
+        offs = np.repeat(ctts[:, 1].astype(np.uint32).view(np.int32), ctts[:, 0])
+        m = min(n, len(offs))
+        cts[:m] = offs[:m]
+    keyframes = np.ones(n, bool)
+    if b"stss" in stbl:
+        _, r = _full(data, stbl[b"stss"])
+        sync = r.array(r.u32(), ">u4").astype(np.int64) - 1
+        keyframes[:] = False
+        keyframes[sync[(sync >= 0) & (sync < n)]] = True
+    # the edit list: empty edits delay, the first media edit starts the media
+    delay, start = 0, 0
+    for duration, media_time in edits:
+        if media_time == -1:
+            delay += duration * track_timescale // max(movie_timescale, 1)
+            continue
+        start = media_time
+        break
+    dts = dts - start + delay
+    pts = dts + cts
+    fps = 0.0
+    if stts_count and stts_duration:
+        num, den = _av_reduce(track_timescale * stts_count, stts_duration)
+        fps = num / den
+    return offsets, sizes, dts, pts, keyframes, stts_count, fps
+
+
+def demux(data: bytes) -> VideoTrack:
+    """The first video track of an mp4 / mov file's bytes; raises Mp4Error
+    with the reason for a file it refuses."""
+    top = list(_boxes(data, 0, len(data)))
+    kinds = [k for k, _, _ in top]
+    if b"moof" in kinds:
+        raise Mp4Error("a fragmented mp4 (moof boxes) is not read")
+    if b"moov" not in kinds:
+        raise Mp4Error("no moov box (a cut file, or not an mp4)")
+    _, ms, me = top[kinds.index(b"moov")]
+    moov = list(_boxes(data, ms, me))
+    if any(k == b"mvex" for k, _, _ in moov):
+        raise Mp4Error("a fragmented mp4 (mvex in its moov) is not read")
+    movie_timescale = 0
+    for kind, s, e in moov:
+        if kind == b"mvhd":
+            version, r = _full(data, (s, e))
+            r.take(16 if version == 1 else 8)
+            movie_timescale = r.u32()
+    for kind, s, e in moov:
+        if kind != b"trak":
+            continue
+        trak = _children(data, s, e)
+        if b"mdia" not in trak:
+            continue
+        mdia = _children(data, *trak[b"mdia"])
+        if b"hdlr" not in mdia or b"mdhd" not in mdia or b"minf" not in mdia:
+            continue
+        _, r = _full(data, mdia[b"hdlr"])
+        r.take(4)
+        if r.take(4) != b"vide":
+            continue
+        version, r = _full(data, mdia[b"mdhd"])
+        r.take(16 if version == 1 else 8)
+        timescale = r.u32()
+        if not timescale:
+            raise Mp4Error("the video track has a timescale of 0")
+        minf = _children(data, *mdia[b"minf"])
+        if b"stbl" not in minf:
+            raise Mp4Error("the video track has no sample table (stbl)")
+        stbl = _children(data, *minf[b"stbl"])
+        if b"stsd" not in stbl:
+            raise Mp4Error("the video track has no sample description (stsd)")
+        fourcc, width, height, avc, config = _sample_entry(data, stbl[b"stsd"])
+        edits: List[Tuple[int, int]] = []
+        if b"edts" in trak:
+            edts = _children(data, *trak[b"edts"])
+            if b"elst" in edts:
+                version, r = _full(data, edts[b"elst"])
+                for _ in range(r.u32()):
+                    if version == 1:
+                        duration, media_time = r.u64(), struct.unpack(">q", r.take(8))[0]
+                    else:
+                        duration, media_time = r.u32(), struct.unpack(">i", r.take(4))[0]
+                    r.take(4)   # media rate
+                    edits.append((duration, media_time))
+        offsets, sizes, dts, pts, keyframes, count, fps = _table(
+            data, stbl, timescale, edits, movie_timescale)
+        if not width or not height:   # a sample entry without a size: the track header's
+            if b"tkhd" in trak:
+                version, r = _full(data, trak[b"tkhd"])
+                r.take(84 if version == 1 else 72)
+                width, height = r.u32() >> 16, r.u32() >> 16
+        return VideoTrack(fourcc.decode("latin-1"), width, height, timescale, offsets, sizes,
+                          dts, pts, keyframes, count, fps, avc, config)
+    raise Mp4Error("no video track")
+
+
+def read(path) -> VideoTrack:
+    """demux() of a file."""
+    with open(path, "rb") as fh:
+        return demux(fh.read())

@@ -11,10 +11,12 @@ when the file has one, else from a scan of the movi list; OpenDML 'AVIX'
 continuations are scanned too. A frame without a DHT segment (camera
 Motion-JPEG) gets the standard Huffman tables libjpeg supplies.
 
-Nothing else opens: mp4 / H.264 or any other codec, a camera index, a
-missing file (`VideoReader.reason` says why). cv2.VideoCapture's default
-backend (FFmpeg) reads those, and decodes Motion-JPEG with its own IDCT
-and upsampling, which differ from libjpeg's.
+Nothing else opens: a camera index, a missing file, any other container
+or codec (`VideoReader.reason` says why). An mp4 or mov file is demuxed
+(utils/mp4.py) and stays unopened with a reason that names its codec and
+its frame count, since no H.264 or MPEG-4 Part 2 decoder is ported yet.
+cv2.VideoCapture's default backend (FFmpeg) reads those, and decodes
+Motion-JPEG with its own IDCT and upsampling, which differ from libjpeg's.
 
 `VideoWriter` writes JPEG frames (utils/jpeg_encode, cv2.imencode's bytes
 at QUALITY 95) as '00dc' chunks with avih / strh / strf headers and an
@@ -29,6 +31,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from . import mp4
 from .jpeg_encode import encode_jpeg, standard_dht
 from .jpeg_ingest import decode_jpeg
 
@@ -88,6 +91,13 @@ class VideoReader:
 
     def _parse(self) -> str:
         data = self._data
+        if mp4.is_iso_bmff(data[:8]):
+            try:
+                track = mp4.demux(data)
+            except mp4.Mp4Error as e:
+                return f"unreadable mp4/mov: {e}"
+            return (f"{track.codec_name} decode is not ported yet: {len(track.sizes)} frames "
+                    f"demuxed; the port reads {FORMATS} only")
         if len(data) < 12 or data[:4] != b"RIFF" or data[8:12] != b"AVI ":
             return f"not an AVI file; the port reads {FORMATS} only"
         riffs = [(off, size) for fcc, off, size in _chunks(data, 0, len(data)) if fcc == b"RIFF"]

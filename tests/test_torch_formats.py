@@ -73,6 +73,17 @@ JPEGS = sorted(k for k, e in DIGESTS.items() if e["native"] is not None)
 CAPTURE = (240, 320)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one thread for the whole file, beside the other test
+    workers: with torch's thread pool there, single decode cases took tens
+    of times longer than alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _data(key: str) -> bytes:
     name, _, cut = key.partition("@")
     with open(os.path.join(DATA, name), "rb") as fh:
@@ -256,19 +267,14 @@ def test_mixed_dataset_trains_with_jax_losses(tmp_path):
     lkw = dict(shuffle=True, balanced=True, seed=3, num_workers=2)
     jl = JD.BatchLoader(JD.DeepfakeDataset(ds, "train", SIZE), n, **lkw)
     tl = TD.BatchLoader(TD.DeepfakeDataset(ds, "train", SIZE), n, **lkw)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)   # beside the other test workers
-    try:
-        steps = 0
-        for (xj, yj), (xt, yt) in zip(jl, tl):
-            draws, _ = _jax_fused_draws(js.rng, spec_j, cfg_j, n)
-            js, mj = step_j(js, jnp.asarray(xj), jnp.asarray(yj, jnp.float32))
-            mt = TST.fused_train_step(ts, xt, torch.as_tensor(yt, dtype=torch.float32), draws)
-            tol = 1e-5 if steps == 0 else 1e-4
-            assert abs(float(mt["loss"]) - float(mj["loss"])) <= tol * abs(float(mj["loss"])), steps
-            steps += 1
-    finally:
-        torch.set_num_threads(threads)
+    steps = 0
+    for (xj, yj), (xt, yt) in zip(jl, tl):
+        draws, _ = _jax_fused_draws(js.rng, spec_j, cfg_j, n)
+        js, mj = step_j(js, jnp.asarray(xj), jnp.asarray(yj, jnp.float32))
+        mt = TST.fused_train_step(ts, xt, torch.as_tensor(yt, dtype=torch.float32), draws)
+        tol = 1e-5 if steps == 0 else 1e-4
+        assert abs(float(mt["loss"]) - float(mj["loss"])) <= tol * abs(float(mj["loss"])), steps
+        steps += 1
     assert steps == len(tl) >= 2
 
 

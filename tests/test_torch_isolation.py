@@ -27,7 +27,7 @@ def test_every_port_module_imports_without_jax():
     p = port.__name__ + "."
     assert {p + "parallel.tensor_parallel", p + "ops.jpeg_scaled", p + "cli.fetch_weights",
             p + "data_tools.dfdc_download", p + "utils.image_decode", p + "utils.exif",
-            p + "utils.png", p + "utils.bmp"} <= set(mods)
+            p + "utils.png", p + "utils.bmp", p + "utils.mp4"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "for blocked in ('jax', 'cv2', 'PIL', 'orbax', 'requests'):\n"
@@ -193,6 +193,35 @@ def test_image_decoders_decode_without_jax_cv2_or_pil():
         "             'png_adam7_rgb8_83x41.png', 'bmp_rle8_83x41.bmp'):\n"
         "    with open(os.path.join(d, name), 'rb') as fh:\n"
         "        assert image_decode.decode_frame(fh.read()) is not None, name\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cv2', 'PIL')\n"
+        "       and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=REPO))
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
+def test_jpeg_modes_and_mp4_demux_without_jax_cv2_or_pil():
+    """The arithmetic and lossless JPEG decodes and the mp4 demuxer
+    (utils/mp4, utils/video's mp4 reason) load and run with jax, cv2 and
+    PIL blocked."""
+    data = os.path.join(REPO, "tests", "data")
+    code = (
+        "import os, sys\n"
+        "for blocked in ('jax', 'jaxlib', 'cv2', 'PIL'):\n"
+        "    sys.modules[blocked] = None\n"
+        "from real_time_video_deepfake_detection_tpu_torch.utils import image_decode, mp4\n"
+        "from real_time_video_deepfake_detection_tpu_torch.utils.video import VideoReader\n"
+        f"d = {data!r}\n"
+        "for name in ('arith_seq_720x405_420.jpg', 'arith_prog_dac_s444_319x241.jpg',\n"
+        "             'lossless_rgb_p4_83x41.jpg', 'lossless_cmyk_83x41.jpg'):\n"
+        "    with open(os.path.join(d, 'torch_jpeg_modes', name), 'rb') as fh:\n"
+        "        assert image_decode.decode_frame(fh.read()) is not None, name\n"
+        "for name in ('high_160x96.mp4', 'mp4v_160x96.mp4'):\n"
+        "    path = os.path.join(d, 'torch_mp4', name)\n"
+        "    assert mp4.read(path).frame_count > 0, name\n"
+        "    assert 'decode is not ported yet' in VideoReader(path).reason, name\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cv2', 'PIL')\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n")
