@@ -27,7 +27,8 @@ in phases, each printing one JSON line:
               kernels on; checks the responses and that the kernels were
               launched; times host prep on one thread, the face crop's Lab
               + CLAHE with each rung of the Lab ladder; then the same run
-              with the jnp Lab rung pinned in place of the default cv2 one
+              on 8 streams with the jnp Lab rung pinned in place of the
+              default cv2 one
   5. parity   device_step_compact at bucket 64 on cuda against the same
               tick on the CPU (where the plain versions run); the tick's
               time, a profiler window over it (device busy and idle share,
@@ -190,25 +191,40 @@ in phases, each printing one JSON line:
               moving through it, read back frame for frame equal to
               decode_jpeg of what was written, seeks exact; encode ms of a
               224x224 crop and of a frame, read ms per frame; (b)
-              cli/analyze.main on it with full-size B0 (backbone_state,
-              saved as a port checkpoint), --gradcam --output --json, on
-              the card and on the CPU: verdicts, faces and GradCAM boxes
+              cli/analyze.main on its first 16 frames with full-size B0
+              (backbone_state, saved as a port checkpoint), --gradcam
+              --output --json, on the card and on the CPU: verdicts, faces
+              and GradCAM boxes
               equal, temporal averages within 1e-4, the annotated frames
               equal outside the boxes wherever the labels are equal;
               frames/s on the card; (c) cli/analyze.main over 4 such
               videos through the batched engine on the card: no error,
               max_batch_seen >= 2, frames/s; (d) train/clip_head.main on
               the card over train/{real,fake} x 4 and val/{real,fake} x 1
-              (window 16, 160 px crops, B0, 30 epochs), its head served by
-              the batched engine with clip_probability; feature-extraction
-              ms per frame at batch_frames 256; (e)
+              (Motion-JPEG AVIs named .mp4, which the readers open by
+              content; window 16, 160 px crops, B0, 30 epochs), its head
+              served by the batched engine with clip_probability;
+              feature-extraction ms per frame at batch_frames 256; (e)
               data_tools/face_extract.preextract of the train videos with
               the synthetic SSD on the card and on the CPU: the same JPEG
               files byte for byte; crops/s; (f) utils/mp4.demux of the
               mp4/mov fixtures (tests/data/torch_mp4): sample tables equal
-              to libavformat's packets, frame counts and fps to
-              cv2.VideoCapture's, the fragmented and audio-only files
-              refused, VideoReader's reason naming the codec; ms a demux
+              to libavformat's packets (the discard flag included), frame
+              counts and fps to cv2.VideoCapture's, the fragmented and
+              audio-only files refused, VideoReader's reason naming the
+              profile or the codec; ms a demux; (g) H.264 Constrained
+              Baseline mp4 in (utils/h264.py, csrc/h264.cpp on the host):
+              every fixture of tests/data/torch_h264 and the 160x96 file
+              read sequentially and after seek(i) at every i, each frame's
+              sha256 against the committed digests of cv2.VideoCapture's
+              frames; host ms a frame of the 640x360 and 1920x1080 clips
+              (read, decode alone, BGR conversion alone); the 640x360 clip
+              read by VideoReader into MultiStreamEngine in device-detect
+              mode (_detect_cfg, the synthetic SSD, B0):
+              the launches of every kernel counted from 0, and one
+              bucket-8 detect tick of its frames on the card against the
+              CPU (1e-4); cli/analyze.main on the mp4, single (24 frames)
+              and batched over three mp4s
  19. final    the last modules: (a) TemporalHead.forward_blockwise at the
               config-5 head's width (768 features, dim 256, depth 2, 4
               heads, window 64) over 4 streams x 4,096 frames, block 63,
@@ -223,7 +239,7 @@ in phases, each printing one JSON line:
               capture frames (utils/jpeg_encode, q85; M = 6 and 4 at
               480x640): the scaled pooled decode and the bucket-16 detect
               tick card against CPU, device-detect serving over HTTP with
-              and without ingest_scaled_decode in turns (16 streams x 4
+              and then without ingest_scaled_decode (16 streams x 4
               frames, every answer 200, all four kernels launched), and
               bench_prep_scaling's fast1 against exact at one thread for
               each size; (d) the JAX dry run's section 1b: 2 gloo ranks on
@@ -258,7 +274,8 @@ in phases, each printing one JSON line:
 then a `{"kernels": [...]}` line (launches: the wire phase's coef run;
 launches_sharded_tick: one sharded serving tick of two shards;
 launches_final: the final phase's first scaled-decode serving run;
-launches_formats: the formats phase's device-detect run) and, last,
+launches_formats: the formats phase's device-detect run; launches_mp4:
+the video phase's mp4 engine run) and, last,
 `{"ok": true, "device": ...}`.
 Any failed phase makes it exit non-zero without the last line. It needs a
 CUDA device and the repository checkout around it.
@@ -882,19 +899,20 @@ def _host_prep_ms(engine, frames):
 
 def phase_serve(ctx):
     """The host-prep engine with the default Lab rung (cv2's 8-bit tables),
-    then with the jnp rung pinned, in turns in one call."""
+    then with the jnp rung pinned (8 of the 16 streams), in one call."""
     from real_time_video_deepfake_detection_tpu_torch.pipeline import detector
     runs = {}
     for lab in ("cv2", "jnp"):
         saved, detector._LAB_BACKEND = detector._LAB_BACKEND, lab
         try:
-            runs[lab] = _serve_run(ctx, host_prep=lab == "cv2")
+            runs[lab] = _serve_run(ctx, host_prep=lab == "cv2",
+                                   n_streams=16 if lab == "cv2" else 8)
         finally:
             detector._LAB_BACKEND = saved
     return {"lab_rung_cv2": runs["cv2"], "lab_rung_jnp": runs["jnp"]}
 
 
-def _serve_run(ctx, host_prep):
+def _serve_run(ctx, host_prep, n_streams=16):
     import numpy as np
     import torch
     from real_time_video_deepfake_detection_tpu_torch.core.config import (
@@ -917,7 +935,7 @@ def _serve_run(ctx, host_prep):
         return out
 
     engine._dispatch = timed_dispatch
-    n_streams, n_frames = 16, 12
+    n_frames = 12
     rng = np.random.default_rng(SEED)
     frames = {s: [_synthetic_frame(rng, s % 2 == 0, t) for t in range(n_frames)]
               for s in range(n_streams)}
@@ -3786,6 +3804,7 @@ def phase_sharded(ctx):
 # ------------------------------------------------------------------- video
 
 VIDEO_FRAMES = 48
+SINGLE_FRAMES = 16   # of the video that (b) analyzes on the card and on the CPU
 TREE_FRAMES = 24
 
 
@@ -3901,8 +3920,8 @@ def _recording():
 
 
 def _analyze_single(root: str, path: str, weights: str):
-    """(b) cli/analyze.main on one video with --gradcam --output --json, on
-    the card and on the CPU."""
+    """(b) cli/analyze.main on the video's first SINGLE_FRAMES frames with
+    --gradcam --output --json, on the card and on the CPU."""
     import numpy as np
     from real_time_video_deepfake_detection_tpu_torch.cli import analyze
     runs = {}
@@ -3911,12 +3930,13 @@ def _analyze_single(root: str, path: str, weights: str):
         with _recording() as rec:
             t0 = time.perf_counter()
             analyze.main([path, "--weights", weights, "--gradcam", "--json", out_json,
+                          "--max-frames", str(SINGLE_FRAMES),
                           "--output", os.path.join(root, f"single_{dev}.avi"), "--device", dev])
             seconds = time.perf_counter() - t0
         with open(out_json) as fh:
             runs[dev] = (json.load(fh), rec, seconds)
     (jg, rg, sg), (jc, rc, _) = runs["cuda"], runs["cpu"]
-    if len(jg["frames"]) != VIDEO_FRAMES or len(rg["frames"]) != VIDEO_FRAMES:
+    if len(jg["frames"]) != SINGLE_FRAMES or len(rg["frames"]) != SINGLE_FRAMES:
         raise AssertionError(f"video (b): {len(jg['frames'])} frames analyzed")
     worst, compared, gradcam_frames = 0.0, 0, 0
     for i, (a, b) in enumerate(zip(jg["frames"], jc["frames"])):
@@ -3937,14 +3957,14 @@ def _analyze_single(root: str, path: str, weights: str):
     if worst > 1e-4 or jg["summary"]["final_verdict"] != jc["summary"]["final_verdict"]:
         raise AssertionError(f"video (b): temporal averages {worst} apart, verdicts "
                              f"{jg['summary']['final_verdict']} {jc['summary']['final_verdict']}")
-    if gradcam_frames == 0 or compared < VIDEO_FRAMES // 2:
+    if gradcam_frames == 0 or compared < SINGLE_FRAMES // 2:
         raise AssertionError(f"video (b): {gradcam_frames} frames with a face, "
                              f"{compared} compared")
-    return {"frames": VIDEO_FRAMES, "frames_with_gradcam": gradcam_frames,
+    return {"frames": SINGLE_FRAMES, "frames_with_gradcam": gradcam_frames,
             "frames_compared_outside_boxes": compared, "temporal_average_max_abs_diff": worst,
             "final_verdict": jg["summary"]["final_verdict"],
             "faces_detected": sum(f["faces_detected"] for f in jg["frames"]),
-            "frames_per_s_card": VIDEO_FRAMES / sg, "seconds_card": sg,
+            "frames_per_s_card": SINGLE_FRAMES / sg, "seconds_card": sg,
             "step_ms_card": _predict_steps_ms(path, weights)}
 
 
@@ -4033,7 +4053,9 @@ def _clip_head_cli(ctx, root: str, weights: str):
             d = os.path.join(tree, split, label)
             os.makedirs(d)
             for i in range(n):
-                _write_video(os.path.join(d, f"{label}{i}.avi"),
+                # Motion-JPEG AVIs named .mp4: the readers go by content, and
+                # face_extract globs *.mp4 as the JAX tool does
+                _write_video(os.path.join(d, f"{label}{i}.mp4"),
                              _video_frames(TREE_FRAMES, 3 * k + (label == "fake")))
                 k += 1
     out = os.path.join(root, "clip_head.pt")
@@ -4123,13 +4145,16 @@ def _mp4_demux():
             out[name] = {"refused": str(e)}
             continue
         table = np.stack([track.offsets, track.sizes, track.dts, track.pts,
-                          track.keyframes.astype(np.int64)], 1).tolist()
+                          track.keyframes.astype(np.int64), track.discard.astype(np.int64)],
+                         1).tolist()
         cv = rec["cv2"]
         if table != want["packets"] or (track.frame_count, track.fps) != (
                 cv["frame_count"], cv["fps"]):
             raise AssertionError(f"mp4 {name}: the sample table or the counts differ")
         reason = VideoReader(path).reason
-        if "decode is not ported yet" not in reason:
+        want_reason = ("" if name == "baseline_160x96.mp4" else
+                       "profile_idc 100" if track.codec == "avc1" else "decode is not ported")
+        if (want_reason not in reason) if want_reason else reason:
             raise AssertionError(f"mp4 {name}: VideoReader says {reason!r}")
         t = []
         for _ in range(20):
@@ -4137,16 +4162,227 @@ def _mp4_demux():
             mp4.demux(data)
             t.append((time.perf_counter() - t0) * 1e3)
         out[name] = {"codec": track.codec_name, "samples": len(table),
-                     "frame_count": track.frame_count, "fps": track.fps,
-                     "demux_host_ms": statistics.median(t), "bytes": len(data)}
+                     "discarded": int(track.discard.sum()), "frame_count": track.frame_count,
+                     "fps": track.fps, "demux_host_ms": statistics.median(t), "bytes": len(data),
+                     "reader": reason or "opened"}
     return {"files": out}
+
+
+H264_DIR = os.path.join(REPO, "tests", "data", "torch_h264")
+MP4_CLIP = os.path.join(H264_DIR, "cb_640x360.mp4")
+
+
+def _h264_path(key: str) -> str:
+    return os.path.join(os.path.dirname(H264_DIR), key) if "/" in key else \
+        os.path.join(H264_DIR, key)
+
+
+def _mp4_fixtures():
+    """(g) every H.264 Constrained Baseline fixture (tests/data/torch_h264
+    and torch_mp4/baseline_160x96.mp4) read by VideoReader sequentially and
+    after seek(i) at every i from 0 to the frame count, each on a fresh
+    reader: every frame's sha256 and shape against the committed digests
+    of cv2.VideoCapture's frames (digests.json)."""
+    import numpy as np
+    from real_time_video_deepfake_detection_tpu_torch.utils.video import VideoReader
+    with open(os.path.join(H264_DIR, "digests.json")) as fh:
+        records = json.load(fh)["files"]
+
+    def digest(frame):
+        return None if frame is None else {
+            "sha256": hashlib.sha256(np.ascontiguousarray(frame).tobytes()).hexdigest(),
+            "shape": list(frame.shape)}
+
+    out, t0 = {}, time.perf_counter()
+    for key, rec in sorted(records.items()):
+        path = _h264_path(key)
+        r = VideoReader(path)
+        if not r.is_opened() or (r.frame_count, r.fps) != (rec["frame_count"], rec["fps"]):
+            raise AssertionError(f"mp4 {key}: {r.reason} {r.frame_count} {r.fps}")
+        seq = []
+        while True:
+            ok, frame = r.read()
+            if not ok:
+                break
+            seq.append(digest(frame))
+        if seq != rec["read"]:
+            n = min(len(seq), len(rec["read"]))
+            bad = next((i for i in range(n) if seq[i] != rec["read"][i]), n)
+            raise AssertionError(f"mp4 {key}: read {len(seq)} frames of {len(rec['read'])}, "
+                                 f"frame {bad} differs from cv2's")
+        for i, want in enumerate(rec["seek"]):
+            r = VideoReader(path)
+            r.seek(i)
+            if digest(r.read()[1]) != want:
+                raise AssertionError(f"mp4 {key}: seek({i}) differs from cv2's landing")
+        out[key] = {"frames": len(seq), "frame_count": r.frame_count, "seeks": len(rec["seek"])}
+    return {"files": out, "frames_checked": sum(v["frames"] + v["seeks"] for v in out.values()),
+            "seconds": time.perf_counter() - t0}
+
+
+def _mp4_decode_ms():
+    """Host ms per frame of the 640x360 and 1920x1080 clips: VideoReader.read
+    (decode and BGR conversion), the decode alone (utils/h264.Decoder) and
+    the conversion alone; the mean of one pass over the clip."""
+    import numpy as np
+    from real_time_video_deepfake_detection_tpu_torch.utils import h264, mp4
+    from real_time_video_deepfake_detection_tpu_torch.utils.video import VideoReader
+    out = {}
+    for name in ("cb_640x360.mp4", "cb_1920x1080.mp4"):
+        path = os.path.join(H264_DIR, name)
+        with open(path, "rb") as fh:
+            data = fh.read()
+        track = mp4.demux(data)
+        r = VideoReader(path)
+        t0, n = time.perf_counter(), 0
+        while r.read()[0]:
+            n += 1
+        read = (time.perf_counter() - t0) * 1e3 / n
+        d = h264.Decoder(track.avc.nal_length_size, track.avc.sps + track.avc.pps)
+        planes, t0 = [], time.perf_counter()
+        for i in range(len(track.sizes)):
+            off = int(track.offsets[i])
+            d.decode(data[off:off + int(track.sizes[i])], int(track.pts[i]))
+            while d.peek() is not None:
+                planes.append(d.take(bgr=False, planes=True)[1])
+        dec = (time.perf_counter() - t0) * 1e3 / len(planes)
+        t0 = time.perf_counter()
+        for y, u, v in planes:
+            h264.yuv420_to_bgr(y, u, v)
+        conv = (time.perf_counter() - t0) * 1e3 / len(planes)
+        out[name] = {"frames_read": n, "size": [int(track.height), int(track.width)],
+                     "read_ms_per_frame": read, "decode_ms_per_frame": dec,
+                     "convert_ms_per_frame": conv, "read_fps": 1e3 / read}
+    return out
+
+
+def _mp4_engine(ctx):
+    """The 640x360 clip through MultiStreamEngine on the card in
+    device-detect mode (_detect_cfg: the preprocess, hue and both CLAHE
+    kernels; the synthetic SSD; full-size B0): VideoReader's frames into
+    engine.analyze, the launches counted from 0; then one bucket-8 detect
+    tick of the clip's first frames on the card against the same tick on
+    the CPU."""
+    import numpy as np
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.core.config import ServerConfig
+    from real_time_video_deepfake_detection_tpu_torch.models import backbones
+    from real_time_video_deepfake_detection_tpu_torch.models.caffe_net import CaffeNet
+    from real_time_video_deepfake_detection_tpu_torch.serving.batcher import (
+        init_stream_states, make_device_step_detect)
+    from real_time_video_deepfake_detection_tpu_torch.serving.multi import MultiStreamEngine
+    from real_time_video_deepfake_detection_tpu_torch.state.tree import tree_leaves
+    from real_time_video_deepfake_detection_tpu_torch.utils.video import VideoReader
+    proto, cm = _ssd_files(ctx)
+    cfg = _detect_cfg()
+    engine = MultiStreamEngine(cfg, ServerConfig(max_streams=8, max_batch=8, device_detect=True),
+                               params=backbone_state(ctx), spec=backbones.make("b0"),
+                               device="cuda", ssd_net=CaffeNet(proto, cm))
+    _reset_launches()
+    t0 = time.time()
+    try:
+        reader, frames = VideoReader(MP4_CLIP), []
+        while True:
+            ok, frame = reader.read()
+            if not ok:
+                break
+            frames.append(engine.analyze(frame, "mp4"))
+        wall = time.time() - t0
+        launches = _read_launches()
+    finally:
+        engine.shutdown()
+    bad = [r for r in frames if not r.get("success") or _SCHEMA - set(r)]
+    faces = sum(r.get("analysis_mode") == "face+frame" for r in frames)
+    if bad or len(frames) != 47 or not faces:
+        raise AssertionError(f"mp4 engine: {len(frames)} responses, {len(bad)} bad, "
+                             f"{faces} with a face")
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"mp4 engine: a kernel was not launched: {launches}")
+    # one tick on the card against the CPU
+    reader, clip = VideoReader(MP4_CLIP), []
+    for _ in range(8):
+        clip.append(reader.read()[1])
+    b = len(clip)
+    xs = [torch.from_numpy(np.stack(clip)), torch.ones(b, dtype=torch.bool),
+          torch.arange(b, dtype=torch.int32)]
+    outs = {}
+    for d in ("cpu", "cuda"):
+        model = backbones.build_model(backbones.make("b0")).eval()
+        model.load_state_dict(backbone_state(ctx))
+        step = make_device_step_detect(CaffeNet(proto, cm).to(d).eval(), model.to(d), cfg)
+        with torch.no_grad():
+            outs[d] = step(*[x.to(d) for x in xs], init_stream_states(b + 1, cfg, d))
+    (out_c, st_c), (out_g, st_g) = outs["cpu"], outs["cuda"]
+    worst = 0.0
+    pairs = [(k, out_c[k], out_g[k].cpu()) for k in out_c]
+    pairs += [(f"state{i}", a, g.cpu()) for i, (a, g) in
+              enumerate(zip(tree_leaves(st_c), tree_leaves(st_g)))]
+    for k, a, g in pairs:
+        if a.dtype.is_floating_point:
+            diff = float((a - g).abs().max()) if a.numel() else 0.0
+            worst = max(worst, diff)
+            if not diff <= 1e-4:
+                raise AssertionError(f"mp4 tick {k}: max abs diff {diff} > 1e-4")
+        elif not torch.equal(a, g):
+            raise AssertionError(f"mp4 tick {k}: {int((a != g).sum())} integers differ")
+    return {"frames": len(frames), "frames_with_face": faces,
+            "launches": launches, "wall_s": wall, "frames_per_s": len(frames) / wall,
+            "engine_metrics": engine.metrics,
+            "tick_bucket": b, "tick_faces": int(out_c["has_face"].sum()),
+            "tick_max_float_diff_vs_cpu": worst, "tolerance": 1e-4}
+
+
+def _mp4_analyze(root: str, weights: str):
+    """cli/analyze.main on the 640x360 mp4 (single, 24 frames, --json) and on
+    three mp4s through the batched engine (the clip, the face clip and the
+    160x96 file, whose discarded 48th sample is not read)."""
+    from real_time_video_deepfake_detection_tpu_torch.cli import analyze
+    single = os.path.join(root, "mp4_single.json")
+    t0 = time.perf_counter()
+    analyze.main([MP4_CLIP, "--weights", weights, "--json", single, "--max-frames", "24",
+                  "--device", "cuda"])
+    t_single = time.perf_counter() - t0
+    paths = [MP4_CLIP, os.path.join(H264_DIR, "cb_face_272x320.mp4"),
+             os.path.join(MP4_DIR, "baseline_160x96.mp4")]
+    multi = os.path.join(root, "mp4_multi.json")
+    t0 = time.perf_counter()
+    analyze.main(paths + ["--weights", weights, "--json", multi, "--device", "cuda"])
+    t_multi = time.perf_counter() - t0
+    with open(single) as fh:
+        js = json.load(fh)
+    with open(multi) as fh:
+        jm = json.load(fh)
+    if js["summary"]["frames"] != 24 or len(js["frames"]) != 24:
+        raise AssertionError(f"mp4 analyze single: {js['summary']}")
+    bad = [v for v in jm["videos"] if "error" in v]
+    if bad or jm["frames_total"] != 47 + 14 + 47 or jm["max_batch_seen"] < 2:
+        raise AssertionError(f"mp4 analyze multi: {bad} {jm['frames_total']} "
+                             f"{jm['max_batch_seen']}")
+    return {"single": {"frames": 24, "verdict": js["summary"]["final_verdict"],
+                       "faces_detected": sum(f["faces_detected"] for f in js["frames"]),
+                       "frames_per_s": 24 / t_single},
+            "multi": {"videos": 3, "frames_total": jm["frames_total"],
+                      "max_batch_seen": jm["max_batch_seen"], "ticks": jm["engine_ticks"],
+                      "verdicts": [v["final_verdict"] for v in jm["videos"]],
+                      "frames_per_s": jm["frames_total"] / t_multi}}
+
+
+def _mp4_decode(ctx, root: str, weights: str):
+    """(g) H.264 mp4 in: the fixtures against cv2's digests, the host decode
+    ms per frame at 640x360 and 1920x1080, the 640x360 clip through the
+    device-detect engine (every kernel launched) with one tick against the
+    CPU, and cli/analyze on mp4s, single and batched."""
+    engine = _mp4_engine(ctx)
+    ctx["mp4_launches"] = engine["launches"]
+    return {"fixtures": _mp4_fixtures(), "decode_ms": _mp4_decode_ms(), "engine": engine,
+            "analyze": _mp4_analyze(root, weights)}
 
 
 def phase_video(ctx):
     """Video in: (a) the Motion-JPEG writer and reader, (b) the single-video
     analyzer card against CPU, (c) the batched analyzer over 4 videos, (d)
     the clip-head trainer's CLI, (e) the face pre-extraction, (f) the mp4
-    demuxer."""
+    demuxer, (g) H.264 mp4 decode."""
     import torch
     from real_time_video_deepfake_detection_tpu_torch.train.checkpoint import save_checkpoint
     os.environ["HAARCASCADE_DIR"] = HAAR_DIR
@@ -4161,7 +4397,8 @@ def phase_video(ctx):
                          ("multi", lambda: _analyze_multi(root, weights)),
                          ("clip_head", lambda: _clip_head_cli(ctx, root, weights)),
                          ("face_extract", lambda: _face_extract(ctx, root)),
-                         ("mp4_demux", _mp4_demux)):
+                         ("mp4_demux", _mp4_demux),
+                         ("mp4", lambda: _mp4_decode(ctx, root, weights))):
             times[name] = time.time() - t0
             parts[name] = fn()
             print(json.dumps({"video": name, "card": ctx["smi"], **parts[name]}), flush=True)
@@ -4392,7 +4629,7 @@ def _final_serve(ctx, net_files, streams, scaled):
 def _final_scaled(ctx):
     """(c) The DCT-scaled decode: the card against libjpeg's digests; the
     scaled detect tick card against CPU; device-detect serving of 1080p
-    and 1440p JPEGs with and without it, in turns; the bench's pooled
+    and 1440p JPEGs with and then without it; the bench's pooled
     decode at one thread, exact against fast1, for each size."""
     from real_time_video_deepfake_detection_tpu_torch.cli.bench import bench_prep_scaling
     from real_time_video_deepfake_detection_tpu_torch.models.caffe_net import CaffeNet
@@ -4403,15 +4640,14 @@ def _final_scaled(ctx):
     streams = [s for size in FINAL_SIZES for s in big[size]]
     scales = {f"{h}x{w}": pick_scale(h, w, 2 * 640) for h, w in FINAL_SIZES}
     parity = _final_tick_parity(ctx, net_files, streams)
-    serve = [_final_serve(ctx, net_files, streams, scaled)
-             for scaled in (True, False, False, True)]
+    serve = [_final_serve(ctx, net_files, streams, scaled) for scaled in (True, False)]
     ctx["final_launches"] = serve[0]["launches"]
     prep = {f"{h}x{w}": bench_prep_scaling(
                 n=FINAL_STREAMS, threads=(1,), repeats=3, device="cuda",
                 jpegs=[j for s in big[(h, w)] for j in s], hw=(480, 640))
             for h, w in FINAL_SIZES}
     return {"scales_at_capture_480x640": scales, "digests": digests, "tick_parity": parity,
-            "serve_in_turns": serve, "prep_scaling_ms": prep}
+            "serve_scaled_then_full": serve, "prep_scaling_ms": prep}
 
 
 def _flat_tensors(tree, prefix=""):
@@ -4954,7 +5190,9 @@ def main() -> int:
                                                         "launches_final":
                                                         ctx["final_launches"][k],
                                                         "launches_formats":
-                                                        ctx["formats_launches"][k]}
+                                                        ctx["formats_launches"][k],
+                                                        "launches_mp4":
+                                                        ctx["mp4_launches"][k]}
             | {key: v[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")})
     emit({"kernels": kernels, "card": ctx["smi"]})

@@ -2,7 +2,7 @@
 writing an annotated video and a JSON verdict summary. Port of
 real_time_video_deepfake_detection_tpu/cli/analyze.py.
 
-    python -m real_time_video_deepfake_detection_tpu_torch.cli.analyze video.avi \\
+    python -m real_time_video_deepfake_detection_tpu_torch.cli.analyze video.mp4 \\
         [--output annotated.avi] [--json out.json] [--gradcam] [--device cuda]
 
 Given several videos it runs them batched through the MultiStreamEngine:
@@ -11,10 +11,13 @@ different videos share the device ticks as concurrent HTTP streams do; one
 JSON summary holds the per-video verdicts.
 
 Stated differences from the JAX CLI: videos are read with utils/video.py,
-which opens Motion-JPEG AVI only (the JAX CLI reads whatever cv2's FFmpeg
-backend reads, and takes an integer camera index); `--output` writes a
-Motion-JPEG AVI (quality 95) where the JAX CLI writes mp4v; the overlay's
-text is cv2 4.x's Hershey font (pipeline/detector.py).
+which opens H.264 Constrained Baseline mp4 / mov (cv2's frames, byte for
+byte) and Motion-JPEG AVI only: a High-profile or mp4v video and a camera
+index are refused with the reason, where the JAX CLI reads whatever cv2's
+FFmpeg backend reads; a damaged slice ends a video where FFmpeg conceals
+it; `--output` writes a Motion-JPEG AVI (quality 95) where the JAX CLI
+writes mp4v; the overlay's text is cv2 4.x's Hershey font
+(pipeline/detector.py).
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Face-crop pre-extraction from videos (reference train.py:100-276). Port
 of real_time_video_deepfake_detection_tpu/data_tools/face_extract.py.
 
-Videos in <videos>/{real,fake}/*.avi -> balanced 1:1 face-crop JPEGs in
+Videos in <videos>/{real,fake}/*.mp4 -> balanced 1:1 face-crop JPEGs in
 <output>/{train,val}/{real,fake}/: random frames in the 5-95% span, the
 largest face with a 30% margin, a minimum crop size, a deterministic 15%
 validation split, resume by existence. The draws come from one
@@ -12,9 +12,12 @@ cv2.imwrite writes them at quality 95 (utils/jpeg_encode).
     python -m real_time_video_deepfake_detection_tpu_torch.data_tools.face_extract \\
         --videos dataset/videos --output dataset/faces [--device cuda]
 
-Stated differences: the port reads Motion-JPEG AVI (utils/video.py), so it
-globs *.avi where the JAX tool globs *.mp4; `--device` places the SSD rung
-when --ssd-weights is given.
+Stated differences: the port reads H.264 Constrained Baseline mp4 and
+Motion-JPEG AVI (utils/video.py, by content: an AVI named .mp4 opens), so a
+DFDC or FaceForensics++ video (High profile) is skipped as unreadable where
+cv2 reads it; frames are the ones cv2.VideoCapture returns, seeks landing
+where cv2's land; `--device` places the SSD rung when --ssd-weights is
+given.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ FACE_MARGIN = 0.3
 MIN_FACE_SIZE = 80
 VAL_SPLIT = 0.15
 SEED = 42
-VIDEO_GLOB = "*.avi"
+VIDEO_GLOB = "*.mp4"
 
 
 def largest_face_with_margin(frame, detector, min_size: int = 60):

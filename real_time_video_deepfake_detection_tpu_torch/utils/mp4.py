@@ -11,21 +11,30 @@ esds), its size, timescale and sample table: each sample's file offset,
 size, decode and presentation time and keyframe flag, as libavformat's
 packets give them (pos, size, dts, pts, AV_PKT_FLAG_KEY), and the frame
 count and fps that cv2.CAP_PROP_FRAME_COUNT and CAP_PROP_FPS report.
+Each sample also carries the flag libavformat's mov demuxer gives a packet
+whose presentation time falls outside the edit list (AV_PKT_FLAG_DISCARD):
+such a sample is decoded as a reference, and its picture dropped.
 
 Boxes read: ftyp, moov, mvhd, trak, tkhd, edts/elst, mdia, mdhd, hdlr,
 minf, stbl, stsd, stts, ctts, stss, stsc, stsz/stz2, stco/co64; 64-bit box
 sizes and a moov after the mdat. The edit list is applied as libavformat
 applies a plain one: leading empty edits delay every time, the first
 media edit's start time is subtracted (the B-frame delay x264 writes);
-samples are not dropped. The bytes come from the user: every read is
+as mov_fix_index walks that edit, a sample whose composition time lies
+before its start or at or past its end is flagged discarded, and the walk
+stops after the first keyframe whose time plus duration reaches the end
+(after the second with a ctts table, for trailing B-frames): the samples
+past it are not packets at all. Later media edits and the samples before
+the keyframe that precedes the edit's start are not handled (libavformat
+drops those). The bytes come from the user: every read is
 bounds checked, and a table that points outside the file is refused.
 Refused with their reason (`Mp4Error`): a fragmented file (moof, or mvex
 in the moov), a file with no video track, one whose moov is cut or
 missing.
 
-No frame is decoded here: the frames are H.264 or MPEG-4 Part 2 bitstreams
-that the port does not decode yet (utils/video.VideoReader names the codec
-and the frame count as its reason).
+No frame is decoded here: utils/h264.py decodes the Constrained Baseline
+H.264 samples for utils/video.VideoReader, which names the codec or the
+profile and the frame count of a track it refuses.
 """
 
 from __future__ import annotations
@@ -76,6 +85,7 @@ class VideoTrack:
     keyframes: np.ndarray       # (N,) bool
     frame_count: int            # as cv2.CAP_PROP_FRAME_COUNT
     fps: float                  # as cv2.CAP_PROP_FPS
+    discard: np.ndarray         # (N,) bool: AV_PKT_FLAG_DISCARD
     avc: Optional[AvcConfig] = None
     decoder_config: bytes = b""  # mp4v: the esds DecoderSpecificInfo (the VOL header)
 
@@ -342,20 +352,39 @@ def _table(data: bytes, stbl: Dict[bytes, Tuple[int, int]], track_timescale: int
         keyframes[:] = False
         keyframes[sync[(sync >= 0) & (sync < n)]] = True
     # the edit list: empty edits delay, the first media edit starts the media
-    delay, start = 0, 0
+    delay, start, edit_end = 0, 0, None
     for duration, media_time in edits:
         if media_time == -1:
             delay += duration * track_timescale // max(movie_timescale, 1)
             continue
         start = media_time
+        if duration and movie_timescale:   # av_rescale, rounding to nearest
+            half = movie_timescale // 2
+            edit_end = start + (duration * track_timescale + half) // movie_timescale
         break
+    discard = np.zeros(n, bool)
+    if edit_end is not None:
+        media_cts = dts + cts
+        found_key = False
+        for i in range(n):
+            c = int(media_cts[i])
+            discard[i] = c < start or c >= edit_end
+            step = int(dts[i + 1] - dts[i]) if i + 1 < n else edit_end - start
+            if c + step >= edit_end and keyframes[i]:
+                if b"ctts" in stbl and not found_key:
+                    found_key = True
+                    continue
+                n = i + 1
+                break
+        offsets, sizes, dts, cts, keyframes, discard = (
+            a[:n] for a in (offsets, sizes, dts, cts, keyframes, discard))
     dts = dts - start + delay
     pts = dts + cts
     fps = 0.0
     if stts_count and stts_duration:
         num, den = _av_reduce(track_timescale * stts_count, stts_duration)
         fps = num / den
-    return offsets, sizes, dts, pts, keyframes, stts_count, fps
+    return offsets, sizes, dts, pts, keyframes, discard, stts_count, fps
 
 
 def demux(data: bytes) -> VideoTrack:
@@ -414,7 +443,7 @@ def demux(data: bytes) -> VideoTrack:
                         duration, media_time = r.u32(), struct.unpack(">i", r.take(4))[0]
                     r.take(4)   # media rate
                     edits.append((duration, media_time))
-        offsets, sizes, dts, pts, keyframes, count, fps = _table(
+        offsets, sizes, dts, pts, keyframes, discard, count, fps = _table(
             data, stbl, timescale, edits, movie_timescale)
         if not width or not height:   # a sample entry without a size: the track header's
             if b"tkhd" in trak:
@@ -422,7 +451,7 @@ def demux(data: bytes) -> VideoTrack:
                 r.take(84 if version == 1 else 72)
                 width, height = r.u32() >> 16, r.u32() >> 16
         return VideoTrack(fourcc.decode("latin-1"), width, height, timescale, offsets, sizes,
-                          dts, pts, keyframes, count, fps, avc, config)
+                          dts, pts, keyframes, count, fps, discard, avc, config)
     raise Mp4Error("no video track")
 
 

@@ -1,22 +1,37 @@
-"""Motion-JPEG AVI in and out, without cv2: the port's counterpart of the
-JAX package's cv2.VideoCapture / cv2.VideoWriter calls (cli/analyze.py,
-train/clip_head.py, data_tools/face_extract.py).
+"""Video in and out without cv2: the port's counterpart of the JAX
+package's cv2.VideoCapture / cv2.VideoWriter calls (cli/analyze.py,
+train/clip_head.py, data_tools/face_extract.py). `VideoReader` goes by a
+file's content, not its name.
 
-`VideoReader` opens a RIFF 'AVI ' file whose video stream is MJPG (by its
-content, not its name) and decodes each frame with the port's JPEG decoder
-(utils/jpeg_ingest.decode_jpeg), which equals libjpeg's: its frames equal
-cv2.VideoCapture(path, cv2.CAP_OPENCV_MJPEG)'s byte for byte, and its
-`seek` lands on the exact frame. Frame offsets come from the idx1 index
-when the file has one, else from a scan of the movi list; OpenDML 'AVIX'
-continuations are scanned too. A frame without a DHT segment (camera
-Motion-JPEG) gets the standard Huffman tables libjpeg supplies.
+H.264 mp4 / mov (an avc1 or avc3 track, Constrained Baseline: CAVLC, I
+and P slices): demuxed by utils/mp4.py and decoded by utils/h264.py, whose
+frames equal cv2.VideoCapture(path)'s (its FFmpeg backend) byte for byte,
+in cv2's order and number: a sample libavformat flags discarded (past the
+edit list) is decoded as a reference and not returned, so `frame_count`
+(CAP_PROP_FRAME_COUNT) can exceed the frames read. `seek(i)` lands where
+cv2 5.0's set(CAP_PROP_POS_FRAMES, i) lands, which is not always frame i:
+cv2 seeks back to the keyframe at or before time max(i - 16, 0) / fps
+(widening the step while it lands past i - 1), numbers the first picture
+it decodes from its pts x CAP_PROP_FPS, and counts on from there, so
+where the average frame rate differs from the frame spacing (an edit list
+that ends at the last sample's time), later seeks return frame i - 1.
+Refused with a reason that names the profile and feature (High's CABAC,
+B-frames, 8x8 transforms...) or the codec (mp4v, H.265...) and the frame
+count; an avc3 track is judged by the parameter sets of its first sample. A damaged slice stops the reader (read() gives (False, None) and
+`reason` says where); FFmpeg conceals the damage and reads on.
+
+Motion-JPEG AVI (a RIFF 'AVI ' file whose video stream is MJPG): each
+frame decoded by the port's JPEG decoder (utils/jpeg_ingest.decode_jpeg),
+which equals libjpeg's: its frames equal cv2.VideoCapture(path,
+cv2.CAP_OPENCV_MJPEG)'s byte for byte, and its `seek` lands on the exact
+frame. Frame offsets come from the idx1 index when the file has one, else
+from a scan of the movi list; OpenDML 'AVIX' continuations are scanned
+too. A frame without a DHT segment (camera Motion-JPEG) gets the standard
+Huffman tables libjpeg supplies. cv2's default (FFmpeg) backend decodes
+Motion-JPEG with its own IDCT and upsampling, which differ from libjpeg's.
 
 Nothing else opens: a camera index, a missing file, any other container
-or codec (`VideoReader.reason` says why). An mp4 or mov file is demuxed
-(utils/mp4.py) and stays unopened with a reason that names its codec and
-its frame count, since no H.264 or MPEG-4 Part 2 decoder is ported yet.
-cv2.VideoCapture's default backend (FFmpeg) reads those, and decodes
-Motion-JPEG with its own IDCT and upsampling, which differ from libjpeg's.
+or codec (`VideoReader.reason` says why).
 
 `VideoWriter` writes JPEG frames (utils/jpeg_encode, cv2.imencode's bytes
 at QUALITY 95) as '00dc' chunks with avih / strh / strf headers and an
@@ -31,11 +46,12 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from . import mp4
+from . import h264, mp4
 from .jpeg_encode import encode_jpeg, standard_dht
 from .jpeg_ingest import decode_jpeg
 
-FORMATS = "Motion-JPEG AVI (RIFF 'AVI ' with an MJPG video stream)"
+FORMATS = ("H.264 Constrained Baseline mp4 / mov, and Motion-JPEG AVI (RIFF 'AVI ' with an "
+           "MJPG video stream)")
 QUALITY = 95   # of the frames VideoWriter encodes, as the JAX package's crops
 
 
@@ -62,10 +78,154 @@ def _has_dht(jpeg: bytes) -> bool:
     return False
 
 
+_INT_MAX = 2 ** 31 - 1
+_INDEX_KEYFRAME, _INDEX_DISCARD = 1, 2
+
+
+class _H264Track:
+    """An H.264 track read as cv2 5.0's FFmpeg backend reads it: grab()
+    decodes packets until a picture comes out (CvCapture_FFMPEG::grabFrame),
+    seek() is CvCapture_FFMPEG::seek over libavformat's backward keyframe
+    seek (ff_index_search_timestamp on the samples' dts)."""
+
+    def __init__(self, data: bytes, track: mp4.VideoTrack):
+        self.data, self.track = data, track
+        self.decoder = h264.Decoder(track.avc.nal_length_size, track.avc.sps + track.avc.pps)
+        self.time_base = 1 / track.timescale   # r2d(time_base)
+        kept = track.pts[~track.discard] if track.discard.any() else track.pts
+        self.start_time = int(kept.min()) if len(kept) else 0
+        self.flags = (track.keyframes * _INDEX_KEYFRAME) | (track.discard * _INDEX_DISCARD)
+        self.next = 0              # the next packet (sample in decode order)
+        self.eof = False           # the flush packet was sent
+        self.held = False          # a grabbed picture waits at the decoder's front
+        self.frame_number = 0
+        self.first_frame_number = -1
+        self.error = ""
+
+    def _to_frame_number(self, pts: int) -> int:   # dts_to_frame_number
+        sec = float(pts - self.start_time) * self.time_base
+        return int(self.track.fps * sec + 0.5)
+
+    def _decode_next(self) -> bool:
+        """Send the next packet (or, at the end, the flush); False when
+        nothing is left or a slice was damaged."""
+        t = self.track
+        try:
+            if self.next < len(t.sizes):
+                i = self.next
+                self.next += 1
+                off, size = int(t.offsets[i]), int(t.sizes[i])
+                self.decoder.decode(self.data[off:off + size], int(t.pts[i]), bool(t.discard[i]))
+                return True
+            if self.eof:
+                return False
+            self.eof = True
+            self.decoder.drain()
+            return True
+        except h264.H264Error as e:
+            self.error = str(e)
+            return False
+
+    def grab(self) -> bool:
+        if self.error:
+            return False
+        if self.track.frame_count > 0 and self.frame_number > self.track.frame_count:
+            return False
+        if self.held:
+            self.decoder.take(bgr=False)
+            self.held = False
+        while self.decoder.peek() is None:
+            if not self._decode_next():
+                return False
+        self.held = True
+        self.frame_number += 1
+        if self.first_frame_number < 0:
+            self.first_frame_number = self._to_frame_number(self.decoder.peek().pts)
+        return True
+
+    def retrieve(self) -> Optional[np.ndarray]:
+        if not self.held:
+            return None
+        self.held = False
+        return self.decoder.take()[0]
+
+    def _seek_sample(self, ts: int) -> int:
+        """libavformat's backward seek on the samples' dts: the last
+        non-discarded sample at or before `ts`, then back to a keyframe."""
+        dts, flags = self.track.dts, self.flags
+        n = len(dts)
+        a, b = -1, n
+        if n and dts[n - 1] < ts:
+            a = n - 1
+        while b - a > 1:
+            m = (a + b) >> 1
+            while flags[m] & _INDEX_DISCARD and m < b and m < n - 1:
+                m += 1
+                if m == b and dts[m] >= ts:
+                    m = b - 1
+                    break
+            if dts[m] >= ts:
+                b = m
+            if dts[m] <= ts:
+                a = m
+        m = a
+        while 0 <= m < n and not flags[m] & _INDEX_KEYFRAME:
+            m -= 1
+        if m < 0 and n and ts < dts[0]:
+            m = 0
+        return max(m, 0)
+
+    def seek(self, index: int) -> None:
+        total = self.track.frame_count
+        index = min(int(index), total)
+        if self.first_frame_number < 0 and total > 1:
+            self.grab()
+        delta = 16
+        while True:
+            temp = max(index - delta, 0)
+            sec = temp / self.track.fps
+            ts = self.start_time + int(sec / self.time_base + 0.5)
+            if total > 1:
+                self.next = self._seek_sample(ts)
+            self.decoder.flush()
+            self.eof = self.held = False
+            if index <= 0:
+                self.frame_number = 0
+                return
+            self.grab()
+            if index == 1:
+                self.frame_number = 1
+                return
+            # no picture: cv2 numbers AV_NOPTS_VALUE, far below 0
+            self.frame_number = (self._to_frame_number(self.decoder.peek().pts)
+                                 - self.first_frame_number) if self.held else -1
+            if self.frame_number < 0 or self.frame_number > index - 1:
+                if temp == 0 or delta >= _INT_MAX // 4:
+                    return
+                delta = delta * 2 if delta < 16 else delta * 3 // 2
+                continue
+            while self.frame_number < index - 1:
+                if not self.grab():
+                    break
+            self.frame_number += 1
+            return
+
+
+def _h264_refusal(track: mp4.VideoTrack, decoder: h264.Decoder) -> str:
+    """Why the port does not decode an H.264 track, or ""."""
+    why = decoder.unsupported()
+    if not why and len(track.pts) > 1 and np.any(np.diff(track.pts) < 0):
+        avc = track.avc
+        why = f"profile_idc {avc.profile} with B-frames (pictures out of decode order)"
+    return why
+
+
 class VideoReader:
-    """Frames of a Motion-JPEG AVI, as cv2.VideoCapture(path,
-    CAP_OPENCV_MJPEG) reads them: `read()` -> (ok, (H, W, 3) u8 BGR or
-    None), `seek(i)` (CAP_PROP_POS_FRAMES), `frame_count`, `fps`."""
+    """Frames of an H.264 Constrained Baseline mp4 / mov, as
+    cv2.VideoCapture(path) reads them, or of a Motion-JPEG AVI, as
+    cv2.VideoCapture(path, CAP_OPENCV_MJPEG) reads them: `read()` -> (ok,
+    (H, W, 3) u8 BGR or None), `seek(i)` (CAP_PROP_POS_FRAMES),
+    `frame_count`, `fps`."""
 
     def __init__(self, path):
         self.reason = ""
@@ -73,6 +233,7 @@ class VideoReader:
         self._frames: List[Tuple[int, int]] = []   # (offset, size) per frame
         self._pos = 0
         self._data = b""
+        self._h264: Optional[_H264Track] = None
         if not isinstance(path, (str, os.PathLike)):
             self.reason = f"{path!r} is not a file path (camera capture is not supported)"
             return
@@ -87,7 +248,7 @@ class VideoReader:
         except (struct.error, ValueError, IndexError) as e:
             self.reason = f"malformed AVI: {e}"
         if self.reason:
-            self._frames, self._data = [], b""
+            self._frames, self._data, self._h264 = [], b"", None
 
     def _parse(self) -> str:
         data = self._data
@@ -96,8 +257,25 @@ class VideoReader:
                 track = mp4.demux(data)
             except mp4.Mp4Error as e:
                 return f"unreadable mp4/mov: {e}"
-            return (f"{track.codec_name} decode is not ported yet: {len(track.sizes)} frames "
-                    f"demuxed; the port reads {FORMATS} only")
+            frames = f"{track.frame_count} frames"
+            if track.codec not in ("avc1", "avc3") or track.avc is None:
+                return (f"{track.codec_name} decode is not ported: {frames}; the port reads "
+                        f"{FORMATS} only")
+            reader = _H264Track(data, track)
+            probe = reader.decoder
+            if not (track.avc.sps and track.avc.pps) and len(track.sizes):
+                # avc3: the parameter sets travel in the first sample
+                first = data[int(track.offsets[0]):int(track.offsets[0] + track.sizes[0])]
+                try:
+                    probe = h264.Decoder(track.avc.nal_length_size, track.avc.sps + track.avc.pps
+                                         + h264.parameter_sets(first, track.avc.nal_length_size))
+                except h264.H264Error as e:
+                    return f"{track.codec_name}: unreadable parameter sets ({e}): {frames}"
+            why = _h264_refusal(track, probe)
+            if why:
+                return f"{track.codec_name}: {why}: {frames}; the port reads {FORMATS} only"
+            self._h264, self.fps = reader, track.fps
+            return ""
         if len(data) < 12 or data[:4] != b"RIFF" or data[8:12] != b"AVI ":
             return f"not an AVI file; the port reads {FORMATS} only"
         riffs = [(off, size) for fcc, off, size in _chunks(data, 0, len(data)) if fcc == b"RIFF"]
@@ -178,15 +356,29 @@ class VideoReader:
         return frames
 
     def is_opened(self) -> bool:
-        return not self.reason
+        """Open, as cv2's isOpened(): an mp4 stopped at a damaged slice stays open."""
+        return not self.reason or self._h264 is not None
 
     @property
     def frame_count(self) -> int:
+        if self._h264 is not None:
+            return self._h264.track.frame_count
         return len(self._frames)
 
     def seek(self, index: int) -> None:
-        """Position the reader on frame `index` (clamped to the video)."""
+        """Position the reader on frame `index`: exactly (clamped to the
+        video) in an AVI, where cv2 lands in an mp4."""
+        if self._h264 is not None:
+            self._h264.seek(index)
+            self._stopped()
+            return
         self._pos = min(max(int(index), 0), len(self._frames))
+
+    def _stopped(self) -> None:
+        if self._h264 is not None and self._h264.error and not self.reason:
+            # a parameter set inside a later sample may name what is not decoded
+            kind = "unsupported" if self._h264.decoder.unsupported() else "damaged"
+            self.reason = f"{kind} H.264 stream: {self._h264.error}"
 
     def _next_jpeg(self) -> Optional[bytes]:
         """The next frame's JPEG bytes (the standard Huffman tables inserted
@@ -203,6 +395,10 @@ class VideoReader:
     def read(self) -> Tuple[bool, Optional[np.ndarray]]:
         """(True, frame) for the next frame; (False, None) past the end or
         for a frame the decoder refuses."""
+        if self._h264 is not None:
+            ok = self._h264.grab()
+            self._stopped()
+            return (True, self._h264.retrieve()) if ok else (False, None)
         jpeg = self._next_jpeg()
         if jpeg is None:
             return False, None
@@ -210,7 +406,7 @@ class VideoReader:
         return frame is not None, frame
 
     def release(self) -> None:
-        self._frames, self._data, self._pos = [], b"", 0
+        self._frames, self._data, self._pos, self._h264 = [], b"", 0, None
 
 
 class VideoWriter:

@@ -27,7 +27,7 @@ def test_every_port_module_imports_without_jax():
     p = port.__name__ + "."
     assert {p + "parallel.tensor_parallel", p + "ops.jpeg_scaled", p + "cli.fetch_weights",
             p + "data_tools.dfdc_download", p + "utils.image_decode", p + "utils.exif",
-            p + "utils.png", p + "utils.bmp", p + "utils.mp4"} <= set(mods)
+            p + "utils.png", p + "utils.bmp", p + "utils.mp4", p + "utils.h264"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "for blocked in ('jax', 'cv2', 'PIL', 'orbax', 'requests'):\n"
@@ -38,6 +38,26 @@ def test_every_port_module_imports_without_jax():
         "bad = [m for m in sys.modules if m == 'real_time_video_deepfake_detection_tpu'\n"
         "       or m.startswith('real_time_video_deepfake_detection_tpu.')]\n"
         "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=REPO))
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
+def test_h264_decodes_with_jax_and_cv2_blocked():
+    """utils/h264.py builds and decodes an mp4 in a process where jax, cv2
+    and the JAX package cannot be imported: the first frame of the 160x96
+    Baseline file equals cv2's (tests/data/torch_h264/digests.json)."""
+    code = (
+        "import sys, hashlib, json\n"
+        "for blocked in ('jax', 'cv2', 'PIL', 'real_time_video_deepfake_detection_tpu'):\n"
+        "    sys.modules[blocked] = None\n"
+        "from real_time_video_deepfake_detection_tpu_torch.utils.video import VideoReader\n"
+        "r = VideoReader('tests/data/torch_mp4/baseline_160x96.mp4')\n"
+        "ok, f = r.read()\n"
+        "want = json.load(open('tests/data/torch_h264/digests.json'))\n"
+        "want = want['files']['torch_mp4/baseline_160x96.mp4']['read'][0]['sha256']\n"
+        "assert ok and hashlib.sha256(f.tobytes()).hexdigest() == want\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                        text=True, timeout=300,
                        env=dict(os.environ, PYTHONPATH=REPO))
@@ -204,8 +224,8 @@ def test_image_decoders_decode_without_jax_cv2_or_pil():
 
 def test_jpeg_modes_and_mp4_demux_without_jax_cv2_or_pil():
     """The arithmetic and lossless JPEG decodes and the mp4 demuxer
-    (utils/mp4, utils/video's mp4 reason) load and run with jax, cv2 and
-    PIL blocked."""
+    (utils/mp4, utils/video's reasons for the High and mp4v files) load
+    and run with jax, cv2 and PIL blocked."""
     data = os.path.join(REPO, "tests", "data")
     code = (
         "import os, sys\n"
@@ -221,7 +241,8 @@ def test_jpeg_modes_and_mp4_demux_without_jax_cv2_or_pil():
         "for name in ('high_160x96.mp4', 'mp4v_160x96.mp4'):\n"
         "    path = os.path.join(d, 'torch_mp4', name)\n"
         "    assert mp4.read(path).frame_count > 0, name\n"
-        "    assert 'decode is not ported yet' in VideoReader(path).reason, name\n"
+        "    why = VideoReader(path).reason\n"
+        "    assert ('with CABAC' if 'high' in name else 'decode is not ported') in why, why\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cv2', 'PIL')\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n")

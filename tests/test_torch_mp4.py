@@ -3,10 +3,12 @@ cv2.VideoCapture, on the fixtures of tests/data/torch_mp4
 (tools/make_torch_jpeg_mode_fixtures.py): x264 High (B-frames: ctts and
 an edit list, the moov after the mdat), Constrained Baseline (+faststart),
 QuickTime mov and cv2's mp4v. The sample table (offset, size, dts, pts,
-keyframe) equals libavformat's packets (packets.json); frame count, fps
-and size equal cv2.VideoCapture's CAP_PROP_*. A fragmented file, an
-audio-only one and cut ones are refused with their reason, and
-utils/video.VideoReader names the codec and the frame count.
+keyframe, discard: AV_PKT_FLAG_DISCARD past the edit list) equals
+libavformat's packets (packets.json); frame count, fps and size equal
+cv2.VideoCapture's CAP_PROP_*. A fragmented file, an audio-only one and
+cut ones are refused with their reason; utils/video.VideoReader opens the
+Baseline file (tests/test_torch_h264.py holds its frames) and names the
+profile or the codec and the frame count of the others.
 """
 
 import ctypes
@@ -45,7 +47,8 @@ def _data(name: str) -> bytes:
 
 def _table(track):
     return np.stack([track.offsets, track.sizes, track.dts, track.pts,
-                     track.keyframes.astype(np.int64)], 1).tolist()
+                     track.keyframes.astype(np.int64), track.discard.astype(np.int64)],
+                    1).tolist()
 
 
 @pytest.mark.parametrize("name", VIDEOS)
@@ -139,13 +142,31 @@ def test_refusals_carry_their_reason(case, why):
 @pytest.mark.parametrize("name", VIDEOS + ["fragmented_160x96.mp4", "audio_only.mp4"])
 def test_video_reader_names_the_codec_and_frames(name):
     r = VideoReader(os.path.join(DATA, name))
+    if name == "baseline_160x96.mp4":   # Constrained Baseline: decoded
+        assert r.is_opened() and r.reason == "" and r.frame_count == 48
+        ok, frame = r.read()
+        assert ok and frame.shape == (96, 160, 3)
+        return
     assert not r.is_opened() and r.frame_count == 0 and r.read() == (False, None)
     if name in VIDEOS:
         track = mp4.read(os.path.join(DATA, name))
-        assert f"{track.codec_name} decode is not ported yet: {len(track.sizes)} frames" \
-            in r.reason
+        assert f"{track.codec_name}" in r.reason and f"{track.frame_count} frames" in r.reason
+        assert ("profile_idc 100" in r.reason) == (track.codec == "avc1")
     else:
         assert "unreadable mp4/mov" in r.reason
+
+
+def test_discard_flag_marks_the_sample_past_the_edit_list():
+    """x264's Baseline and High files end their edit list at the last
+    sample's time: libavformat flags that sample discarded (cv2 reads 47 of
+    48 frames); the mov and mp4v files have no such sample."""
+    for name in VIDEOS:
+        track = mp4.demux(_data(name))
+        flags = [p[5] for p in RECORDS[name]["libavformat"]["packets"]]
+        assert track.discard.tolist() == [bool(f) for f in flags]
+        last = [int(np.argmax(track.pts))]   # the last picture (in decode order 45 of High)
+        assert np.flatnonzero(track.discard).tolist() == (
+            last if name in ("baseline_160x96.mp4", "high_160x96.mp4") else [])
 
 
 def test_is_iso_bmff():

@@ -32,10 +32,10 @@ mp4 inputs (tests/data/torch_mp4/, packets.json), about 160x96: x264 High
 Constrained Baseline (+faststart), the High stream muxed as QuickTime mov,
 cv2.VideoWriter's mp4v (what the JAX analyzer's --output writes), a
 fragmented mp4 and an audio-only one. Per file: libavformat's video packets
-[offset, size, dts, pts, key] with its codec, size, time base, nb_frames
-and average frame rate (null when it finds no video stream), and
-cv2.VideoCapture's isOpened, CAP_PROP_FRAME_COUNT, CAP_PROP_FPS and frame
-size.
+[offset, size, dts, pts, key, discard (AV_PKT_FLAG_DISCARD)] with its
+codec, size, time base, nb_frames and average frame rate (null when it
+finds no video stream), and cv2.VideoCapture's isOpened,
+CAP_PROP_FRAME_COUNT, CAP_PROP_FPS and frame size.
 
 The C writers are built with gcc in a temporary directory: a libjpeg
 transcoder (-ljpeg, libjpeg-turbo 2.1.5 with arithmetic coding), GDCM's
@@ -263,7 +263,7 @@ MP4DUMP_C = r"""
 #include <libavformat/avformat.h>
 /* mp4dump IN: libavformat's view of IN's first video stream as JSON, or
    null: codec, size, time base, nb_frames, average frame rate and every
-   packet [offset, size, dts, pts, key] */
+   packet [offset, size, dts, pts, key, discard] */
 int main(int argc, char** argv) {
   AVFormatContext* ic = NULL;
   av_log_set_level(AV_LOG_QUIET);
@@ -286,9 +286,9 @@ int main(int argc, char** argv) {
   int first = 1;
   while (av_read_frame(ic, pkt) >= 0) {
     if (pkt->stream_index == v) {
-      printf("%s[%lld, %d, %lld, %lld, %d]", first ? "" : ", ", (long long)pkt->pos,
+      printf("%s[%lld, %d, %lld, %lld, %d, %d]", first ? "" : ", ", (long long)pkt->pos,
              pkt->size, (long long)pkt->dts, (long long)pkt->pts,
-             (pkt->flags & AV_PKT_FLAG_KEY) ? 1 : 0);
+             (pkt->flags & AV_PKT_FLAG_KEY) ? 1 : 0, (pkt->flags & AV_PKT_FLAG_DISCARD) ? 1 : 0);
       first = 0;
     }
     av_packet_unref(pkt);
