@@ -212,13 +212,17 @@ in phases, each printing one JSON line:
               to libavformat's packets (the discard flag included), frame
               counts and fps to cv2.VideoCapture's, the fragmented and
               audio-only files refused, VideoReader's reason naming the
-              profile or the codec; ms a demux; (g) H.264 Constrained
-              Baseline mp4 in (utils/h264.py, csrc/h264.cpp on the host):
-              every fixture of tests/data/torch_h264 and the 160x96 file
-              read sequentially and after seek(i) at every i, each frame's
-              sha256 against the committed digests of cv2.VideoCapture's
-              frames; host ms a frame of the 640x360 and 1920x1080 clips
-              (read, decode alone, BGR conversion alone); the 640x360 clip
+              profile or the codec; ms a demux; (g) H.264 mp4 in,
+              Constrained Baseline, Main and High (utils/h264.py,
+              csrc/h264.cpp on the host): every fixture of
+              tests/data/torch_h264, tests/data/torch_h264_high and the
+              torch_mp4 files read sequentially, and after seek(i) at every
+              i (the Baseline files and three High ones; the other High
+              files at 0, the middle and the end), each frame's sha256
+              against the committed digests of cv2.VideoCapture's frames,
+              the MBAFF and 4:2:2 files refused by name; host ms a frame of
+              the Baseline and High 640x360 and 1920x1080 clips (read,
+              decode alone, BGR conversion alone); the High 640x360 clip
               read by VideoReader into MultiStreamEngine in device-detect
               mode (_detect_cfg, the synthetic SSD, B0):
               the launches of every kernel counted from 0, and one
@@ -287,6 +291,7 @@ runs only the named phases and prints no contract lines.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
@@ -392,9 +397,9 @@ def profile_device(fn, n: int):
     """Run `fn` n times under torch.profiler and return (wall ms per call,
     device-busy ms per call, device activities per call, the 8 largest
     device activities by total ms). Busy time sums the CUDA activities
-    (kernels, copies, sets) of the trace; everything runs on one stream, so
-    they do not overlap. Busy ms is None when the trace holds no device
-    activity."""
+    (kernels, copies, sets) of the trace, at their ns durations; everything
+    runs on one stream, so they do not overlap. Busy ms is None when the
+    trace holds no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -406,10 +411,12 @@ def profile_device(fn, n: int):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n
+    # kineto's own events: prof.events() builds the CPU event tree, which
+    # nothing here reads, at ~1.5 s of host time a window
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.is_hidden_event():
+            by_name.setdefault(e.name(), []).append(e.duration_ns() / 1e6)
     busy = sum(sum(v) for v in by_name.values()) / n
     top = sorted(((k, sum(v) / n, len(v) / n) for k, v in by_name.items()),
                  key=lambda kv: -kv[1])[:8]
@@ -841,17 +848,20 @@ def _clahe_kernels(peaks):
 def _synthetic_frame(rng, face: bool, t: int):
     """480x640 BGR: a smooth textured background and, on face streams, a
     skin-toned ellipse (which the heuristic detector finds) moving a little
-    each frame."""
+    each frame. The background and the ellipse are separable: each is
+    computed from a row and a column, broadcast with the same float
+    operations in the same order as over a full grid."""
     import numpy as np
-    yy, xx = np.mgrid[:480, :640]
+    yy, xx = np.arange(480)[:, None], np.arange(640)[None, :]
     f = 100 + 40 * np.sin(xx / 37.0 + t / 5.0) * np.cos(yy / 53.0)
     # gray noise: equal channels keep the background out of the skin range
-    f = np.repeat((f + rng.integers(-12, 13, (480, 640)))[..., None], 3, axis=2)
+    f = np.clip(f + rng.integers(-12, 13, (480, 640)), 0, 255).astype(np.uint8)
+    f = np.repeat(f[..., None], 3, axis=2)
     if face:
         m = ((xx - 320 - 3 * t) / 90.0) ** 2 + ((yy - 240) / 120.0) ** 2 <= 1.0
         skin = np.array([140, 160, 210]) + rng.integers(-6, 7, (int(m.sum()), 3))
         f[m] = skin
-    return np.clip(f, 0, 255).astype(np.uint8)
+    return f
 
 
 _SCHEMA = {"success", "analysis_mode", "faces_detected", "fake_probability",
@@ -4124,8 +4134,8 @@ MP4_DIR = os.path.join(REPO, "tests", "data", "torch_mp4")
 def _mp4_demux():
     """(f) utils/mp4.demux of every mp4/mov fixture: its sample table
     against libavformat's packets (packets.json), frame count and fps
-    against cv2.VideoCapture's, the refusals, VideoReader's reason; host ms
-    of a demux."""
+    against cv2.VideoCapture's, the refusals, VideoReader's reason (none
+    for the H.264 files, Baseline and High); host ms of a demux."""
     import numpy as np
     from real_time_video_deepfake_detection_tpu_torch.utils import mp4
     from real_time_video_deepfake_detection_tpu_torch.utils.video import VideoReader
@@ -4152,8 +4162,7 @@ def _mp4_demux():
                 cv["frame_count"], cv["fps"]):
             raise AssertionError(f"mp4 {name}: the sample table or the counts differ")
         reason = VideoReader(path).reason
-        want_reason = ("" if name == "baseline_160x96.mp4" else
-                       "profile_idc 100" if track.codec == "avc1" else "decode is not ported")
+        want_reason = ("" if track.codec == "avc1" else "decode is not ported")
         if (want_reason not in reason) if want_reason else reason:
             raise AssertionError(f"mp4 {name}: VideoReader says {reason!r}")
         t = []
@@ -4169,34 +4178,47 @@ def _mp4_demux():
 
 
 H264_DIR = os.path.join(REPO, "tests", "data", "torch_h264")
-MP4_CLIP = os.path.join(H264_DIR, "cb_640x360.mp4")
+H264_HIGH_DIR = os.path.join(REPO, "tests", "data", "torch_h264_high")
+MP4_CLIP = os.path.join(H264_HIGH_DIR, "hi_640x360.mp4")   # x264's High defaults
+# the High files whose every seek is held (B-pyramid, temporal direct, open GOP)
+HIGH_SWEPT = ("hi_640x360.mp4", "hi_temporal_320x180.mp4", "hi_opengop_256x144.mp4")
 
 
-def _h264_path(key: str) -> str:
+def _h264_path(key: str, root: str = H264_DIR) -> str:
     return os.path.join(os.path.dirname(H264_DIR), key) if "/" in key else \
-        os.path.join(H264_DIR, key)
+        os.path.join(root, key)
 
 
 def _mp4_fixtures():
-    """(g) every H.264 Constrained Baseline fixture (tests/data/torch_h264
-    and torch_mp4/baseline_160x96.mp4) read by VideoReader sequentially and
-    after seek(i) at every i from 0 to the frame count, each on a fresh
-    reader: every frame's sha256 and shape against the committed digests
-    of cv2.VideoCapture's frames (digests.json)."""
+    """(g) every H.264 fixture (tests/data/torch_h264 and torch_h264_high,
+    and the torch_mp4 files) read by VideoReader sequentially and after
+    seek(i) from 0 to the frame count, each on a fresh reader: every i on
+    the Baseline files and HIGH_SWEPT, i = 0, the middle and the end on the
+    other High files; every frame's sha256 and shape against the committed
+    digests of cv2.VideoCapture's frames (digests.json). The High refusal
+    files stay unopened, their feature named. The files are checked on a
+    thread each."""
     import numpy as np
     from real_time_video_deepfake_detection_tpu_torch.utils.video import VideoReader
-    with open(os.path.join(H264_DIR, "digests.json")) as fh:
-        records = json.load(fh)["files"]
+    records = {}
+    for root in (H264_DIR, H264_HIGH_DIR):
+        with open(os.path.join(root, "digests.json")) as fh:
+            records.update({(root, k): r for k, r in json.load(fh)["files"].items()})
 
     def digest(frame):
         return None if frame is None else {
             "sha256": hashlib.sha256(np.ascontiguousarray(frame).tobytes()).hexdigest(),
             "shape": list(frame.shape)}
 
-    out, t0 = {}, time.perf_counter()
-    for key, rec in sorted(records.items()):
-        path = _h264_path(key)
+    def check(item):
+        (root, key), rec = item
+        path = _h264_path(key, root)
         r = VideoReader(path)
+        if rec.get("refused"):
+            why = "MBAFF" if "mbaff" in key else "4:2:2 chroma"
+            if r.is_opened() or why not in r.reason:
+                raise AssertionError(f"mp4 {key}: not refused by name: {r.reason}")
+            return key, {"refused": r.reason}
         if not r.is_opened() or (r.frame_count, r.fps) != (rec["frame_count"], rec["fps"]):
             raise AssertionError(f"mp4 {key}: {r.reason} {r.frame_count} {r.fps}")
         seq = []
@@ -4210,26 +4232,37 @@ def _mp4_fixtures():
             bad = next((i for i in range(n) if seq[i] != rec["read"][i]), n)
             raise AssertionError(f"mp4 {key}: read {len(seq)} frames of {len(rec['read'])}, "
                                  f"frame {bad} differs from cv2's")
-        for i, want in enumerate(rec["seek"]):
+        n = len(rec["seek"])
+        swept = root == H264_DIR or key in HIGH_SWEPT or key.startswith("torch_mp4/")
+        seeks = range(n) if swept else sorted({0, n // 2, n - 1})
+        for i in seeks:
             r = VideoReader(path)
             r.seek(i)
-            if digest(r.read()[1]) != want:
+            if digest(r.read()[1]) != rec["seek"][i]:
                 raise AssertionError(f"mp4 {key}: seek({i}) differs from cv2's landing")
-        out[key] = {"frames": len(seq), "frame_count": r.frame_count, "seeks": len(rec["seek"])}
-    return {"files": out, "frames_checked": sum(v["frames"] + v["seeks"] for v in out.values()),
+        return key, {"frames": len(seq), "frame_count": r.frame_count, "seeks": len(seeks)}
+
+    # one file a thread: the decoder and the conversion run without the GIL
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as pool:
+        out = dict(pool.map(check, sorted(records.items())))
+    return {"files": out, "frames_checked": sum(v.get("frames", 0) + v.get("seeks", 0)
+                                                for v in out.values()),
             "seconds": time.perf_counter() - t0}
 
 
 def _mp4_decode_ms():
-    """Host ms per frame of the 640x360 and 1920x1080 clips: VideoReader.read
-    (decode and BGR conversion), the decode alone (utils/h264.Decoder) and
-    the conversion alone; the mean of one pass over the clip."""
+    """Host ms per frame of the Baseline and High 640x360 and 1920x1080
+    clips: VideoReader.read (decode and BGR conversion), the decode alone
+    (utils/h264.Decoder) and the conversion alone; the mean of one pass
+    over the clip."""
     import numpy as np
     from real_time_video_deepfake_detection_tpu_torch.utils import h264, mp4
     from real_time_video_deepfake_detection_tpu_torch.utils.video import VideoReader
     out = {}
-    for name in ("cb_640x360.mp4", "cb_1920x1080.mp4"):
-        path = os.path.join(H264_DIR, name)
+    for root, name in ((H264_DIR, "cb_640x360.mp4"), (H264_DIR, "cb_1920x1080.mp4"),
+                       (H264_HIGH_DIR, "hi_640x360.mp4"), (H264_HIGH_DIR, "hi_1920x1080.mp4")):
+        path = os.path.join(root, name)
         with open(path, "rb") as fh:
             data = fh.read()
         track = mp4.demux(data)
@@ -4257,7 +4290,7 @@ def _mp4_decode_ms():
 
 
 def _mp4_engine(ctx):
-    """The 640x360 clip through MultiStreamEngine on the card in
+    """The High 640x360 clip through MultiStreamEngine on the card in
     device-detect mode (_detect_cfg: the preprocess, hue and both CLAHE
     kernels; the synthetic SSD; full-size B0): VideoReader's frames into
     engine.analyze, the launches counted from 0; then one bucket-8 detect
@@ -4333,9 +4366,10 @@ def _mp4_engine(ctx):
 
 
 def _mp4_analyze(root: str, weights: str):
-    """cli/analyze.main on the 640x360 mp4 (single, 24 frames, --json) and on
-    three mp4s through the batched engine (the clip, the face clip and the
-    160x96 file, whose discarded 48th sample is not read)."""
+    """cli/analyze.main on the High 640x360 mp4 (single, 24 frames, --json)
+    and on three mp4s through the batched engine (the clip, the Baseline
+    face clip and the 160x96 file, whose discarded 48th sample is not
+    read)."""
     from real_time_video_deepfake_detection_tpu_torch.cli import analyze
     single = os.path.join(root, "mp4_single.json")
     t0 = time.perf_counter()
@@ -4368,10 +4402,11 @@ def _mp4_analyze(root: str, weights: str):
 
 
 def _mp4_decode(ctx, root: str, weights: str):
-    """(g) H.264 mp4 in: the fixtures against cv2's digests, the host decode
-    ms per frame at 640x360 and 1920x1080, the 640x360 clip through the
-    device-detect engine (every kernel launched) with one tick against the
-    CPU, and cli/analyze on mp4s, single and batched."""
+    """(g) H.264 mp4 in: the Baseline and High fixtures against cv2's
+    digests, the host decode ms per frame at 640x360 and 1920x1080 of both,
+    the High 640x360 clip through the device-detect engine (every kernel
+    launched) with one tick against the CPU, and cli/analyze on mp4s,
+    single and batched."""
     engine = _mp4_engine(ctx)
     ctx["mp4_launches"] = engine["launches"]
     return {"fixtures": _mp4_fixtures(), "decode_ms": _mp4_decode_ms(), "engine": engine,

@@ -12,10 +12,12 @@ cv2.imwrite writes them at quality 95 (utils/jpeg_encode).
     python -m real_time_video_deepfake_detection_tpu_torch.data_tools.face_extract \\
         --videos dataset/videos --output dataset/faces [--device cuda]
 
-Stated differences: the port reads H.264 Constrained Baseline mp4 and
-Motion-JPEG AVI (utils/video.py, by content: an AVI named .mp4 opens), so a
-DFDC or FaceForensics++ video (High profile) is skipped as unreadable where
-cv2 reads it; frames are the ones cv2.VideoCapture returns, seeks landing
+Stated differences: the port reads H.264 mp4 (Constrained Baseline, Main
+and High, as DFDC's and FaceForensics++'s x264 files are) and Motion-JPEG
+AVI (utils/video.py, by content: an AVI named .mp4 opens), so an
+interlaced, 4:2:2 / 4:4:4 or high-bit-depth H.264 video or another codec is
+skipped as unreadable where cv2 reads it; frames are the ones
+cv2.VideoCapture returns, seeks landing
 where cv2's land; `--device` places the SSD rung when --ssd-weights is
 given.
 """

@@ -1,17 +1,17 @@
-"""H.264 Constrained Baseline decode on the host, without cv2 or FFmpeg:
-the frames cv2.VideoCapture's FFmpeg backend decodes from an mp4's H.264
-track, picture for picture (csrc/h264.cpp), converted to BGR as cv2 5.0's
-bundled libswscale converts them (csrc/yuv2bgr.cpp). Bound with ctypes,
+"""H.264 Constrained Baseline, Main and High decode on the host, without
+cv2 or FFmpeg: the frames cv2.VideoCapture's FFmpeg backend decodes from an
+mp4's H.264 track, picture for picture (csrc/h264.cpp), converted to BGR as
+cv2 5.0's bundled libswscale converts them (csrc/yuv2bgr.cpp). Bound with ctypes,
 which drops the GIL for each call; built with g++ at first use into
 `<repo>/.build/h264_<hash>/` (utils/host_build; a failed build raises, and
 there is no Python decoder below it).
 
 `Decoder` holds one stream's state: feed it the avcC's parameter sets,
-then the samples in decode order; it refuses CABAC, B slices, 8x8
-transforms, weighted prediction, FMO, interlace, 4:2:2 / 4:4:4, high bit
-depth, scaling matrices and redundant pictures with a reason naming the
-profile and the feature, and stops at a damaged slice with a reason that
-says where (FFmpeg would conceal it). utils/video.VideoReader drives it
+then the samples in decode order; pictures come out in FFmpeg's order. It
+refuses FMO, field and MBAFF coding, 4:0:0 / 4:2:2 / 4:4:4, high bit depth,
+transform bypass, SP / SI slices and redundant pictures with a reason
+naming the profile and the feature, and stops at a damaged slice with a
+reason that says where (FFmpeg would conceal it). utils/video.VideoReader drives it
 as cv2's FFmpeg backend drives libavcodec.
 """
 

@@ -32,9 +32,9 @@ Refused with their reason (`Mp4Error`): a fragmented file (moof, or mvex
 in the moov), a file with no video track, one whose moov is cut or
 missing.
 
-No frame is decoded here: utils/h264.py decodes the Constrained Baseline
-H.264 samples for utils/video.VideoReader, which names the codec or the
-profile and the frame count of a track it refuses.
+No frame is decoded here: utils/h264.py decodes the H.264 samples
+(Constrained Baseline, Main and High) for utils/video.VideoReader, which
+names the codec or the profile and the frame count of a track it refuses.
 """
 
 from __future__ import annotations

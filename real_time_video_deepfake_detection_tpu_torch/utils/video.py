@@ -3,8 +3,9 @@ package's cv2.VideoCapture / cv2.VideoWriter calls (cli/analyze.py,
 train/clip_head.py, data_tools/face_extract.py). `VideoReader` goes by a
 file's content, not its name.
 
-H.264 mp4 / mov (an avc1 or avc3 track, Constrained Baseline: CAVLC, I
-and P slices): demuxed by utils/mp4.py and decoded by utils/h264.py, whose
+H.264 mp4 / mov (an avc1 or avc3 track, Constrained Baseline, Main or
+High: CAVLC or CABAC, I, P and B slices, progressive 8-bit 4:2:0):
+demuxed by utils/mp4.py and decoded by utils/h264.py, whose
 frames equal cv2.VideoCapture(path)'s (its FFmpeg backend) byte for byte,
 in cv2's order and number: a sample libavformat flags discarded (past the
 edit list) is decoded as a reference and not returned, so `frame_count`
@@ -14,10 +15,14 @@ cv2 seeks back to the keyframe at or before time max(i - 16, 0) / fps
 (widening the step while it lands past i - 1), numbers the first picture
 it decodes from its pts x CAP_PROP_FPS, and counts on from there, so
 where the average frame rate differs from the frame spacing (an edit list
-that ends at the last sample's time), later seeks return frame i - 1.
-Refused with a reason that names the profile and feature (High's CABAC,
-B-frames, 8x8 transforms...) or the codec (mp4v, H.265...) and the frame
-count; an avc3 track is judged by the parameter sets of its first sample. A damaged slice stops the reader (read() gives (False, None) and
+that ends at the last sample's time), later seeks return frame i - 1; on
+a B-frame file (whose dts start below zero) libavformat's seek subtracts
+that shift from its target once more (mov_seek_stream's
+min_corrected_pts), and so does this one. Refused with a reason that
+names the profile and feature (field or MBAFF coding, 4:2:2, 4:4:4 or
+4:0:0 chroma, more than 8 bits...) or the codec (mp4v, H.265...) and the
+frame count; an avc3 track is judged by the parameter sets of its first
+sample. A damaged slice stops the reader (read() gives (False, None) and
 `reason` says where); FFmpeg conceals the damage and reads on.
 
 Motion-JPEG AVI (a RIFF 'AVI ' file whose video stream is MJPG): each
@@ -50,8 +55,8 @@ from . import h264, mp4
 from .jpeg_encode import encode_jpeg, standard_dht
 from .jpeg_ingest import decode_jpeg
 
-FORMATS = ("H.264 Constrained Baseline mp4 / mov, and Motion-JPEG AVI (RIFF 'AVI ' with an "
-           "MJPG video stream)")
+FORMATS = ("H.264 mp4 / mov (Constrained Baseline, Main and High: progressive 8-bit 4:2:0), and "
+           "Motion-JPEG AVI (RIFF 'AVI ' with an MJPG video stream)")
 QUALITY = 95   # of the frames VideoWriter encodes, as the JAX package's crops
 
 
@@ -94,6 +99,10 @@ class _H264Track:
         self.time_base = 1 / track.timescale   # r2d(time_base)
         kept = track.pts[~track.discard] if track.discard.any() else track.pts
         self.start_time = int(kept.min()) if len(kept) else 0
+        # libavformat's min_corrected_pts: the edit list's shift of the dts
+        # (B-frame files start at a negative dts), which mov_seek_stream
+        # subtracts from a seek's target once more
+        self.min_corrected_pts = max(-int(track.dts[0]), 0) if len(track.dts) else 0
         self.flags = (track.keyframes * _INDEX_KEYFRAME) | (track.discard * _INDEX_DISCARD)
         self.next = 0              # the next packet (sample in decode order)
         self.eof = False           # the flush packet was sent
@@ -151,7 +160,9 @@ class _H264Track:
 
     def _seek_sample(self, ts: int) -> int:
         """libavformat's backward seek on the samples' dts: the last
-        non-discarded sample at or before `ts`, then back to a keyframe."""
+        non-discarded sample at or before `ts` less min_corrected_pts, then
+        back to a keyframe."""
+        ts -= self.min_corrected_pts
         dts, flags = self.track.dts, self.flags
         n = len(dts)
         a, b = -1, n
@@ -211,17 +222,8 @@ class _H264Track:
             return
 
 
-def _h264_refusal(track: mp4.VideoTrack, decoder: h264.Decoder) -> str:
-    """Why the port does not decode an H.264 track, or ""."""
-    why = decoder.unsupported()
-    if not why and len(track.pts) > 1 and np.any(np.diff(track.pts) < 0):
-        avc = track.avc
-        why = f"profile_idc {avc.profile} with B-frames (pictures out of decode order)"
-    return why
-
-
 class VideoReader:
-    """Frames of an H.264 Constrained Baseline mp4 / mov, as
+    """Frames of an H.264 mp4 / mov (Constrained Baseline, Main, High), as
     cv2.VideoCapture(path) reads them, or of a Motion-JPEG AVI, as
     cv2.VideoCapture(path, CAP_OPENCV_MJPEG) reads them: `read()` -> (ok,
     (H, W, 3) u8 BGR or None), `seek(i)` (CAP_PROP_POS_FRAMES),
@@ -271,7 +273,7 @@ class VideoReader:
                                          + h264.parameter_sets(first, track.avc.nal_length_size))
                 except h264.H264Error as e:
                     return f"{track.codec_name}: unreadable parameter sets ({e}): {frames}"
-            why = _h264_refusal(track, probe)
+            why = probe.unsupported()
             if why:
                 return f"{track.codec_name}: {why}: {frames}; the port reads {FORMATS} only"
             self._h264, self.fps = reader, track.fps

@@ -272,8 +272,10 @@ def test_cv2_lands_one_frame_early_past_frame_40():
 
 
 @pytest.mark.parametrize("name, why", [
-    ("high_160x96.mp4", r"High profile \(profile_idc 100\) with CABAC"),
-    ("high_160x96.mov", r"High profile \(profile_idc 100\) with CABAC"),
+    ("../torch_h264_high/hi_mbaff_160x96.mp4",
+     r"High profile \(profile_idc 100\) with field or MBAFF coding"),
+    ("../torch_h264_high/hi422_160x96.mp4",
+     r"High 4:2:2 profile \(profile_idc 122\) with 4:2:2 chroma"),
     ("mp4v_160x96.mp4", r"MPEG-4 Part 2 \(mp4v\) decode is not ported"),
     ("fragmented_160x96.mp4", "fragmented"),
     ("audio_only.mp4", "no video track")])
@@ -287,14 +289,18 @@ def test_refusals_name_the_profile_or_codec(name, why):
 
 
 def test_b_frames_are_refused_by_their_order():
-    """A track whose presentation times go back in decode order (B-frames)
-    is refused even when its parameter sets would decode."""
-    track = mp4.read(_path("cb_202x114.mp4"))
-    dec = h264.Decoder(track.avc.nal_length_size, track.avc.sps + track.avc.pps)
-    from real_time_video_deepfake_detection_tpu_torch.utils import video
-    assert video._h264_refusal(track, dec) == ""
-    track.pts = track.pts[[0, 2, 1] + list(range(3, len(track.pts)))]
-    assert "B-frames" in video._h264_refusal(track, dec)
+    """B-frames are no longer refused by their order: a track whose
+    presentation times go back in decode order opens, with no reason, and
+    reads the frames cv2 reads (tests/test_torch_h264_high.py holds every
+    frame)."""
+    path = os.path.join(DATA, "torch_h264_high", "hi_640x360.mp4")
+    track = mp4.read(path)
+    assert np.any(np.diff(track.pts) < 0)
+    r = VideoReader(path)
+    assert r.is_opened() and r.reason == ""
+    with open(os.path.join(DATA, "torch_h264_high", "digests.json")) as fh:
+        want = json.load(fh)["files"]["hi_640x360.mp4"]["read"]
+    assert [_digest(r.read()[1]) for _ in range(3)] == want[:3]
 
 
 def test_a_damaged_slice_stops_the_reader(tmp_path):
@@ -336,10 +342,11 @@ def test_parameter_set_refusals_name_the_feature():
     def se(v: int) -> str:
         return ue(2 * v - 1 if v > 0 else -2 * v)
 
-    def sps(profile=66, frame_mbs_only=1, gaps=0, chroma=1, depth=0) -> bytes:
+    def sps(profile=66, frame_mbs_only=1, gaps=0, chroma=1, depth=0, bypass=0) -> bytes:
         s = f"{profile:08b}" + "11000000" + f"{30:08b}" + ue(0)
-        if profile == 100:
-            s += ue(chroma) + ue(depth) + ue(depth) + "0" + "0"
+        if profile in (100, 244):
+            s += ue(chroma) + ("0" if chroma == 3 else "") + ue(depth) + ue(depth)
+            s += str(bypass) + "0"
         s += ue(0) + ue(2) + ue(1) + str(gaps) + ue(9) + ue(5) + str(frame_mbs_only)
         if not frame_mbs_only:
             s += "0"
@@ -355,15 +362,19 @@ def test_parameter_set_refusals_name_the_feature():
                 s += str(t8) + "0" + se(0)
         return bits_to_nal(0x68, s)
 
+    # CABAC, weighted prediction and the 8x8 transform decode (Main and High)
     cases = [(sps(), pps(), ""),
-             (sps(), pps(cabac=1), "CABAC"),
+             (sps(), pps(cabac=1), ""),
              (sps(), pps(groups=1), "slice groups (FMO)"),
-             (sps(), pps(weighted=1), "weighted prediction"),
+             (sps(), pps(weighted=1), ""),
              (sps(), pps(redundant=1), "redundant pictures"),
-             (sps(profile=100), pps(t8=1), "transform_8x8_mode"),
+             (sps(profile=100), pps(t8=1), ""),
              (sps(frame_mbs_only=0), pps(), "field or MBAFF"),
              (sps(gaps=1), pps(), "gaps in frame_num"),
-             (sps(profile=100, chroma=2), pps(t8=0), "chroma other than 4:2:0"),
+             (sps(profile=100, chroma=2), pps(t8=0), "4:2:2 chroma"),
+             (sps(profile=100, chroma=0), pps(t8=0), "4:0:0 (monochrome) chroma"),
+             (sps(profile=244, chroma=3), pps(t8=0), "4:4:4 chroma"),
+             (sps(profile=100, bypass=1), pps(t8=0), "lossless transform bypass"),
              (sps(profile=100, depth=2), pps(t8=0), "bit depth above 8")]
     for s, p, why in cases:
         reason = h264.Decoder(4, [s, p]).unsupported()
@@ -374,13 +385,16 @@ def test_parameter_set_refusals_name_the_feature():
 
 def test_avc3_first_sample_parameter_sets_decide(tmp_path, monkeypatch):
     """An avc3 track whose avcC holds no parameter sets is judged by those
-    of its first sample: the High file stays unopened with its profile and
-    CABAC named, the Baseline one opens and reads cv2's frames. A CABAC PPS
-    inside a later sample stops the reader as unsupported, not damaged."""
+    of its first sample: the MBAFF file stays unopened with its profile and
+    feature named, the High and Baseline ones open and read cv2's frames. An
+    MBAFF SPS inside a later sample stops the reader as unsupported, not
+    damaged."""
     from real_time_video_deepfake_detection_tpu_torch.utils import video
     demux = mp4.demux
-    with open(_path("torch_mp4/high_160x96.mp4"), "rb") as fh:
-        high_params = demux(fh.read()).avc
+    with open(_path("torch_h264_high/hi_mbaff_160x96.mp4"), "rb") as fh:
+        mbaff_params = demux(fh.read()).avc
+    with open(os.path.join(DATA, "torch_h264_high", "digests.json")) as fh:
+        high_read = json.load(fh)["files"]["torch_mp4/high_160x96.mp4"]["read"]
 
     def avc3_file(src, name, extra=None):
         """src's bytes with its first sample (the parameter sets in front)
@@ -405,17 +419,19 @@ def test_avc3_first_sample_parameter_sets_decide(tmp_path, monkeypatch):
                                    avc=dataclasses.replace(track.avc, sps=[], pps=[]))
         return str(path), fake
 
-    for src, name, extra in (("torch_mp4/high_160x96.mp4", "high.mp4", None),
+    for src, name, extra in (("torch_h264_high/hi_mbaff_160x96.mp4", "mbaff.mp4", None),
+                             ("torch_mp4/high_160x96.mp4", "high.mp4", None),
                              ("torch_mp4/baseline_160x96.mp4", "base.mp4", None),
                              ("torch_mp4/baseline_160x96.mp4", "mixed.mp4",
-                              (3, high_params.sps + high_params.pps))):
+                              (3, mbaff_params.sps + mbaff_params.pps))):
         path, fake = avc3_file(src, name, extra)
         monkeypatch.setattr(video.mp4, "demux", lambda data, fake=fake: fake)
         r = VideoReader(path)
-        if name == "high.mp4":
+        if name == "mbaff.mp4":
             assert not r.is_opened() and r.read() == (False, None)
-            assert re.search(r"High profile \(profile_idc 100\) with CABAC", r.reason), r.reason
-            assert "48 frames" in r.reason
+            assert re.search(r"High profile \(profile_idc 100\) with field or MBAFF", r.reason), \
+                r.reason
+            assert "6 frames" in r.reason
             continue
         assert r.is_opened(), r.reason
         got = []
@@ -425,12 +441,14 @@ def test_avc3_first_sample_parameter_sets_decide(tmp_path, monkeypatch):
                 break
             got.append(_digest(frame))
         want = DIGESTS["torch_mp4/baseline_160x96.mp4"]["read"]
-        if name == "base.mp4":
+        if name == "high.mp4":
+            assert got == high_read and r.reason == ""
+        elif name == "base.mp4":
             assert got == want and r.reason == ""
         else:
             assert got == want[:3], len(got)
             assert r.reason.startswith("unsupported H.264 stream: High profile (profile_idc 100) "
-                                       "with CABAC"), r.reason
+                                       "with field or MBAFF"), r.reason
 
 
 # ------------------------------------------------------- hand-built streams

@@ -56,15 +56,20 @@ WRITE_C = r"""
 #include <libavcodec/avcodec.h>
 #include <libavformat/avformat.h>
 #include <libavutil/opt.h>
-/* h264write OUT YUV W H FRAMES FPS PARAMS COLOR: the FRAMES yuv420p frames
-   of the raw file YUV encoded by libx264 (profile baseline, preset medium,
-   x264-params PARAMS) and muxed as mp4. COLOR: "-", "bt709" (primaries,
-   transfer and matrix BT.709, limited range) or "full" (BT.601, full
-   range). */
+/* h264write OUT YUV W H FRAMES FPS PARAMS COLOR [PROFILE [PIXFMT]]: the
+   FRAMES frames of the raw file YUV (yuv420p, or PIXFMT "yuv422p")
+   encoded by libx264 (profile PROFILE, baseline by default, preset medium,
+   x264-params PARAMS) and muxed as mp4. FPS: "NUM" or "NUM/DEN". COLOR:
+   "-", "bt709" (primaries, transfer and matrix BT.709, limited range) or
+   "full" (BT.601, full range). B-frames are left to the preset and PARAMS
+   except in baseline. */
 int main(int argc, char** argv) {
-  if (argc != 9) return 2;
+  if (argc < 9 || argc > 11) return 2;
   const char *out = argv[1], *yuv = argv[2], *params = argv[7], *color = argv[8];
-  int w = atoi(argv[3]), h = atoi(argv[4]), n = atoi(argv[5]), fps = atoi(argv[6]);
+  const char *profile = argc > 9 ? argv[9] : "baseline";
+  int p422 = argc > 10 && !strcmp(argv[10], "yuv422p");
+  int w = atoi(argv[3]), h = atoi(argv[4]), n = atoi(argv[5]), fps = atoi(argv[6]), den = 1;
+  if (strchr(argv[6], '/')) den = atoi(strchr(argv[6], '/') + 1);
   FILE* in = fopen(yuv, "rb");
   if (!in) return 3;
   AVFormatContext* oc = NULL;
@@ -75,10 +80,10 @@ int main(int argc, char** argv) {
   AVCodecContext* c = avcodec_alloc_context3(codec);
   c->width = w;
   c->height = h;
-  c->time_base = (AVRational){1, fps};
-  c->framerate = (AVRational){fps, 1};
-  c->pix_fmt = AV_PIX_FMT_YUV420P;
-  c->max_b_frames = 0;
+  c->time_base = (AVRational){den, fps};
+  c->framerate = (AVRational){fps, den};
+  c->pix_fmt = p422 ? AV_PIX_FMT_YUV422P : AV_PIX_FMT_YUV420P;
+  c->max_b_frames = strcmp(profile, "baseline") ? -1 : 0;
   c->thread_count = 1;
   if (!strcmp(color, "bt709")) {
     c->color_primaries = AVCOL_PRI_BT709;
@@ -91,7 +96,7 @@ int main(int argc, char** argv) {
     c->colorspace = AVCOL_SPC_SMPTE170M;
     c->color_range = AVCOL_RANGE_JPEG;
   }
-  av_opt_set(c->priv_data, "profile", "baseline", 0);
+  av_opt_set(c->priv_data, "profile", profile, 0);
   av_opt_set(c->priv_data, "preset", "medium", 0);
   av_opt_set(c->priv_data, "x264-params", params, 0);
   if (oc->oformat->flags & AVFMT_GLOBALHEADER) c->flags |= AV_CODEC_FLAG_GLOBAL_HEADER;
@@ -111,7 +116,7 @@ int main(int argc, char** argv) {
     if (i < n) {
       av_frame_make_writable(f);
       for (int p = 0; p < 3; ++p) {
-        int pw = p ? w / 2 : w, ph = p ? h / 2 : h;
+        int pw = p ? w / 2 : w, ph = p && !p422 ? h / 2 : h;
         for (int y = 0; y < ph; ++y)
           if (fread(f->data[p] + y * f->linesize[p], 1, pw, in) != (size_t)pw) return 9;
       }
