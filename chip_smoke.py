@@ -228,7 +228,14 @@ in phases, each printing one JSON line:
               the launches of every kernel counted from 0, and one
               bucket-8 detect tick of its frames on the card against the
               CPU (1e-4); cli/analyze.main on the mp4, single (24 frames)
-              and batched over three mp4s
+              and batched over three mp4s; MPEG-4 Part 2 (mp4v) in
+              (utils/mpeg4.py, csrc/mpeg4.cpp on the host): every fixture
+              of tests/data/torch_mpeg4 and the torch_mp4 mp4v file read
+              and seeked at every i against cv2's digests, the Xvid, GMC
+              and interlaced files refused by name, host ms a frame of the
+              cv2-written 640x360 and 1920x1080 files, and the 640x360 one
+              through the same engine (each kernel launched once a tick)
+              with its bucket-8 tick against the CPU (1e-4)
  19. final    the last modules: (a) TemporalHead.forward_blockwise at the
               config-5 head's width (768 features, dim 256, depth 2, 4
               heads, window 64) over 4 streams x 4,096 frames, block 63,
@@ -4162,8 +4169,7 @@ def _mp4_demux():
                 cv["frame_count"], cv["fps"]):
             raise AssertionError(f"mp4 {name}: the sample table or the counts differ")
         reason = VideoReader(path).reason
-        want_reason = ("" if track.codec == "avc1" else "decode is not ported")
-        if (want_reason not in reason) if want_reason else reason:
+        if reason:   # avc1 and mp4v open (tests/data/torch_mpeg4 for mp4v)
             raise AssertionError(f"mp4 {name}: VideoReader says {reason!r}")
         t = []
         for _ in range(20):
@@ -4179,7 +4185,13 @@ def _mp4_demux():
 
 H264_DIR = os.path.join(REPO, "tests", "data", "torch_h264")
 H264_HIGH_DIR = os.path.join(REPO, "tests", "data", "torch_h264_high")
+MPEG4_DIR = os.path.join(REPO, "tests", "data", "torch_mpeg4")
 MP4_CLIP = os.path.join(H264_HIGH_DIR, "hi_640x360.mp4")   # x264's High defaults
+MP4V_CLIP = os.path.join(MPEG4_DIR, "cv2_640x360.mp4")     # cv2.VideoWriter's mp4v
+# the feature each refused fixture is named by
+REFUSED_WHY = {"hi_mbaff_160x96.mp4": "MBAFF", "hi422_160x96.mp4": "4:2:2 chroma",
+               "xvid_160x96.mp4": "Xvid", "xvid_gmc_160x96.mp4": "GMC",
+               "interlaced_160x96.mp4": "interlaced coding"}
 # the High files whose every seek is held (B-pyramid, temporal direct, open GOP)
 HIGH_SWEPT = ("hi_640x360.mp4", "hi_temporal_320x180.mp4", "hi_opengop_256x144.mp4")
 
@@ -4190,18 +4202,18 @@ def _h264_path(key: str, root: str = H264_DIR) -> str:
 
 
 def _mp4_fixtures():
-    """(g) every H.264 fixture (tests/data/torch_h264 and torch_h264_high,
-    and the torch_mp4 files) read by VideoReader sequentially and after
-    seek(i) from 0 to the frame count, each on a fresh reader: every i on
-    the Baseline files and HIGH_SWEPT, i = 0, the middle and the end on the
-    other High files; every frame's sha256 and shape against the committed
-    digests of cv2.VideoCapture's frames (digests.json). The High refusal
-    files stay unopened, their feature named. The files are checked on a
-    thread each."""
+    """(g) every H.264 and MPEG-4 Part 2 fixture (tests/data/torch_h264,
+    torch_h264_high and torch_mpeg4, and the torch_mp4 files) read by
+    VideoReader sequentially and after seek(i) from 0 to the frame count,
+    each on a fresh reader: every i on the Baseline and mp4v files and
+    HIGH_SWEPT, i = 0, the middle and the end on the other High files; every
+    frame's sha256 and shape against the committed digests of
+    cv2.VideoCapture's frames (digests.json). The refusal files stay
+    unopened, their feature named. The files are checked on a thread each."""
     import numpy as np
     from real_time_video_deepfake_detection_tpu_torch.utils.video import VideoReader
     records = {}
-    for root in (H264_DIR, H264_HIGH_DIR):
+    for root in (H264_DIR, H264_HIGH_DIR, MPEG4_DIR):
         with open(os.path.join(root, "digests.json")) as fh:
             records.update({(root, k): r for k, r in json.load(fh)["files"].items()})
 
@@ -4215,7 +4227,7 @@ def _mp4_fixtures():
         path = _h264_path(key, root)
         r = VideoReader(path)
         if rec.get("refused"):
-            why = "MBAFF" if "mbaff" in key else "4:2:2 chroma"
+            why = REFUSED_WHY[key]
             if r.is_opened() or why not in r.reason:
                 raise AssertionError(f"mp4 {key}: not refused by name: {r.reason}")
             return key, {"refused": r.reason}
@@ -4233,7 +4245,7 @@ def _mp4_fixtures():
             raise AssertionError(f"mp4 {key}: read {len(seq)} frames of {len(rec['read'])}, "
                                  f"frame {bad} differs from cv2's")
         n = len(rec["seek"])
-        swept = root == H264_DIR or key in HIGH_SWEPT or key.startswith("torch_mp4/")
+        swept = root != H264_HIGH_DIR or key in HIGH_SWEPT or key.startswith("torch_mp4/")
         seeks = range(n) if swept else sorted({0, n // 2, n - 1})
         for i in seeks:
             r = VideoReader(path)
@@ -4253,15 +4265,17 @@ def _mp4_fixtures():
 
 def _mp4_decode_ms():
     """Host ms per frame of the Baseline and High 640x360 and 1920x1080
-    clips: VideoReader.read (decode and BGR conversion), the decode alone
-    (utils/h264.Decoder) and the conversion alone; the mean of one pass
-    over the clip."""
+    clips and of the cv2-written mp4v 640x360 and 1920x1080 files:
+    VideoReader.read (decode and BGR conversion), the decode alone
+    (utils/h264.Decoder, utils/mpeg4.Decoder) and the conversion alone; the
+    mean of one pass over the clip."""
     import numpy as np
-    from real_time_video_deepfake_detection_tpu_torch.utils import h264, mp4
+    from real_time_video_deepfake_detection_tpu_torch.utils import h264, mp4, mpeg4
     from real_time_video_deepfake_detection_tpu_torch.utils.video import VideoReader
     out = {}
     for root, name in ((H264_DIR, "cb_640x360.mp4"), (H264_DIR, "cb_1920x1080.mp4"),
-                       (H264_HIGH_DIR, "hi_640x360.mp4"), (H264_HIGH_DIR, "hi_1920x1080.mp4")):
+                       (H264_HIGH_DIR, "hi_640x360.mp4"), (H264_HIGH_DIR, "hi_1920x1080.mp4"),
+                       (MPEG4_DIR, "cv2_640x360.mp4"), (MPEG4_DIR, "cv2_1920x1080.mp4")):
         path = os.path.join(root, name)
         with open(path, "rb") as fh:
             data = fh.read()
@@ -4271,7 +4285,10 @@ def _mp4_decode_ms():
         while r.read()[0]:
             n += 1
         read = (time.perf_counter() - t0) * 1e3 / n
-        d = h264.Decoder(track.avc.nal_length_size, track.avc.sps + track.avc.pps)
+        if track.codec == "mp4v":
+            d = mpeg4.Decoder(track.decoder_config)
+        else:
+            d = h264.Decoder(track.avc.nal_length_size, track.avc.sps + track.avc.pps)
         planes, t0 = [], time.perf_counter()
         for i in range(len(track.sizes)):
             off = int(track.offsets[i])
@@ -4283,19 +4300,21 @@ def _mp4_decode_ms():
         for y, u, v in planes:
             h264.yuv420_to_bgr(y, u, v)
         conv = (time.perf_counter() - t0) * 1e3 / len(planes)
-        out[name] = {"frames_read": n, "size": [int(track.height), int(track.width)],
+        out[name] = {"codec": track.codec, "frames_read": n,
+                     "size": [int(track.height), int(track.width)],
                      "read_ms_per_frame": read, "decode_ms_per_frame": dec,
                      "convert_ms_per_frame": conv, "read_fps": 1e3 / read}
     return out
 
 
-def _mp4_engine(ctx):
-    """The High 640x360 clip through MultiStreamEngine on the card in
-    device-detect mode (_detect_cfg: the preprocess, hue and both CLAHE
-    kernels; the synthetic SSD; full-size B0): VideoReader's frames into
-    engine.analyze, the launches counted from 0; then one bucket-8 detect
-    tick of the clip's first frames on the card against the same tick on
-    the CPU."""
+def _mp4_engine(ctx, clip=MP4_CLIP, n_frames=47, need_face=True):
+    """A clip (the High 640x360 one, or the cv2-written mp4v 640x360 one)
+    through MultiStreamEngine on the card in device-detect mode
+    (_detect_cfg: the preprocess, hue and both CLAHE kernels; the synthetic
+    SSD; full-size B0): VideoReader's frames into engine.analyze, one tick
+    each, the launches counted from 0 and each kernel's held to the ticks;
+    then one bucket-8 detect tick of the clip's first frames on the card
+    against the same tick on the CPU."""
     import numpy as np
     import torch
     from real_time_video_deepfake_detection_tpu_torch.core.config import ServerConfig
@@ -4314,7 +4333,7 @@ def _mp4_engine(ctx):
     _reset_launches()
     t0 = time.time()
     try:
-        reader, frames = VideoReader(MP4_CLIP), []
+        reader, frames = VideoReader(clip), []
         while True:
             ok, frame = reader.read()
             if not ok:
@@ -4322,21 +4341,23 @@ def _mp4_engine(ctx):
             frames.append(engine.analyze(frame, "mp4"))
         wall = time.time() - t0
         launches = _read_launches()
+        ticks = engine.metrics["ticks"]
     finally:
         engine.shutdown()
     bad = [r for r in frames if not r.get("success") or _SCHEMA - set(r)]
     faces = sum(r.get("analysis_mode") == "face+frame" for r in frames)
-    if bad or len(frames) != 47 or not faces:
+    if bad or len(frames) != n_frames or (need_face and not faces):
         raise AssertionError(f"mp4 engine: {len(frames)} responses, {len(bad)} bad, "
                              f"{faces} with a face")
-    if not all(n > 0 for n in launches.values()):
-        raise AssertionError(f"mp4 engine: a kernel was not launched: {launches}")
+    if not all(n == ticks for n in launches.values()):
+        raise AssertionError(f"mp4 engine: kernels not launched once a tick ({ticks}): "
+                             f"{launches}")
     # one tick on the card against the CPU
-    reader, clip = VideoReader(MP4_CLIP), []
+    reader, frames8 = VideoReader(clip), []
     for _ in range(8):
-        clip.append(reader.read()[1])
-    b = len(clip)
-    xs = [torch.from_numpy(np.stack(clip)), torch.ones(b, dtype=torch.bool),
+        frames8.append(reader.read()[1])
+    b = len(frames8)
+    xs = [torch.from_numpy(np.stack(frames8)), torch.ones(b, dtype=torch.bool),
           torch.arange(b, dtype=torch.int32)]
     outs = {}
     for d in ("cpu", "cuda"):
@@ -4358,8 +4379,9 @@ def _mp4_engine(ctx):
                 raise AssertionError(f"mp4 tick {k}: max abs diff {diff} > 1e-4")
         elif not torch.equal(a, g):
             raise AssertionError(f"mp4 tick {k}: {int((a != g).sum())} integers differ")
-    return {"frames": len(frames), "frames_with_face": faces,
-            "launches": launches, "wall_s": wall, "frames_per_s": len(frames) / wall,
+    return {"clip": os.path.relpath(clip, REPO), "frames": len(frames), "frames_with_face": faces,
+            "launches": launches, "ticks": ticks, "wall_s": wall,
+            "frames_per_s": len(frames) / wall,
             "engine_metrics": engine.metrics,
             "tick_bucket": b, "tick_faces": int(out_c["has_face"].sum()),
             "tick_max_float_diff_vs_cpu": worst, "tolerance": 1e-4}
@@ -4402,22 +4424,27 @@ def _mp4_analyze(root: str, weights: str):
 
 
 def _mp4_decode(ctx, root: str, weights: str):
-    """(g) H.264 mp4 in: the Baseline and High fixtures against cv2's
-    digests, the host decode ms per frame at 640x360 and 1920x1080 of both,
-    the High 640x360 clip through the device-detect engine (every kernel
-    launched) with one tick against the CPU, and cli/analyze on mp4s,
-    single and batched."""
+    """(g) H.264 and MPEG-4 Part 2 mp4 in: the Baseline, High and mp4v
+    fixtures against cv2's digests, the host decode ms per frame at 640x360
+    and 1920x1080 of each, the High 640x360 clip and the cv2-written mp4v
+    640x360 file through the device-detect engine (every kernel launched
+    once a tick) with one tick each against the CPU, and cli/analyze on
+    mp4s, single and batched."""
     engine = _mp4_engine(ctx)
+    t0 = time.time()
+    engine_mp4v = _mp4_engine(ctx, MP4V_CLIP, 12, need_face=False)
+    engine_mp4v["part_s"] = time.time() - t0
     ctx["mp4_launches"] = engine["launches"]
+    ctx["mp4v_launches"] = engine_mp4v["launches"]
     return {"fixtures": _mp4_fixtures(), "decode_ms": _mp4_decode_ms(), "engine": engine,
-            "analyze": _mp4_analyze(root, weights)}
+            "engine_mp4v": engine_mp4v, "analyze": _mp4_analyze(root, weights)}
 
 
 def phase_video(ctx):
     """Video in: (a) the Motion-JPEG writer and reader, (b) the single-video
     analyzer card against CPU, (c) the batched analyzer over 4 videos, (d)
     the clip-head trainer's CLI, (e) the face pre-extraction, (f) the mp4
-    demuxer, (g) H.264 mp4 decode."""
+    demuxer, (g) H.264 and MPEG-4 Part 2 mp4 decode."""
     import torch
     from real_time_video_deepfake_detection_tpu_torch.train.checkpoint import save_checkpoint
     os.environ["HAARCASCADE_DIR"] = HAAR_DIR
@@ -5227,7 +5254,9 @@ def main() -> int:
                                                         "launches_formats":
                                                         ctx["formats_launches"][k],
                                                         "launches_mp4":
-                                                        ctx["mp4_launches"][k]}
+                                                        ctx["mp4_launches"][k],
+                                                        "launches_mp4v":
+                                                        ctx["mp4v_launches"][k]}
             | {key: v[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")})
     emit({"kernels": kernels, "card": ctx["smi"]})

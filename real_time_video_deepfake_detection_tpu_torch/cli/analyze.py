@@ -12,12 +12,14 @@ JSON summary holds the per-video verdicts.
 
 Stated differences from the JAX CLI: videos are read with utils/video.py,
 which opens H.264 mp4 / mov (Constrained Baseline, Main and High,
-progressive 8-bit 4:2:0: cv2's frames, byte for byte) and Motion-JPEG AVI
-only: an interlaced, 4:2:2 / 4:4:4 or high-bit-depth H.264 video, an mp4v
+progressive 8-bit 4:2:0), MPEG-4 Part 2 mp4 / mov as FFmpeg's mpeg4
+encoder writes it (the JAX CLI's own --output among them) and Motion-JPEG
+AVI, with cv2's frames byte for byte: an interlaced, 4:2:2 / 4:4:4 or
+high-bit-depth H.264 video, an Xvid- or DivX-written or interlaced mp4v
 one and a camera index are refused with the reason, where the JAX CLI
-reads whatever cv2's FFmpeg backend reads; a damaged slice ends a video where FFmpeg conceals
-it; `--output` writes a Motion-JPEG AVI (quality 95) where the JAX CLI
-writes mp4v; the overlay's text is cv2 4.x's Hershey font
+reads whatever cv2's FFmpeg backend reads; a damaged slice or VOP ends a
+video where FFmpeg conceals it; `--output` writes a Motion-JPEG AVI
+(quality 95) where the JAX CLI writes mp4v; the overlay's text is cv2 4.x's Hershey font
 (pipeline/detector.py).
 """
 

@@ -13,10 +13,11 @@ cv2.imwrite writes them at quality 95 (utils/jpeg_encode).
         --videos dataset/videos --output dataset/faces [--device cuda]
 
 Stated differences: the port reads H.264 mp4 (Constrained Baseline, Main
-and High, as DFDC's and FaceForensics++'s x264 files are) and Motion-JPEG
-AVI (utils/video.py, by content: an AVI named .mp4 opens), so an
-interlaced, 4:2:2 / 4:4:4 or high-bit-depth H.264 video or another codec is
-skipped as unreadable where cv2 reads it; frames are the ones
+and High, as DFDC's and FaceForensics++'s x264 files are), MPEG-4 Part 2
+mp4 as FFmpeg's mpeg4 encoder writes it (cv2.VideoWriter's mp4v) and
+Motion-JPEG AVI (utils/video.py, by content: an AVI named .mp4 opens), so an
+interlaced, 4:2:2 / 4:4:4 or high-bit-depth H.264 video, an Xvid-written
+mp4v one or another codec is skipped as unreadable where cv2 reads it; frames are the ones
 cv2.VideoCapture returns, seeks landing
 where cv2's land; `--device` places the SSD rung when --ssd-weights is
 given.

@@ -14,9 +14,10 @@ order of a numpy permutation seeded with 0, as in the JAX package.
     save_head(head, "clip_head.pt")   # serve: --batched --clip-window T --clip-head
 
 Or the operator path over labeled videos (`<root>/{train[,val]}/{real,fake}/`,
-H.264 mp4 / mov (Constrained Baseline, Main, High) or Motion-JPEG AVI, read
-by utils/video.py with cv2's frames and cv2's seek landing; the JAX CLI
-reads any video cv2 reads, interlaced and 4:2:2 ones too):
+H.264 mp4 / mov (Constrained Baseline, Main, High), MPEG-4 Part 2 mp4 / mov
+as FFmpeg's mpeg4 encoder writes it, or Motion-JPEG AVI, read by
+utils/video.py with cv2's frames and cv2's seek landing; the JAX CLI reads
+any video cv2 reads, interlaced, 4:2:2 and Xvid ones too):
 
     python -m real_time_video_deepfake_detection_tpu_torch.train.clip_head \
         --videos root --clip-window 16 --backbone-weights best_model.pt \

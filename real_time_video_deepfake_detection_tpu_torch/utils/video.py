@@ -4,10 +4,14 @@ train/clip_head.py, data_tools/face_extract.py). `VideoReader` goes by a
 file's content, not its name.
 
 H.264 mp4 / mov (an avc1 or avc3 track, Constrained Baseline, Main or
-High: CAVLC or CABAC, I, P and B slices, progressive 8-bit 4:2:0):
-demuxed by utils/mp4.py and decoded by utils/h264.py, whose
-frames equal cv2.VideoCapture(path)'s (its FFmpeg backend) byte for byte,
-in cv2's order and number: a sample libavformat flags discarded (past the
+High: CAVLC or CABAC, I, P and B slices, progressive 8-bit 4:2:0) and
+MPEG-4 Part 2 mp4 / mov (an mp4v track FFmpeg's mpeg4 encoder wrote:
+cv2.VideoWriter's 'mp4v', the JAX analyzer's --output; Simple and Advanced
+Simple, B-VOPs, quarter-pel, MPEG quantisation, video packets and data
+partitioning): demuxed by utils/mp4.py and decoded by utils/h264.py or
+utils/mpeg4.py, whose frames equal cv2.VideoCapture(path)'s (its FFmpeg
+backend) byte for byte, in cv2's order and number (a not-coded VOP gives
+no frame): a sample libavformat flags discarded (past the
 edit list) is decoded as a reference and not returned, so `frame_count`
 (CAP_PROP_FRAME_COUNT) can exceed the frames read. `seek(i)` lands where
 cv2 5.0's set(CAP_PROP_POS_FRAMES, i) lands, which is not always frame i:
@@ -18,12 +22,15 @@ where the average frame rate differs from the frame spacing (an edit list
 that ends at the last sample's time), later seeks return frame i - 1; on
 a B-frame file (whose dts start below zero) libavformat's seek subtracts
 that shift from its target once more (mov_seek_stream's
-min_corrected_pts), and so does this one. Refused with a reason that
-names the profile and feature (field or MBAFF coding, 4:2:2, 4:4:4 or
-4:0:0 chroma, more than 8 bits...) or the codec (mp4v, H.265...) and the
-frame count; an avc3 track is judged by the parameter sets of its first
-sample. A damaged slice stops the reader (read() gives (False, None) and
-`reason` says where); FFmpeg conceals the damage and reads on.
+min_corrected_pts), and so does this one; after a seek, B-VOPs whose
+forward reference is missing are dropped as FFmpeg drops them. Refused
+with a reason that names the profile and feature (field or MBAFF coding,
+4:2:2, 4:4:4 or 4:0:0 chroma, more than 8 bits; an mp4v stream written by
+Xvid or DivX, GMC, interlaced coding, the short video header...) or the
+codec (H.265...) and the frame count; an avc3 track is judged by the
+parameter sets of its first sample, an mp4v track by its esds and first
+sample. A damaged slice or VOP stops the reader (read() gives (False,
+None) and `reason` says where); FFmpeg conceals the damage and reads on.
 
 Motion-JPEG AVI (a RIFF 'AVI ' file whose video stream is MJPG): each
 frame decoded by the port's JPEG decoder (utils/jpeg_ingest.decode_jpeg),
@@ -51,11 +58,13 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from . import h264, mp4
+from . import h264, mp4, mpeg4
 from .jpeg_encode import encode_jpeg, standard_dht
 from .jpeg_ingest import decode_jpeg
 
-FORMATS = ("H.264 mp4 / mov (Constrained Baseline, Main and High: progressive 8-bit 4:2:0), and "
+FORMATS = ("H.264 mp4 / mov (Constrained Baseline, Main and High: progressive 8-bit 4:2:0), "
+           "MPEG-4 Part 2 mp4 / mov (mp4v as FFmpeg's mpeg4 encoder writes it: Simple and "
+           "Advanced Simple, progressive), and "
            "Motion-JPEG AVI (RIFF 'AVI ' with an MJPG video stream)")
 QUALITY = 95   # of the frames VideoWriter encodes, as the JAX package's crops
 
@@ -87,15 +96,15 @@ _INT_MAX = 2 ** 31 - 1
 _INDEX_KEYFRAME, _INDEX_DISCARD = 1, 2
 
 
-class _H264Track:
-    """An H.264 track read as cv2 5.0's FFmpeg backend reads it: grab()
-    decodes packets until a picture comes out (CvCapture_FFMPEG::grabFrame),
-    seek() is CvCapture_FFMPEG::seek over libavformat's backward keyframe
-    seek (ff_index_search_timestamp on the samples' dts)."""
+class _Mp4Track:
+    """An mp4 track read as cv2 5.0's FFmpeg backend reads it, whatever its
+    codec: grab() decodes packets until a picture comes out
+    (CvCapture_FFMPEG::grabFrame), seek() is CvCapture_FFMPEG::seek over
+    libavformat's backward keyframe seek (ff_index_search_timestamp on the
+    samples' dts). `decoder` is an h264.Decoder or an mpeg4.Decoder."""
 
-    def __init__(self, data: bytes, track: mp4.VideoTrack):
-        self.data, self.track = data, track
-        self.decoder = h264.Decoder(track.avc.nal_length_size, track.avc.sps + track.avc.pps)
+    def __init__(self, data: bytes, track: mp4.VideoTrack, decoder):
+        self.data, self.track, self.decoder = data, track, decoder
         self.time_base = 1 / track.timescale   # r2d(time_base)
         kept = track.pts[~track.discard] if track.discard.any() else track.pts
         self.start_time = int(kept.min()) if len(kept) else 0
@@ -131,7 +140,7 @@ class _H264Track:
             self.eof = True
             self.decoder.drain()
             return True
-        except h264.H264Error as e:
+        except (h264.H264Error, mpeg4.Mpeg4Error) as e:
             self.error = str(e)
             return False
 
@@ -223,11 +232,11 @@ class _H264Track:
 
 
 class VideoReader:
-    """Frames of an H.264 mp4 / mov (Constrained Baseline, Main, High), as
-    cv2.VideoCapture(path) reads them, or of a Motion-JPEG AVI, as
-    cv2.VideoCapture(path, CAP_OPENCV_MJPEG) reads them: `read()` -> (ok,
-    (H, W, 3) u8 BGR or None), `seek(i)` (CAP_PROP_POS_FRAMES),
-    `frame_count`, `fps`."""
+    """Frames of an H.264 mp4 / mov (Constrained Baseline, Main, High) or an
+    MPEG-4 Part 2 one (mp4v), as cv2.VideoCapture(path) reads them, or of a
+    Motion-JPEG AVI, as cv2.VideoCapture(path, CAP_OPENCV_MJPEG) reads them:
+    `read()` -> (ok, (H, W, 3) u8 BGR or None), `seek(i)`
+    (CAP_PROP_POS_FRAMES), `frame_count`, `fps`."""
 
     def __init__(self, path):
         self.reason = ""
@@ -235,7 +244,7 @@ class VideoReader:
         self._frames: List[Tuple[int, int]] = []   # (offset, size) per frame
         self._pos = 0
         self._data = b""
-        self._h264: Optional[_H264Track] = None
+        self._mp4: Optional[_Mp4Track] = None
         if not isinstance(path, (str, os.PathLike)):
             self.reason = f"{path!r} is not a file path (camera capture is not supported)"
             return
@@ -250,7 +259,7 @@ class VideoReader:
         except (struct.error, ValueError, IndexError) as e:
             self.reason = f"malformed AVI: {e}"
         if self.reason:
-            self._frames, self._data, self._h264 = [], b"", None
+            self._frames, self._data, self._mp4 = [], b"", None
 
     def _parse(self) -> str:
         data = self._data
@@ -260,10 +269,13 @@ class VideoReader:
             except mp4.Mp4Error as e:
                 return f"unreadable mp4/mov: {e}"
             frames = f"{track.frame_count} frames"
+            if track.codec == "mp4v":
+                return self._open_mp4v(track, frames)
             if track.codec not in ("avc1", "avc3") or track.avc is None:
                 return (f"{track.codec_name} decode is not ported: {frames}; the port reads "
                         f"{FORMATS} only")
-            reader = _H264Track(data, track)
+            reader = _Mp4Track(data, track, h264.Decoder(track.avc.nal_length_size,
+                                                         track.avc.sps + track.avc.pps))
             probe = reader.decoder
             if not (track.avc.sps and track.avc.pps) and len(track.sizes):
                 # avc3: the parameter sets travel in the first sample
@@ -276,7 +288,7 @@ class VideoReader:
             why = probe.unsupported()
             if why:
                 return f"{track.codec_name}: {why}: {frames}; the port reads {FORMATS} only"
-            self._h264, self.fps = reader, track.fps
+            self._mp4, self.fps = reader, track.fps
             return ""
         if len(data) < 12 or data[:4] != b"RIFF" or data[8:12] != b"AVI ":
             return f"not an AVI file; the port reads {FORMATS} only"
@@ -307,6 +319,22 @@ class VideoReader:
                 if fcc == b"LIST" and data[loff:loff + 4] == b"movi":
                     frames += self._scan_movi(loff + 4, loff + lsize, tags)
         self._frames = frames
+        return ""
+
+    def _open_mp4v(self, track: mp4.VideoTrack, frames: str) -> str:
+        """An mp4v track: its esds headers and first sample judged, then
+        opened."""
+        first = b""
+        if len(track.sizes):
+            first = self._data[int(track.offsets[0]):int(track.offsets[0] + track.sizes[0])]
+        try:
+            decoder = mpeg4.Decoder(track.decoder_config, first)
+        except mpeg4.Mpeg4Error as e:
+            return f"{track.codec_name}: unreadable headers ({e}): {frames}"
+        why = decoder.unsupported()
+        if why:
+            return f"{track.codec_name}: {why}: {frames}; the port reads {FORMATS} only"
+        self._mp4, self.fps = _Mp4Track(self._data, track, decoder), track.fps
         return ""
 
     def _video_stream(self, off: int, size: int):
@@ -359,28 +387,29 @@ class VideoReader:
 
     def is_opened(self) -> bool:
         """Open, as cv2's isOpened(): an mp4 stopped at a damaged slice stays open."""
-        return not self.reason or self._h264 is not None
+        return not self.reason or self._mp4 is not None
 
     @property
     def frame_count(self) -> int:
-        if self._h264 is not None:
-            return self._h264.track.frame_count
+        if self._mp4 is not None:
+            return self._mp4.track.frame_count
         return len(self._frames)
 
     def seek(self, index: int) -> None:
         """Position the reader on frame `index`: exactly (clamped to the
         video) in an AVI, where cv2 lands in an mp4."""
-        if self._h264 is not None:
-            self._h264.seek(index)
+        if self._mp4 is not None:
+            self._mp4.seek(index)
             self._stopped()
             return
         self._pos = min(max(int(index), 0), len(self._frames))
 
     def _stopped(self) -> None:
-        if self._h264 is not None and self._h264.error and not self.reason:
-            # a parameter set inside a later sample may name what is not decoded
-            kind = "unsupported" if self._h264.decoder.unsupported() else "damaged"
-            self.reason = f"{kind} H.264 stream: {self._h264.error}"
+        if self._mp4 is not None and self._mp4.error and not self.reason:
+            # a parameter set or VOL inside a later sample may name what is not decoded
+            kind = "unsupported" if self._mp4.decoder.unsupported() else "damaged"
+            codec = "H.264" if self._mp4.track.codec != "mp4v" else "MPEG-4 Part 2"
+            self.reason = f"{kind} {codec} stream: {self._mp4.error}"
 
     def _next_jpeg(self) -> Optional[bytes]:
         """The next frame's JPEG bytes (the standard Huffman tables inserted
@@ -397,10 +426,10 @@ class VideoReader:
     def read(self) -> Tuple[bool, Optional[np.ndarray]]:
         """(True, frame) for the next frame; (False, None) past the end or
         for a frame the decoder refuses."""
-        if self._h264 is not None:
-            ok = self._h264.grab()
+        if self._mp4 is not None:
+            ok = self._mp4.grab()
             self._stopped()
-            return (True, self._h264.retrieve()) if ok else (False, None)
+            return (True, self._mp4.retrieve()) if ok else (False, None)
         jpeg = self._next_jpeg()
         if jpeg is None:
             return False, None
@@ -408,7 +437,7 @@ class VideoReader:
         return frame is not None, frame
 
     def release(self) -> None:
-        self._frames, self._data, self._pos, self._h264 = [], b"", 0, None
+        self._frames, self._data, self._pos, self._mp4 = [], b"", 0, None
 
 
 class VideoWriter:

@@ -293,12 +293,10 @@ def test_analyze_refusals(videos, tmp_path):
                         "--device", "cpu"])
     with pytest.raises(SystemExit, match="camera capture is not supported"):
         t_analyze.main(["0", "--device", "cpu"])
-    mp4 = str(tmp_path / "clip.mp4")
-    wr = cv2.VideoWriter(mp4, cv2.VideoWriter_fourcc(*"mp4v"), 10, (W, H))
-    wr.write(plain_frames(1)[0])
-    wr.release()
+    junk = tmp_path / "clip.mp4"   # no video: cv2.VideoWriter's mp4v files now open
+    junk.write_bytes(b"not a video at all" * 10)
     with pytest.raises(SystemExit, match="Motion-JPEG AVI"):
-        t_analyze.main([mp4, "--device", "cpu"])
+        t_analyze.main([str(junk), "--device", "cpu"])
     with pytest.raises(SystemExit, match="--weights"):
         t_analyze.main([videos["face"], "--weights", str(tmp_path / "none.npz"),
                         "--device", "cpu"])

@@ -15,7 +15,7 @@ system FFmpeg) and the Baseline file of tests/data/torch_mp4.
   from 0 to the frame count, against cv2.VideoCapture's (digests.json, and
   cv2 itself on the 160x96 file), with cv2's landing one frame early past
   frame 40 of the 25.53 fps files and its count of 47 reads of 48 frames;
-- the refusals: High mp4 and mov (CABAC), mp4v, a fragmented file, an
+- the refusals: High mp4 and mov (CABAC), interlaced mp4v, a fragmented file, an
   audio-only one, and a damaged slice, which stops the reader; an avc3
   track judged by the parameter sets of its first sample;
 - hand-built streams (tests/torch_h264_streams.py) that reach what x264
@@ -276,7 +276,7 @@ def test_cv2_lands_one_frame_early_past_frame_40():
      r"High profile \(profile_idc 100\) with field or MBAFF coding"),
     ("../torch_h264_high/hi422_160x96.mp4",
      r"High 4:2:2 profile \(profile_idc 122\) with 4:2:2 chroma"),
-    ("mp4v_160x96.mp4", r"MPEG-4 Part 2 \(mp4v\) decode is not ported"),
+    ("../torch_mpeg4/interlaced_160x96.mp4", r"MPEG-4 Part 2 \(mp4v\): interlaced coding"),
     ("fragmented_160x96.mp4", "fragmented"),
     ("audio_only.mp4", "no video track")])
 def test_refusals_name_the_profile_or_codec(name, why):

@@ -27,7 +27,8 @@ def test_every_port_module_imports_without_jax():
     p = port.__name__ + "."
     assert {p + "parallel.tensor_parallel", p + "ops.jpeg_scaled", p + "cli.fetch_weights",
             p + "data_tools.dfdc_download", p + "utils.image_decode", p + "utils.exif",
-            p + "utils.png", p + "utils.bmp", p + "utils.mp4", p + "utils.h264"} <= set(mods)
+            p + "utils.png", p + "utils.bmp", p + "utils.mp4", p + "utils.h264",
+            p + "utils.mpeg4"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "for blocked in ('jax', 'cv2', 'PIL', 'orbax', 'requests'):\n"
@@ -223,9 +224,10 @@ def test_image_decoders_decode_without_jax_cv2_or_pil():
 
 
 def test_jpeg_modes_and_mp4_demux_without_jax_cv2_or_pil():
-    """The arithmetic and lossless JPEG decodes and the mp4 demuxer
-    (utils/mp4, utils/video's reasons for the High and mp4v files) load
-    and run with jax, cv2 and PIL blocked."""
+    """The arithmetic and lossless JPEG decodes, the mp4 demuxer and the
+    H.264 and MPEG-4 Part 2 decoders (utils/mp4, utils/h264, utils/mpeg4
+    through utils/video.VideoReader on the High and mp4v files) load and run
+    with jax, cv2 and PIL blocked."""
     data = os.path.join(REPO, "tests", "data")
     code = (
         "import os, sys\n"
@@ -242,10 +244,7 @@ def test_jpeg_modes_and_mp4_demux_without_jax_cv2_or_pil():
         "    path = os.path.join(d, 'torch_mp4', name)\n"
         "    assert mp4.read(path).frame_count > 0, name\n"
         "    r = VideoReader(path)\n"
-        "    if 'high' in name:\n"
-        "        assert r.is_opened() and r.read()[1].shape == (96, 160, 3), r.reason\n"
-        "    else:\n"
-        "        assert 'decode is not ported' in r.reason, r.reason\n"
+        "    assert r.is_opened() and r.read()[1].shape == (96, 160, 3), r.reason\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cv2', 'PIL')\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n")

@@ -132,13 +132,21 @@ def test_a_frame_without_huffman_tables_decodes_like_imdecode(tmp_path):
 
 
 def test_what_does_not_open(tmp_path):
+    """A file that is no video, a missing file and a camera index stay
+    unopened; cv2.VideoWriter's mp4v mp4 (which the port once refused) now
+    opens and reads cv2's frames (tests/test_torch_mpeg4.py holds the rest)."""
     mp4 = str(tmp_path / "clip.mp4")
     wr = cv2.VideoWriter(mp4, cv2.VideoWriter_fourcc(*"mp4v"), 25, (64, 48))
     for f in moving_frames(3, 48, 64):
         wr.write(f)
     wr.release()
-    assert cv2.VideoCapture(mp4).isOpened()   # FFmpeg reads it; the port does not
-    for src, why in ((mp4, "Motion-JPEG AVI"), (str(tmp_path / "missing.avi"), "cannot read"),
+    cap = cv2.VideoCapture(mp4)
+    want = [cap.read()[1] for _ in range(3)]
+    got = read_all(VideoReader(mp4))
+    assert len(got) == 3 and all(np.array_equal(g, w) for g, w in zip(got, want))
+    junk = tmp_path / "junk.mp4"
+    junk.write_bytes(b"not a video at all" * 10)
+    for src, why in ((str(junk), "Motion-JPEG AVI"), (str(tmp_path / "missing.avi"), "cannot read"),
                      ("0", "cannot read"), (0, "camera capture")):
         r = VideoReader(src)
         assert not r.is_opened() and why in r.reason, (src, r.reason)
