@@ -190,14 +190,22 @@ in phases, each printing one JSON line:
               bytes and encode_jpeg(q95) frames with the photograph's face
               moving through it, read back frame for frame equal to
               decode_jpeg of what was written, seeks exact; encode ms of a
-              224x224 crop and of a frame, read ms per frame; (b)
-              cli/analyze.main on its first 16 frames with full-size B0
-              (backbone_state, saved as a port checkpoint), --gradcam
-              --output --json, on the card and on the CPU: verdicts, faces
-              and GradCAM boxes
-              equal, temporal averages within 1e-4, the annotated frames
-              equal outside the boxes wherever the labels are equal;
-              frames/s on the card; (c) cli/analyze.main over 4 such
+              224x224 crop and of a frame, read ms per frame; (a2) the
+              mp4v writer (utils/video.VideoWriter(path, "mp4v", ...)):
+              every case of tests/torch_mpeg4_scenes.CASES (numpy scenes
+              from a seed, frames decoded from committed mp4v files)
+              written in mp4 / mov / m4v / avi and held to the SHA-256 of
+              cv2.VideoWriter's file (tests/data/torch_mpeg4_writer); the
+              writer's ms per frame at 640x360 and 1920x1080; (b)
+              cli/analyze.main on its first 16 frames (.avi) and 8 (.mp4)
+              with full-size B0 (backbone_state, saved as a port
+              checkpoint), --gradcam --output --json, on the card and on
+              the CPU: verdicts, faces and GradCAM boxes equal, temporal
+              averages within 1e-4, the annotated frames equal outside the
+              boxes wherever the labels are equal; each --output file read
+              back by VideoReader: its frame count, fps and every frame
+              equal to the encoder's own reconstruction; frames/s on the
+              card; (c) cli/analyze.main over 4 such
               videos through the batched engine on the card: no error,
               max_batch_seen >= 2, frames/s; (d) train/clip_head.main on
               the card over train/{real,fake} x 4 and val/{real,fake} x 1
@@ -3854,7 +3862,7 @@ def _video_frames(n: int, seed: int):
 
 def _write_video(path: str, frames, fps: float = 25.0) -> None:
     from real_time_video_deepfake_detection_tpu_torch.utils.video import VideoWriter
-    wr = VideoWriter(path, fps, (640, 480))
+    wr = VideoWriter(path, "MJPG", fps, (640, 480))
     for data, _ in frames:
         wr.write_jpeg(data)
     wr.release()
@@ -3900,6 +3908,49 @@ def _video_io(root: str):
         "bytes_per_frame_480x640_q95": len(frames[1][0])}
 
 
+def _mp4v_writer(root: str):
+    """(a2) The mp4v writer against cv2's bytes: every case of
+    tests/torch_mpeg4_scenes.CASES written and its SHA-256 held to the
+    digest of cv2.VideoWriter's file; the writer's ms per frame (cv2's
+    conversion, the encode, the mux) at 640x360 and 1920x1080."""
+    import hashlib
+    from real_time_video_deepfake_detection_tpu_torch.utils.video import VideoWriter
+    from tests import torch_mpeg4_scenes as scenes
+    with open(os.path.join(MP4V_WRITER_DIR, "digests.json")) as fh:
+        ref = json.load(fh)["cases"]
+    if set(ref) != set(scenes.CASES):
+        raise AssertionError("video (a2): the digests name other cases than the scenes")
+    t0 = time.perf_counter()
+    for name in sorted(ref):
+        _, _, _, _, fps, ext = scenes.CASES[name]
+        frames = scenes.case_frames(name)
+        path = os.path.join(root, "writer" + ext)
+        wr = VideoWriter(path, "mp4v", fps, (frames[0].shape[1], frames[0].shape[0]))
+        for f in frames:
+            wr.write(f)
+        wr.release()
+        with open(path, "rb") as fh:
+            data = fh.read()
+        if hashlib.sha256(data).hexdigest() != ref[name]["sha256"]:
+            raise AssertionError(f"video (a2): {name}: {len(data)} bytes, not cv2's "
+                                 f"{ref[name]['bytes']}")
+    checked_s = time.perf_counter() - t0
+    ms = {}
+    for h, w, n in ((360, 640, 25), (1080, 1920, 13)):
+        frames = scenes.frames("pan", n, h, w)
+        wr = VideoWriter(os.path.join(root, "timed.mp4"), "mp4v", 25, (w, h))
+        t = []
+        for f in frames:
+            t1 = time.perf_counter()
+            wr.write(f)
+            t.append((time.perf_counter() - t1) * 1e3)
+        wr.release()
+        ms[f"{w}x{h}"] = {"frames": n, "mean_ms": statistics.mean(t), "i_vop_ms": t[0],
+                          "median_p_vop_ms": statistics.median(t[1:12])}
+    return {"cases_equal_to_cv2": len(ref), "cases_seconds": checked_s,
+            "writer_ms_per_frame": ms}
+
+
 @contextlib.contextmanager
 def _recording():
     """Records what cli/analyze draws and writes: the label strings
@@ -3909,7 +3960,7 @@ def _recording():
     from real_time_video_deepfake_detection_tpu_torch.ops import draw
     from real_time_video_deepfake_detection_tpu_torch.pipeline import detector
     from real_time_video_deepfake_detection_tpu_torch.utils import video
-    rec = {"texts": [], "boxes": [], "frames": []}
+    rec = {"texts": [], "boxes": [], "frames": [], "decoded": []}
     put_text, predict, write = draw.put_text, detector.DeepfakeDetector.predict, \
         video.VideoWriter.write
 
@@ -3926,6 +3977,7 @@ def _recording():
     def write_rec(self, frame):
         rec["frames"].append(frame.copy())
         write(self, frame)
+        rec["decoded"].append(self.reconstruction())
 
     draw.put_text, detector.DeepfakeDetector.predict, video.VideoWriter.write = \
         put_text_rec, predict_rec, write_rec
@@ -3938,22 +3990,41 @@ def _recording():
 
 def _analyze_single(root: str, path: str, weights: str):
     """(b) cli/analyze.main on the video's first SINGLE_FRAMES frames with
-    --gradcam --output --json, on the card and on the CPU."""
+    --gradcam --output .avi --json, on the card and on the CPU, and on its
+    first SINGLE_FRAMES // 2 with --output .mp4; each output read back."""
+    out = {}
+    for ext, frames in ((".avi", SINGLE_FRAMES), (".mp4", SINGLE_FRAMES // 2)):
+        out[ext] = _analyze_single_ext(root, path, weights, ext, frames)
+    out[".avi"]["step_ms_card"] = _predict_steps_ms(path, weights)
+    return out
+
+
+def _analyze_single_ext(root: str, path: str, weights: str, ext: str, n: int):
     import numpy as np
     from real_time_video_deepfake_detection_tpu_torch.cli import analyze
+    from real_time_video_deepfake_detection_tpu_torch.utils.video import VideoReader
     runs = {}
     for dev in ("cuda", "cpu"):
         out_json = os.path.join(root, f"single_{dev}.json")
+        output = os.path.join(root, f"single_{dev}{ext}")
         with _recording() as rec:
             t0 = time.perf_counter()
             analyze.main([path, "--weights", weights, "--gradcam", "--json", out_json,
-                          "--max-frames", str(SINGLE_FRAMES),
-                          "--output", os.path.join(root, f"single_{dev}.avi"), "--device", dev])
+                          "--max-frames", str(n), "--output", output, "--device", dev])
             seconds = time.perf_counter() - t0
         with open(out_json) as fh:
             runs[dev] = (json.load(fh), rec, seconds)
+        reader = VideoReader(output)
+        if reader.frame_count != n or reader.fps != 25.0 or len(rec["decoded"]) != n:
+            raise AssertionError(f"video (b) {ext} {dev}: {reader.reason} {reader.frame_count} "
+                                 f"frames at {reader.fps}")
+        for i, want in enumerate(rec["decoded"]):
+            ok, got = reader.read()
+            if not ok or not np.array_equal(got, want):
+                raise AssertionError(f"video (b) {ext} {dev}: frame {i} read back differs "
+                                     "from the encoder's reconstruction")
     (jg, rg, sg), (jc, rc, _) = runs["cuda"], runs["cpu"]
-    if len(jg["frames"]) != SINGLE_FRAMES or len(rg["frames"]) != SINGLE_FRAMES:
+    if len(jg["frames"]) != n or len(rg["frames"]) != n:
         raise AssertionError(f"video (b): {len(jg['frames'])} frames analyzed")
     worst, compared, gradcam_frames = 0.0, 0, 0
     for i, (a, b) in enumerate(zip(jg["frames"], jc["frames"])):
@@ -3974,31 +4045,33 @@ def _analyze_single(root: str, path: str, weights: str):
     if worst > 1e-4 or jg["summary"]["final_verdict"] != jc["summary"]["final_verdict"]:
         raise AssertionError(f"video (b): temporal averages {worst} apart, verdicts "
                              f"{jg['summary']['final_verdict']} {jc['summary']['final_verdict']}")
-    if gradcam_frames == 0 or compared < SINGLE_FRAMES // 2:
+    if gradcam_frames == 0 or compared < n // 2:
         raise AssertionError(f"video (b): {gradcam_frames} frames with a face, "
                              f"{compared} compared")
-    return {"frames": SINGLE_FRAMES, "frames_with_gradcam": gradcam_frames,
+    return {"frames": n, "frames_with_gradcam": gradcam_frames,
             "frames_compared_outside_boxes": compared, "temporal_average_max_abs_diff": worst,
             "final_verdict": jg["summary"]["final_verdict"],
             "faces_detected": sum(f["faces_detected"] for f in jg["frames"]),
-            "frames_per_s_card": SINGLE_FRAMES / sg, "seconds_card": sg,
-            "step_ms_card": _predict_steps_ms(path, weights)}
+            "frames_read_back_equal": 2 * n,
+            "frames_per_s_card": n / sg, "seconds_card": sg}
 
 
 def _predict_steps_ms(path: str, weights: str, n: int = 12):
     """Median host ms of each step of one analyzed frame on the card, each
     ending in a synchronize: the read, the forensics, the cascade, the face
-    (Lab, CLAHE, B0) with and without GradCAM, the overlay, the encode."""
+    (Lab, CLAHE, B0) with and without GradCAM, the overlay, the mp4v encode
+    of the annotated frame (utils/mpeg4.Encoder, as --output's writer)."""
     import torch
     from real_time_video_deepfake_detection_tpu_torch.core.config import DetectorConfig
     from real_time_video_deepfake_detection_tpu_torch.pipeline.detector import DeepfakeDetector
-    from real_time_video_deepfake_detection_tpu_torch.utils.jpeg_encode import encode_jpeg
+    from real_time_video_deepfake_detection_tpu_torch.utils import mpeg4
     from real_time_video_deepfake_detection_tpu_torch.utils.video import VideoReader
     from real_time_video_deepfake_detection_tpu_torch.utils.weights import load_params_any
     from real_time_video_deepfake_detection_tpu_torch.models import backbones
     det = DeepfakeDetector(DetectorConfig(), params=load_params_any(weights, backbones.make("b0")),
                            enable_gradcam=True, device="cuda")
     reader = VideoReader(path)
+    encoder = mpeg4.Encoder(640, 480, 1, 25, 2 * 25 * 640 * 480, True)
     steps = {k: [] for k in ("read", "forensics", "cascade", "face_gradcam", "face",
                              "predict_whole", "overlay", "encode")}
 
@@ -4024,7 +4097,7 @@ def _predict_steps_ms(path: str, weights: str, n: int = 12):
             det.enable_gradcam = True
         annotated = timed("predict_whole", lambda: det.predict(frame))[0]
         timed("overlay", lambda: det._draw_overlay(frame.copy(), 10, 40, 100, 120, 0.7, "FAKE"))
-        timed("encode", lambda: encode_jpeg(annotated, 95))
+        timed("encode", lambda: encoder.encode(annotated, i))
     return {k: statistics.median(v[2:]) for k, v in steps.items() if len(v) > 2}
 
 
@@ -4186,6 +4259,7 @@ def _mp4_demux():
 H264_DIR = os.path.join(REPO, "tests", "data", "torch_h264")
 H264_HIGH_DIR = os.path.join(REPO, "tests", "data", "torch_h264_high")
 MPEG4_DIR = os.path.join(REPO, "tests", "data", "torch_mpeg4")
+MP4V_WRITER_DIR = os.path.join(REPO, "tests", "data", "torch_mpeg4_writer")
 MP4_CLIP = os.path.join(H264_HIGH_DIR, "hi_640x360.mp4")   # x264's High defaults
 MP4V_CLIP = os.path.join(MPEG4_DIR, "cv2_640x360.mp4")     # cv2.VideoWriter's mp4v
 # the feature each refused fixture is named by
@@ -4441,8 +4515,9 @@ def _mp4_decode(ctx, root: str, weights: str):
 
 
 def phase_video(ctx):
-    """Video in: (a) the Motion-JPEG writer and reader, (b) the single-video
-    analyzer card against CPU, (c) the batched analyzer over 4 videos, (d)
+    """Video in and out: (a) the Motion-JPEG writer and reader, (a2) the
+    mp4v writer against cv2's digests, (b) the single-video analyzer card
+    against CPU with mp4v --output in AVI and mp4, (c) the batched analyzer over 4 videos, (d)
     the clip-head trainer's CLI, (e) the face pre-extraction, (f) the mp4
     demuxer, (g) H.264 and MPEG-4 Part 2 mp4 decode."""
     import torch
@@ -4455,7 +4530,8 @@ def phase_video(ctx):
         parts, times = {}, {}
         t0 = time.time()
         _, path, parts["io"] = _video_io(root)
-        for name, fn in (("single", lambda: _analyze_single(root, path, weights)),
+        for name, fn in (("mp4v_writer", lambda: _mp4v_writer(root)),
+                         ("single", lambda: _analyze_single(root, path, weights)),
                          ("multi", lambda: _analyze_multi(root, weights)),
                          ("clip_head", lambda: _clip_head_cli(ctx, root, weights)),
                          ("face_extract", lambda: _face_extract(ctx, root)),

@@ -3,24 +3,29 @@ writing an annotated video and a JSON verdict summary. Port of
 real_time_video_deepfake_detection_tpu/cli/analyze.py.
 
     python -m real_time_video_deepfake_detection_tpu_torch.cli.analyze video.mp4 \\
-        [--output annotated.avi] [--json out.json] [--gradcam] [--device cuda]
+        [--output annotated.mp4] [--json out.json] [--gradcam] [--device cuda]
 
 Given several videos it runs them batched through the MultiStreamEngine:
 each video is a stream, one reader thread per video, and frames of
 different videos share the device ticks as concurrent HTTP streams do; one
 JSON summary holds the per-video verdicts.
 
+`--output` writes what the JAX CLI's cv2.VideoWriter(path, 'mp4v', fps,
+size) writes, byte for byte: MPEG-4 Part 2 in the mp4, mov, m4v or AVI
+container the path's extension names (utils/video.VideoWriter).
+
 Stated differences from the JAX CLI: videos are read with utils/video.py,
 which opens H.264 mp4 / mov (Constrained Baseline, Main and High,
-progressive 8-bit 4:2:0), MPEG-4 Part 2 mp4 / mov as FFmpeg's mpeg4
+progressive 8-bit 4:2:0), MPEG-4 Part 2 mp4 / mov / AVI as FFmpeg's mpeg4
 encoder writes it (the JAX CLI's own --output among them) and Motion-JPEG
 AVI, with cv2's frames byte for byte: an interlaced, 4:2:2 / 4:4:4 or
 high-bit-depth H.264 video, an Xvid- or DivX-written or interlaced mp4v
 one and a camera index are refused with the reason, where the JAX CLI
 reads whatever cv2's FFmpeg backend reads; a damaged slice or VOP ends a
-video where FFmpeg conceals it; `--output` writes a Motion-JPEG AVI
-(quality 95) where the JAX CLI writes mp4v; the overlay's text is cv2 4.x's Hershey font
-(pipeline/detector.py).
+video where FFmpeg conceals it; an `--output` path ending in .mkv or .webm,
+or in no extension, is refused before any frame is read (cv2 writes a
+Matroska file no two writes of agree, or fails to open); the overlay's
+text is cv2 4.x's Hershey font (pipeline/detector.py).
 """
 
 from __future__ import annotations
@@ -153,7 +158,9 @@ def main(argv=None):
                    help=f"video path(s), {FORMATS}; more than one path runs them batched "
                         "through the multi-stream engine")
     p.add_argument("--output", default=None,
-                   help="annotated output video path (Motion-JPEG AVI, quality 95)")
+                   help="annotated output video path: MPEG-4 Part 2 (mp4v) in the container "
+                        "its extension names (.mp4, .mov, .m4v, .avi), as cv2.VideoWriter "
+                        "writes it")
     p.add_argument("--weights", default=None,
                    help="best_model.pth (reference), a JAX trainer .npz or the port's .pt")
     p.add_argument("--backbone", default="b0", choices=backbones.backbone_names(),
@@ -178,8 +185,13 @@ def main(argv=None):
 
     from ..core.config import DetectorConfig
     from ..pipeline.detector import DeepfakeDetector
-    from ..utils.video import VideoWriter
+    from ..utils.video import VideoWriter, mp4v_container
 
+    if args.output:
+        try:
+            mp4v_container(args.output)
+        except ValueError as e:
+            raise SystemExit(f"--output: {e}")
     reader = _open(args.input[0])
     spec = backbones.make(args.backbone)
     det = DeepfakeDetector(DetectorConfig().with_threshold(args.threshold),
@@ -202,7 +214,7 @@ def main(argv=None):
             if args.output:
                 if writer is None:
                     h, w = annotated.shape[:2]
-                    writer = VideoWriter(args.output, reader.fps or 30, (w, h))
+                    writer = VideoWriter(args.output, "mp4v", reader.fps or 30, (w, h))
                 writer.write(annotated)
             n += 1
             if args.max_frames and n >= args.max_frames:

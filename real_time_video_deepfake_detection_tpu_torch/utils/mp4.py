@@ -35,6 +35,10 @@ missing.
 No frame is decoded here: utils/h264.py decodes the H.264 samples
 (Constrained Baseline, Main and High) for utils/video.VideoReader, which
 names the codec or the profile and the frame count of a track it refuses.
+
+`Mp4Muxer` writes: an mp4, mov or m4v file of one mp4v track as
+libavformat 62.12's movenc writes it for cv2.VideoWriter, byte for byte
+(utils/video.VideoWriter drives it).
 """
 
 from __future__ import annotations
@@ -459,3 +463,161 @@ def read(path) -> VideoTrack:
     """demux() of a file."""
     with open(path, "rb") as fh:
         return demux(fh.read())
+
+
+# ------------------------------------------------------------------- muxer
+#
+# The mp4 / mov / m4v files libavformat 62.12's movenc writes for one mp4v
+# video track as cv2.VideoWriter drives it (no fragments, no faststart):
+# ftyp, a free ('wide' in mov) placeholder, the mdat, then the moov with
+# mvhd, one trak (tkhd, edts/elst, mdia: mdhd, hdlr, minf: vmhd, [mov: the
+# data handler], dinf, stbl: stsd (the mp4v entry with its esds, and btrt in
+# mp4), stts, stss (when not every sample is a keyframe), stsc, stsz (one
+# size when all are equal), stco) and a udta naming the muxer (an iTunes
+# ilst in mp4 and m4v, ©swr in mov).
+
+MUXER = "Lavf62.12.101"
+_KINDS = {
+    "mp4": (b"isom", (b"isom", b"iso2", b"mp41"), b"free"),
+    "m4v": (b"M4V ", (b"M4V ", b"isom", b"iso2"), b"free"),
+    "mov": (b"qt  ", (b"qt  ",), b"wide"),
+}
+_MATRIX = struct.pack(">9I", 0x10000, 0, 0, 0, 0x10000, 0, 0, 0, 0x40000000)
+_MAX_CHUNK = 1 << 20
+
+
+def _box(kind: bytes, *payload: bytes) -> bytes:
+    body = b"".join(payload)
+    return struct.pack(">I", 8 + len(body)) + kind + body
+
+
+def _full_box(kind: bytes, version: int, flags: int, *payload: bytes) -> bytes:
+    return _box(kind, struct.pack(">I", (version << 24) | flags), *payload)
+
+
+def _descr(tag: int, size: int) -> bytes:
+    """An MPEG-4 descriptor header with movenc's 4-byte size."""
+    return bytes([tag, 0x80 | (size >> 21) & 0x7F, 0x80 | (size >> 14) & 0x7F,
+                  0x80 | (size >> 7) & 0x7F, size & 0x7F])
+
+
+class Mp4Muxer:
+    """Writes one mp4v track to an open binary file: `kind` 'mp4', 'mov' or
+    'm4v'; `timescale` the track's (the stream time base's denominator
+    doubled up to 10000 or more), `delta` one frame in it; `config` the
+    esds decoder config (the encoder's global header); `bit_rate` the
+    encoder's. add() appends a sample; finish() writes the moov."""
+
+    def __init__(self, fh, kind: str, width: int, height: int, timescale: int, delta: int,
+                 config: bytes, bit_rate: int):
+        self.fh, self.kind = fh, kind
+        self.width, self.height = width, height
+        self.timescale, self.delta = timescale, delta
+        self.config, self.bit_rate = config, bit_rate
+        self.offsets: List[int] = []
+        self.sizes: List[int] = []
+        self.keys: List[bool] = []
+        brand, compatible, placeholder = _KINDS[kind]
+        fh.write(_box(b"ftyp", brand, struct.pack(">I", 0x200), *compatible))
+        fh.write(_box(placeholder))
+        self.mdat_at = fh.tell()
+        fh.write(struct.pack(">I", 0) + b"mdat")
+
+    def add(self, sample: bytes, key: bool) -> None:
+        self.offsets.append(self.fh.tell())
+        self.sizes.append(len(sample))
+        self.keys.append(bool(key))
+        self.fh.write(sample)
+
+    def _esds(self, avg: int) -> bytes:
+        cfg = self.config
+        dsi = 5 + len(cfg) if cfg else 0
+        body = (_descr(0x03, 3 + 5 + 13 + dsi + 5 + 1) + struct.pack(">HB", 1, 0)
+                + _descr(0x04, 13 + dsi) + bytes([0x20, 0x11]) + (0).to_bytes(3, "big")
+                + struct.pack(">II", max(self.bit_rate, avg), avg))
+        if cfg:
+            body += _descr(0x05, len(cfg)) + cfg
+        body += _descr(0x06, 1) + b"\x02"
+        return _full_box(b"esds", 0, 0, body)
+
+    def _stbl(self, avg: int) -> bytes:
+        mov = self.kind == "mov"
+        n = len(self.sizes)
+        entry = (b"\0" * 6 + struct.pack(">H", 1) + struct.pack(">HH", 0, 0)
+                 + (b"FFMP" + struct.pack(">II", 0x200, 0x200) if mov else b"\0" * 12)
+                 + struct.pack(">HHIIIH", self.width, self.height, 0x480000, 0x480000, 0, 1)
+                 + b"\0" * 32 + struct.pack(">Hh", 0x18, -1) + self._esds(avg))
+        if self.kind == "mp4":
+            entry += _box(b"btrt", struct.pack(">III", 0, max(self.bit_rate, avg), avg))
+        stsd = _full_box(b"stsd", 0, 0, struct.pack(">I", 1), _box(b"mp4v", entry))
+        stts = _full_box(b"stts", 0, 0, struct.pack(">III", 1, n, self.delta) if n else
+                         struct.pack(">I", 0))
+        boxes = [stsd, stts]
+        keys = [i + 1 for i, k in enumerate(self.keys) if k]
+        if keys and len(keys) < n:
+            boxes.append(_full_box(b"stss", 0, 0, struct.pack(f">I{len(keys)}I", len(keys),
+                                                                *keys)))
+        # build_chunks: contiguous samples while the chunk stays under 1 MiB
+        chunks: List[List[int]] = []   # [offset, samples, bytes]
+        for off, size in zip(self.offsets, self.sizes):
+            c = chunks[-1] if chunks else None
+            if c and c[0] + c[2] == off and c[2] + size < _MAX_CHUNK:
+                c[1] += 1
+                c[2] += size
+            else:
+                chunks.append([off, 1, size])
+        stsc, last = [], -1
+        for i, (_, count, _) in enumerate(chunks):
+            if count != last:
+                stsc.append(struct.pack(">III", i + 1, count, 1))
+                last = count
+        boxes.append(_full_box(b"stsc", 0, 0, struct.pack(">I", len(stsc)), *stsc))
+        if n and len(set(self.sizes)) == 1:
+            stsz = struct.pack(">II", max(1, self.sizes[0]), n)
+        else:
+            stsz = struct.pack(f">II{n}I", 0, n, *self.sizes)
+        boxes.append(_full_box(b"stsz", 0, 0, stsz))
+        boxes.append(_full_box(b"stco", 0, 0, struct.pack(f">I{len(chunks)}I", len(chunks),
+                                                          *[c[0] for c in chunks])))
+        return _box(b"stbl", *boxes)
+
+    def finish(self) -> None:
+        fh, mov = self.fh, self.kind == "mov"
+        end = fh.tell()
+        fh.seek(self.mdat_at)
+        fh.write(struct.pack(">I", end - self.mdat_at))
+        fh.seek(end)
+        n = len(self.sizes)
+        duration = n * self.delta
+        movie = -(-duration * 1000 // self.timescale)   # rounded up
+        avg = sum(self.sizes) * 8 * self.timescale // duration if duration else 0
+        w, h = self.width, self.height
+        mvhd = _full_box(b"mvhd", 0, 0, struct.pack(">IIIIIH", 0, 0, 1000, movie, 0x10000, 0x100),
+                         b"\0" * 10, _MATRIX, b"\0" * 24, struct.pack(">I", 2))
+        tkhd = _full_box(b"tkhd", 0, 3, struct.pack(">IIIII", 0, 0, 1, 0, movie), b"\0" * 8,
+                         struct.pack(">HHHH", 0, 0, 0, 0), _MATRIX, struct.pack(">II", w << 16,
+                                                                              h << 16))
+        edts = _box(b"edts", _full_box(b"elst", 0, 0, struct.pack(">IIiI", 1, movie, 0,
+                                                                  0x10000)))
+        mdhd = _full_box(b"mdhd", 0, 0, struct.pack(">IIIIHH", 0, 0, self.timescale, duration,
+                                                    0x7FFF if mov else 0x55C4, 0))
+        if mov:
+            hdlr = _full_box(b"hdlr", 0, 0, b"mhlr", b"vide", b"\0" * 12, b"\x0cVideoHandler")
+            data_hdlr = _full_box(b"hdlr", 0, 0, b"dhlr", b"url ", b"\0" * 12,
+                                  b"\x0bDataHandler")
+        else:
+            hdlr = _full_box(b"hdlr", 0, 0, b"\0" * 4, b"vide", b"\0" * 12, b"VideoHandler\0")
+            data_hdlr = b""
+        vmhd = _full_box(b"vmhd", 0, 1, b"\0" * 8)
+        dinf = _box(b"dinf", _full_box(b"dref", 0, 0, struct.pack(">I", 1),
+                                       _full_box(b"url ", 0, 1)))
+        minf = _box(b"minf", vmhd, data_hdlr, dinf, self._stbl(avg))
+        trak = _box(b"trak", tkhd, edts, _box(b"mdia", mdhd, hdlr, minf))
+        name = MUXER.encode()
+        if mov:
+            udta = _box(b"udta", _box(b"\xa9swr", struct.pack(">HH", len(name), 0x55C4), name))
+        else:
+            meta_hdlr = _full_box(b"hdlr", 0, 0, b"\0" * 4, b"mdirappl", b"\0" * 9)
+            ilst = _box(b"ilst", _box(b"\xa9too", _box(b"data", struct.pack(">II", 1, 0), name)))
+            udta = _box(b"udta", _full_box(b"meta", 0, 0, meta_hdlr, ilst))
+        fh.write(_box(b"moov", mvhd, trak, udta))

@@ -17,6 +17,12 @@ and reduced-resolution VOPs with a reason naming the feature, and stops at
 a damaged VOP with a reason that says where (FFmpeg would conceal it).
 utils/video.VideoReader drives it as cv2's FFmpeg backend drives
 libavcodec.
+
+`Encoder` is the other way (csrc/mpeg4_enc.cpp, built into
+`<repo>/.build/mpeg4_enc_<hash>/`): the packets cv2.VideoWriter's 'mp4v'
+writes, byte for byte, from BGR frames converted as cv2 converts them
+(csrc/bgr2yuv.cpp); utils/video.VideoWriter muxes them. `fdct` and
+`bgr_to_yuv420` expose its transform and conversion for the tests.
 """
 
 from __future__ import annotations
@@ -183,3 +189,110 @@ class Decoder:
                for p in (yuv if yuv else [None] * 3) + [out]]
         self._lib.mpeg4_take(self._h, *ptr)
         return out, yuv
+
+
+# ------------------------------------------------------------------ encoder
+
+ENC_SRC = csrc("mpeg4_enc.cpp")
+ENC_INCLUDES = (SRC, csrc("yuv2bgr.cpp"), csrc("bgr2yuv.cpp"))
+ENC_CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]   # no -march: no FMA contraction
+_enc_lib = None
+
+
+def encoder_library() -> ctypes.CDLL:
+    """The loaded encoder (built on first use; it holds a decoder of its own
+    for the reconstruction)."""
+    global _enc_lib
+    with _lock:
+        if _enc_lib is None:
+            lib = ctypes.CDLL(build_host_library(ENC_SRC, ENC_CXX_FLAGS, "mpeg4_enc", ENC_INCLUDES))
+            lib.mpeg4enc_new.argtypes = [ctypes.c_int] * 4 + [_I64, ctypes.c_int]
+            lib.mpeg4enc_new.restype = _P
+            lib.mpeg4enc_free.argtypes = [_P]
+            lib.mpeg4enc_error.argtypes = [_P]
+            lib.mpeg4enc_error.restype = ctypes.c_char_p
+            lib.mpeg4enc_header.argtypes = [_P, _P, _I64]
+            lib.mpeg4enc_header.restype = _I64
+            lib.mpeg4enc_encode_bgr.argtypes = [_P, _P, _I64, _I64]
+            lib.mpeg4enc_encode_bgr.restype = _I64
+            lib.mpeg4enc_packet.argtypes = [_P, _P]
+            lib.mpeg4enc_bgr_to_yuv.argtypes = [_P, _I64, ctypes.c_int, ctypes.c_int, _P, _P, _P]
+            lib.mpeg4enc_bgr_to_yuv.restype = None
+            lib.mpeg4enc_reconstruction.argtypes = [_P, _P]
+            lib.mpeg4enc_fdct.argtypes = [_P, _I64]
+            lib.mpeg4enc_fdct.restype = None
+            _enc_lib = lib
+        return _enc_lib
+
+
+def bgr_to_yuv420(frame: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """cv2.VideoWriter's BGR24 -> yuv420p conversion (csrc/bgr2yuv.cpp):
+    the frame cut to even sizes, then its Y, U and V planes."""
+    frame = np.ascontiguousarray(frame, np.uint8)
+    h, w = frame.shape[0] & ~1, frame.shape[1] & ~1
+    y = np.empty((h, w), np.uint8)
+    u = np.empty((h // 2, w // 2), np.uint8)
+    v = np.empty((h // 2, w // 2), np.uint8)
+    encoder_library().mpeg4enc_bgr_to_yuv(frame.ctypes.data, frame.strides[0], w, h,
+                                          y.ctypes.data, u.ctypes.data, v.ctypes.data)
+    return y, u, v
+
+
+def fdct(blocks: np.ndarray) -> np.ndarray:
+    """The encoder's forward DCT (libavcodec's x86 ff_fdct_sse2) on (N, 64)
+    int16 blocks in natural order."""
+    out = np.array(blocks, np.int16, copy=True).reshape(-1, 64)
+    encoder_library().mpeg4enc_fdct(out.ctypes.data, len(out))
+    return out
+
+
+class Encoder:
+    """One MPEG-4 Part 2 stream as cv2.VideoWriter's 'mp4v' writes it
+    (csrc/mpeg4_enc.cpp): `width` x `height` (even), the time base
+    `num`/`den` seconds a tick, `bit_rate` bits a second. With
+    `global_header` the VOS / VOL headers are `header` (the esds decoder
+    config); without, every I-VOP carries them (AVI). `encode` takes a
+    BGR frame and its pts in ticks and returns (packet, keyframe)."""
+
+    def __init__(self, width: int, height: int, num: int, den: int, bit_rate: int,
+                 global_header: bool):
+        self._lib = encoder_library()
+        self.width, self.height = int(width), int(height)
+        self._h = self._lib.mpeg4enc_new(self.width, self.height, int(num), int(den),
+                                         int(bit_rate), int(bool(global_header)))
+        if self.error:
+            raise Mpeg4Error(self.error)
+        n = self._lib.mpeg4enc_header(self._h, None, 0)
+        buf = ctypes.create_string_buffer(n)
+        self._lib.mpeg4enc_header(self._h, buf, n)
+        self.header = buf.raw
+
+    def __del__(self):
+        h, self._h = getattr(self, "_h", None), None
+        if h:
+            self._lib.mpeg4enc_free(h)
+
+    @property
+    def error(self) -> str:
+        return self._lib.mpeg4enc_error(self._h).decode()
+
+    def encode(self, frame: np.ndarray, pts: int) -> Tuple[bytes, bool]:
+        """One (H, W, 3) u8 BGR frame, H >= height and W >= width."""
+        frame = np.ascontiguousarray(frame, np.uint8)
+        if (frame.ndim != 3 or frame.shape[2] != 3 or frame.shape[0] < self.height
+                or frame.shape[1] < self.width):
+            raise ValueError(f"frame {frame.shape} does not cover {self.width}x{self.height}")
+        n = self._lib.mpeg4enc_encode_bgr(self._h, frame.ctypes.data, frame.strides[0], int(pts))
+        if n < 0:
+            raise Mpeg4Error(self.error)
+        buf = ctypes.create_string_buffer(max(n, 1))
+        key = self._lib.mpeg4enc_packet(self._h, buf)
+        return buf.raw[:n], bool(key)
+
+    def reconstruction(self) -> np.ndarray:
+        """The last picture as a decoder of the stream gives it, converted
+        to BGR as cv2 converts a decoded frame: (height, width, 3) u8."""
+        out = np.empty((self.height, self.width, 3), np.uint8)
+        if self._lib.mpeg4enc_reconstruction(self._h, out.ctypes.data) < 0:
+            raise Mpeg4Error("no picture was encoded")
+        return out

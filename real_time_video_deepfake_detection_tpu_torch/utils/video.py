@@ -1,7 +1,7 @@
 """Video in and out without cv2: the port's counterpart of the JAX
 package's cv2.VideoCapture / cv2.VideoWriter calls (cli/analyze.py,
 train/clip_head.py, data_tools/face_extract.py). `VideoReader` goes by a
-file's content, not its name.
+file's content, not its name; `VideoWriter` by its fourcc and extension.
 
 H.264 mp4 / mov (an avc1 or avc3 track, Constrained Baseline, Main or
 High: CAVLC or CABAC, I, P and B slices, progressive 8-bit 4:2:0) and
@@ -32,6 +32,15 @@ parameter sets of its first sample, an mp4v track by its esds and first
 sample. A damaged slice or VOP stops the reader (read() gives (False,
 None) and `reason` says where); FFmpeg conceals the damage and reads on.
 
+MPEG-4 Part 2 AVI (a RIFF 'AVI ' file whose video stream's compression is
+an MPEG-4 Part 2 fourcc: mp4v, FMP4, XVID, DIVX, DX50, MP4S, M4S2): each
+chunk a packet, as libavformat's avidec gives them to cv2 (the times the
+chunk numbers in units of the stream header's scale / rate, the keyframes
+idx1's flags, the frame count the header's length), decoded and sought as
+an mp4v track; FFmpeg's own and cv2's 'mp4v' files read as cv2 reads them,
+Xvid- and DivX-written streams (DivX's packed B-frames among them) are
+refused by the decoder.
+
 Motion-JPEG AVI (a RIFF 'AVI ' file whose video stream is MJPG): each
 frame decoded by the port's JPEG decoder (utils/jpeg_ingest.decode_jpeg),
 which equals libjpeg's: its frames equal cv2.VideoCapture(path,
@@ -45,13 +54,18 @@ Motion-JPEG with its own IDCT and upsampling, which differ from libjpeg's.
 Nothing else opens: a camera index, a missing file, any other container
 or codec (`VideoReader.reason` says why).
 
-`VideoWriter` writes JPEG frames (utils/jpeg_encode, cv2.imencode's bytes
-at QUALITY 95) as '00dc' chunks with avih / strh / strf headers and an
-idx1 index: a file cv2 opens with its FFmpeg and its Motion-JPEG backends.
+`VideoWriter(path, fourcc, fps, size)` writes 'mp4v' as cv2 5.0's
+cv2.VideoWriter writes it, byte for byte, in mp4, mov, m4v or AVI by the
+path's extension (utils/mpeg4.Encoder, utils/mp4.Mp4Muxer and avienc's
+layout here); and, under 'MJPG', the port's Motion-JPEG AVI of
+cv2.imencode q95 frames, which cv2 opens with its FFmpeg and its
+Motion-JPEG backends. Other fourccs and containers (.mkv, .webm, no
+extension) raise ValueError naming them.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import struct
 from typing import List, Optional, Tuple
@@ -63,10 +77,10 @@ from .jpeg_encode import encode_jpeg, standard_dht
 from .jpeg_ingest import decode_jpeg
 
 FORMATS = ("H.264 mp4 / mov (Constrained Baseline, Main and High: progressive 8-bit 4:2:0), "
-           "MPEG-4 Part 2 mp4 / mov (mp4v as FFmpeg's mpeg4 encoder writes it: Simple and "
-           "Advanced Simple, progressive), and "
+           "MPEG-4 Part 2 mp4 / mov / AVI (mp4v as FFmpeg's mpeg4 encoder writes it: Simple "
+           "and Advanced Simple, progressive), and "
            "Motion-JPEG AVI (RIFF 'AVI ' with an MJPG video stream)")
-QUALITY = 95   # of the frames VideoWriter encodes, as the JAX package's crops
+QUALITY = 95   # of the frames the 'MJPG' writer encodes, as the JAX package's crops
 
 
 def _chunks(data: bytes, off: int, end: int):
@@ -93,6 +107,8 @@ def _has_dht(jpeg: bytes) -> bool:
 
 
 _INT_MAX = 2 ** 31 - 1
+# AVI compression fourccs of MPEG-4 Part 2 (FFmpeg's, cv2's, Xvid's and DivX's)
+_MPEG4_TAGS = (b"MP4V", b"FMP4", b"XVID", b"DIVX", b"DX50", b"MP4S", b"M4S2")
 _INDEX_KEYFRAME, _INDEX_DISCARD = 1, 2
 
 
@@ -303,11 +319,12 @@ class VideoReader:
                 idx1 = (off, size)
         if b"hdrl" not in lists or b"movi" not in lists:
             return "an AVI without hdrl or movi"
-        stream, rate = self._video_stream(*lists[b"hdrl"])
+        stream = self._video_stream(*lists[b"hdrl"])
         if stream is None:
-            return f"no MJPG video stream; the port reads {FORMATS} only"
-        self.fps = rate
-        tags = (b"%02ddc" % stream, b"%02ddb" % stream)
+            return f"no MJPG video stream (nor an MPEG-4 Part 2 one); the port reads {FORMATS} only"
+        index, codec, scale, rate, length, width, height = stream
+        self.fps = rate / scale if scale else 0.0
+        tags = (b"%02ddc" % index, b"%02ddb" % index)
         movi_off, movi_size = lists[b"movi"]
         frames = self._from_idx1(idx1, movi_off, tags) if idx1 else None
         if frames is None:
@@ -318,8 +335,26 @@ class VideoReader:
             for fcc, loff, lsize in _chunks(data, off + 4, off + size):
                 if fcc == b"LIST" and data[loff:loff + 4] == b"movi":
                     frames += self._scan_movi(loff + 4, loff + lsize, tags)
-        self._frames = frames
+        if codec == "mp4v":
+            return self._open_avi_mp4v(frames, scale, rate, length, width, height)
+        self._frames = [(off, size) for off, size, _ in frames]
         return ""
+
+    def _open_avi_mp4v(self, frames, scale: int, rate: int, length: int, width: int,
+                       height: int) -> str:
+        """An MPEG-4 Part 2 stream in AVI, read as libavformat's avidec gives
+        it to cv2: a packet per chunk, its time the chunk's number in units of
+        the stream header's scale / rate, keyframes as idx1 flags them (all,
+        without an index), the frame count the header's length."""
+        frames = [f for f in frames if f[1] > 0]
+        n = len(frames)
+        count = length or n
+        track = mp4.VideoTrack(
+            "mp4v", width, height, max(rate, 1),
+            np.array([f[0] for f in frames], np.int64), np.array([f[1] for f in frames], np.int64),
+            np.arange(n, dtype=np.int64) * scale, np.arange(n, dtype=np.int64) * scale,
+            np.array([f[2] for f in frames], bool), count, self.fps, np.zeros(n, bool))
+        return self._open_mp4v(track, f"{count} frames")
 
     def _open_mp4v(self, track: mp4.VideoTrack, frames: str) -> str:
         """An mp4v track: its esds headers and first sample judged, then
@@ -338,7 +373,9 @@ class VideoReader:
         return ""
 
     def _video_stream(self, off: int, size: int):
-        """(index, fps) of the first MJPG video stream of hdrl, or (None, 0)."""
+        """(index, codec 'mjpg' / 'mp4v', scale, rate, length, width, height)
+        of the first Motion-JPEG or MPEG-4 Part 2 video stream of hdrl, or
+        None."""
         data = self._data
         index = 0
         for fcc, loff, lsize in _chunks(data, off + 4, off + size):
@@ -353,15 +390,20 @@ class VideoReader:
             if strh and data[strh[0]:strh[0] + 4] == b"vids":
                 handler = data[strh[0] + 4:strh[0] + 8].upper()
                 compression = data[strf[0] + 16:strf[0] + 20].upper() if strf else b""
-                if b"MJPG" in (handler, compression):
-                    scale, rate = struct.unpack_from("<II", data, strh[0] + 20)
-                    return index, (rate / scale if scale else 0.0)
+                codec = ("mjpg" if b"MJPG" in (handler, compression) else
+                         "mp4v" if compression in _MPEG4_TAGS else None)
+                if codec:
+                    scale, rate, _, length = struct.unpack_from("<IIII", data, strh[0] + 20)
+                    width, height = (struct.unpack_from("<ii", data, strf[0] + 4) if strf
+                                     else (0, 0))
+                    return index, codec, scale, rate, length, width, abs(height)
             index += 1
-        return None, 0.0
+        return None
 
-    def _from_idx1(self, idx1, movi_off: int, tags) -> Optional[List[Tuple[int, int]]]:
-        """Frames of the idx1 index, whose offsets are relative to the movi
-        list's type field or absolute in the file; None when neither fits."""
+    def _from_idx1(self, idx1, movi_off: int, tags) -> Optional[List[Tuple[int, int, bool]]]:
+        """Frames of the idx1 index, (offset, size, keyframe): the offsets
+        are relative to the movi list's type field or absolute in the file;
+        None when neither fits."""
         data = self._data
         off, size = idx1
         entries = [struct.unpack_from("<4sIII", data, off + 16 * i) for i in range(size // 16)]
@@ -371,16 +413,16 @@ class VideoReader:
         for base in (movi_off, 0):
             ck_off = base + entries[0][2]
             if data[ck_off:ck_off + 4] == entries[0][0]:
-                return [(base + e[2] + 8, e[3]) for e in entries
+                return [(base + e[2] + 8, e[3], bool(e[1] & 0x10)) for e in entries
                         if e[3] > 0 and base + e[2] + 8 + e[3] <= len(data)]
         return None
 
-    def _scan_movi(self, off: int, end: int, tags) -> List[Tuple[int, int]]:
+    def _scan_movi(self, off: int, end: int, tags) -> List[Tuple[int, int, bool]]:
         frames = []
         data = self._data
         for fcc, coff, size in _chunks(data, off, end):
             if fcc in tags and size > 0:
-                frames.append((coff, size))
+                frames.append((coff, size, True))
             elif fcc == b"LIST" and data[coff:coff + 4] == b"rec ":
                 frames += self._scan_movi(coff + 4, coff + size, tags)
         return frames
@@ -440,15 +482,63 @@ class VideoReader:
         self._frames, self._data, self._pos, self._mp4 = [], b"", 0, None
 
 
-class VideoWriter:
-    """Writes (H, W, 3) u8 BGR frames of one size, `size` = (width, height),
-    to a Motion-JPEG AVI at `fps`, each encoded at QUALITY (cv2.imencode's
-    bytes); `release()` writes the index and the header's counts."""
+def _fourcc_name(fourcc) -> str:
+    """A fourcc given as cv2.VideoWriter_fourcc's int or as its four
+    characters, as four characters."""
+    if isinstance(fourcc, (int, np.integer)):
+        return bytes((int(fourcc) >> (8 * i)) & 0xFF for i in range(4)).decode("latin-1")
+    return str(fourcc)
+
+
+def _cv2_time_base(fps: float) -> Tuple[int, int]:
+    """(num, den) of the time base cv2's FFmpeg writer gives its encoder for
+    `fps`: the first power-of-ten denominator whose rounded rate is within
+    0.001 of fps (29.97 -> 100/2997, 7.5 -> 10/75)."""
+    rate, base = int(fps + 0.5), 1
+    while abs(rate / base - fps) > 0.001:
+        base *= 10
+        rate = int(fps * base + 0.5)
+    return base, rate
+
+
+def _cv2_bit_rate(fps: float, width: int, height: int) -> int:
+    """The bit rate cv2 5.0's FFmpeg writer gives the mpeg4 encoder (and so
+    the containers' headers): 2 * fps * width * height truncated, one less
+    where that truncation is 2 modulo 4 and the product not whole (read off
+    the files of 161 sizes and rates), at most INT_MAX."""
+    y = 2 * fps * width * height
+    if y >= _INT_MAX:
+        return _INT_MAX
+    b = int(y)
+    return b - 1 if b % 4 == 2 and b != y else b
+
+
+# the containers an 'mp4v' stream is written in, by extension (libavformat's
+# av_guess_format matches extensions without regard to case)
+MP4V_CONTAINERS = {".mp4": "mp4", ".mov": "mov", ".m4v": "m4v", ".avi": "avi"}
+_REFUSED = {".mkv": "Matroska is not written (libavformat's Matroska muxer writes random "
+                    "UIDs, so no file can equal cv2's)",
+            ".webm": "WebM takes no mp4v (cv2's FFmpeg writer fails to open it)"}
+
+
+def mp4v_container(path) -> str:
+    """The container an 'mp4v' stream is written in for `path`: 'mp4',
+    'mov', 'm4v' or 'avi' by its extension; ValueError naming any other."""
+    ext = os.path.splitext(os.fspath(path))[1].lower()
+    if ext not in MP4V_CONTAINERS:
+        why = _REFUSED.get(ext, "the port writes mp4v into " + ", ".join(MP4V_CONTAINERS))
+        raise ValueError(f"container {ext or '(no extension)'!r} of {os.fspath(path)!r} "
+                         f"is not written: {why}")
+    return MP4V_CONTAINERS[ext]
+
+
+class _MjpegAvi:
+    """Motion-JPEG AVI: JPEG frames (utils/jpeg_encode, cv2.imencode's bytes
+    at QUALITY 95) as '00dc' chunks with avih / strh / strf headers and an
+    idx1 index."""
 
     def __init__(self, path, fps: float, size: Tuple[int, int]):
         self.width, self.height = int(size[0]), int(size[1])
-        if not fps > 0:
-            raise ValueError(f"fps must be positive, got {fps}")
         self.fps = float(fps)
         self._fh = open(path, "wb")
         self._index: List[Tuple[int, int]] = []   # (offset from the movi type, size)
@@ -471,15 +561,8 @@ class VideoWriter:
         strh = struct.pack("<4s4sIHHIIIIIIiI4h", b"vids", b"MJPG", 0, 0, 0, 0, scale, rate, 0,
                            n_frames, buf, -1, 0, 0, 0, w, h)
         strf = struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 24, b"MJPG", w * h * 3, 0, 0, 0, 0)
-
-        def chunk(fcc, payload):
-            return fcc + struct.pack("<I", len(payload)) + payload
-
-        def lst(typ, payload):
-            return b"LIST" + struct.pack("<I", len(payload) + 4) + typ + payload
-
-        strl = lst(b"strl", chunk(b"strh", strh) + chunk(b"strf", strf))
-        hdrl = lst(b"hdrl", chunk(b"avih", avih) + strl)
+        strl = _list(b"strl", _chunk(b"strh", strh) + _chunk(b"strf", strf))
+        hdrl = _list(b"hdrl", _chunk(b"avih", avih) + strl)
         # the movi list's size is patched on release
         return b"RIFF" + struct.pack("<I", 0) + b"AVI " + hdrl + b"LIST" + struct.pack("<I", 0)
 
@@ -490,7 +573,6 @@ class VideoWriter:
         self.write_jpeg(encode_jpeg(frame, QUALITY))
 
     def write_jpeg(self, jpeg: bytes) -> None:
-        """Append one frame's JPEG bytes as they are."""
         at = self._fh.tell()
         self._fh.write(b"00dc" + struct.pack("<I", len(jpeg)) + jpeg)
         if len(jpeg) & 1:
@@ -514,5 +596,169 @@ class VideoWriter:
             fh.write(struct.pack("<I", end - 8))
             fh.seek(self._movi_at - 4)
             fh.write(struct.pack("<I", movi_end - self._movi_at))
+        finally:
+            fh.close()
+
+
+def _chunk(fcc: bytes, payload: bytes) -> bytes:
+    return fcc + struct.pack("<I", len(payload)) + payload
+
+
+def _list(typ: bytes, payload: bytes) -> bytes:
+    return b"LIST" + struct.pack("<I", len(payload) + 4) + typ + payload
+
+
+class _Mp4vAvi:
+    """An mp4v stream in AVI as libavformat 62.12's avienc writes it: hdrl
+    (avih, strl with strh / strf and the OpenDML super index reserved as
+    JUNK, the odml/dmlh reserve), the INFO list naming the muxer, 1016 bytes
+    of padding, the movi list of '00dc' chunks and the idx1 index (keyframes
+    flagged); finish() writes the counts. The super index reserves room for
+    the RIFF parts of a 10-hour file at 110% of the bit rate (avienc's
+    estimate when the duration is unknown), at least 256 entries. Files past
+    1 GiB (OpenDML RIFF 'AVIX' parts) are not written."""
+
+    def __init__(self, fh, width: int, height: int, num: int, den: int, bit_rate: int):
+        self.fh = fh
+        self.width, self.height, self.num, self.den = width, height, num, den
+        self.bit_rate = bit_rate
+        self.index: List[Tuple[int, int, bool]] = []
+        self.max_size = 0
+        filesize_est = 10 * 60 * 60.0 * (bit_rate // 8) * 1.10
+        self.index_entries = max(math.ceil(filesize_est / (1 << 30)) + 1, 256)
+        # the movi list's type field, which the idx1 offsets count from
+        self.movi_at = 5674 + 16 * (self.index_entries - 256)
+        fh.write(self._header())
+
+    def _header(self, end: int = 0, movi_end: int = 0) -> bytes:
+        w, h, n = self.width, self.height, len(self.index)
+        avih = struct.pack("<10I16x", 1000000 * self.num // self.den, self.bit_rate // 8, 0,
+                           0x910, n, 0, 1, 1 << 20, w, h)
+        strh = struct.pack("<4s4sIHHIIIIIIiI4h", b"vids", b"mp4v", 0, 0, 0, 0, self.num,
+                           self.den, 0, n, self.max_size, -1, 0, 0, 0, w, h)
+        strf = struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 24, b"mp4v", w * h * 3, 0, 0, 0, 0)
+        indx = struct.pack("<HBBI4s", 4, 0, 0, 0, b"00dc").ljust(24 + 16 * self.index_entries,
+                                                                  b"\0")
+        strl = _list(b"strl", _chunk(b"strh", strh) + _chunk(b"strf", strf)
+                     + _chunk(b"JUNK", indx))
+        odml = _chunk(b"JUNK", b"odmldmlh" + struct.pack("<I", 248) + b"\0" * 248)
+        hdrl = _list(b"hdrl", _chunk(b"avih", avih) + strl + odml)
+        info = _list(b"INFO", _chunk(b"ISFT", mp4.MUXER.encode() + b"\0"))
+        movi_size = movi_end - self.movi_at if movi_end else 0
+        return (b"RIFF" + struct.pack("<I", max(end - 8, 0)) + b"AVI " + hdrl + info
+                + _chunk(b"JUNK", b"\0" * 1016) + b"LIST" + struct.pack("<I", movi_size)
+                + b"movi")
+
+    def add(self, sample: bytes, key: bool) -> None:
+        at = self.fh.tell()
+        self.fh.write(b"00dc" + struct.pack("<I", len(sample)) + sample)
+        if len(sample) & 1:
+            self.fh.write(b"\0")
+        self.index.append((at - self.movi_at, len(sample), key))
+        self.max_size = max(self.max_size, len(sample))
+
+    def finish(self) -> None:
+        fh = self.fh
+        movi_end = fh.tell()
+        fh.write(b"idx1" + struct.pack("<I", 16 * len(self.index)))
+        for off, size, key in self.index:
+            fh.write(struct.pack("<4sIII", b"00dc", 0x10 if key else 0, off, size))
+        end = fh.tell()
+        fh.seek(0)
+        fh.write(self._header(end, movi_end))
+        fh.seek(end)
+
+
+class VideoWriter:
+    """cv2.VideoWriter(path, fourcc, fps, size) for the fourccs the port
+    writes; `size` = (width, height), frames (H, W, 3) u8 BGR.
+
+    'mp4v': MPEG-4 Part 2 as cv2 5.0's FFmpeg backend writes it, byte for
+    byte: the frame cut to even sizes and converted to yuv420p as cv2
+    converts it, encoded as libavcodec's mpeg4 encoder encodes it with cv2's
+    settings (utils/mpeg4.Encoder), in the container libavformat picks by the
+    path's extension, matched without regard to case: '.mp4', '.mov' and
+    '.m4v' (movenc, the VOL headers in the esds) or '.avi' (avienc, the
+    headers in every keyframe). A frame whose even-cut size differs from the
+    video's raises (cv2 skips it with a warning), and so does an fps whose
+    time base MPEG-4 cannot carry (a denominator over 65535, as 67.123's
+    1000/67123; cv2 fails to open).
+
+    'MJPG': the port's Motion-JPEG AVI (cv2.imencode's JPEG bytes at
+    QUALITY 95 per frame; `write_jpeg` appends a JPEG as it is), whatever
+    the extension, as the port's tests and chip_smoke.py build AVI
+    fixtures; it is not cv2's MJPG writer.
+
+    Any other fourcc, an mp4v path with another extension (.mkv, .webm) or
+    none raises ValueError naming it. `release()` finishes the file."""
+
+    def __init__(self, path, fourcc, fps: float, size: Tuple[int, int]):
+        name = _fourcc_name(fourcc)
+        if not fps > 0:
+            raise ValueError(f"fps must be positive, got {fps}")
+        if name == "MJPG":
+            self._mjpeg: Optional[_MjpegAvi] = _MjpegAvi(path, fps, size)
+            self.width, self.height = self._mjpeg.width, self._mjpeg.height
+            return
+        if name != "mp4v":
+            raise ValueError(f"fourcc {name!r} is not written: the port writes 'mp4v' (mp4, "
+                             "mov, m4v, avi) and its Motion-JPEG AVI ('MJPG')")
+        self._mjpeg = None
+        kind = mp4v_container(path)
+        self.width, self.height = int(size[0]) & ~1, int(size[1]) & ~1
+        if self.width <= 0 or self.height <= 0:
+            raise ValueError(f"size {tuple(size)} is empty")
+        num, den = _cv2_time_base(float(fps))
+        bit_rate = _cv2_bit_rate(float(fps), self.width, self.height)
+        self._encoder = mpeg4.Encoder(self.width, self.height, num, den, bit_rate,
+                                      global_header=kind != "avi")
+        self._fh = open(path, "wb")
+        if kind == "avi":
+            g = math.gcd(num, den)
+            self._mux = _Mp4vAvi(self._fh, self.width, self.height, num // g, den // g, bit_rate)
+        else:
+            timescale = den
+            while timescale < 10000:
+                timescale *= 2
+            self._mux = mp4.Mp4Muxer(self._fh, kind, self.width, self.height, timescale,
+                                     timescale * num // den, self._encoder.header, bit_rate)
+        self._pts = 0
+
+    def write(self, frame: np.ndarray) -> None:
+        if self._mjpeg is not None:
+            return self._mjpeg.write(frame)
+        if self._fh is None:
+            raise ValueError("the writer is released")
+        frame = np.asarray(frame)
+        if (frame.ndim != 3 or frame.shape[2] != 3
+                or (frame.shape[0] & ~1, frame.shape[1] & ~1) != (self.height, self.width)):
+            raise ValueError(f"frame {frame.shape} differs from the video's "
+                             f"{(self.height, self.width)}")
+        packet, key = self._encoder.encode(frame, self._pts)
+        self._pts += 1
+        self._mux.add(packet, key)
+
+    def reconstruction(self) -> np.ndarray:
+        """The last frame written as a decoder of the file gives it (mp4v):
+        the encoder's reconstruction, converted to BGR as cv2 converts a
+        decoded frame."""
+        if self._mjpeg is not None:
+            raise ValueError("reconstruction is for the mp4v writer")
+        return self._encoder.reconstruction()
+
+    def write_jpeg(self, jpeg: bytes) -> None:
+        """Append one frame's JPEG bytes as they are (MJPG only)."""
+        if self._mjpeg is None:
+            raise ValueError("write_jpeg is for the Motion-JPEG writer (fourcc 'MJPG')")
+        self._mjpeg.write_jpeg(jpeg)
+
+    def release(self) -> None:
+        if self._mjpeg is not None:
+            return self._mjpeg.release()
+        if self._fh is None:
+            return
+        fh, self._fh = self._fh, None
+        try:
+            self._mux.finish()
         finally:
             fh.close()

@@ -41,10 +41,11 @@ import real_time_video_deepfake_detection_tpu_torch.pipeline.faces as t_faces
 from real_time_video_deepfake_detection_tpu_torch.core.config import DetectorConfig as TDC
 from real_time_video_deepfake_detection_tpu_torch.ops import draw
 from real_time_video_deepfake_detection_tpu_torch.utils.convert import params_from_jax
-from real_time_video_deepfake_detection_tpu_torch.utils.jpeg_encode import encode_jpeg
 from real_time_video_deepfake_detection_tpu_torch.utils.video import VideoReader
 
 from tests.torch_port_util import small_models, small_specs
+
+_CAPTURE = cv2.VideoCapture   # cv2's own, which the CLI fixture patches
 from tests.torch_train_util import one_torch_thread  # noqa: F401 (autouse fixture)
 
 TOL = 1e-5
@@ -193,8 +194,8 @@ def videos(tmp_path_factory, weights):
 @pytest.fixture
 def cli_env(monkeypatch, weights):
     """Both CLIs build the small spec; JAX reads with CAP_OPENCV_MJPEG and
-    its writer records the annotated frames; the port's writer records its
-    frames before they are encoded."""
+    its writer (cv2's own) records the annotated frames as it writes them;
+    the port's writer records its frames before they are encoded."""
     spec_j, spec_t, _ = weights
     monkeypatch.setattr(j_backbones, "make", lambda name, *a, **k: spec_j)
     monkeypatch.setattr(t_backbones, "make", lambda name, *a, **k: spec_t)
@@ -203,15 +204,19 @@ def cli_env(monkeypatch, weights):
                         lambda src, *a: real_capture(src, cv2.CAP_OPENCV_MJPEG))
     written = {"jax": [], "port": []}
 
+    real_writer = cv2.VideoWriter
+
     class JaxWriter:
         def __init__(self, path, fourcc, fps, size):
             self.fps, self.size = fps, size
+            self.real = real_writer(path, fourcc, fps, size)
 
         def write(self, frame):
             written["jax"].append(frame.copy())
+            self.real.write(frame)
 
         def release(self):
-            pass
+            self.real.release()
 
     monkeypatch.setattr(cv2, "VideoWriter", JaxWriter)
     from real_time_video_deepfake_detection_tpu_torch.utils import video
@@ -225,28 +230,30 @@ def cli_env(monkeypatch, weights):
     return written
 
 
-def test_analyze_single_matches_jax(videos, cli_env, hershey_jax, tmp_path):
+@pytest.mark.parametrize("ext", [".mp4", ".avi"])
+def test_analyze_single_matches_jax(videos, cli_env, hershey_jax, tmp_path, ext):
     jj, tj = str(tmp_path / "jax.json"), str(tmp_path / "port.json")
-    out = str(tmp_path / "out.avi")
+    j_out, t_out = str(tmp_path / ("jax" + ext)), str(tmp_path / ("port" + ext))
     j_analyze.main([videos["face"], "--weights", videos["npz"], "--json", jj,
-                    "--max-frames", "4", "--output", str(tmp_path / "jax.mp4")])
+                    "--max-frames", "4", "--output", j_out])
     t_analyze.main([videos["face"], "--weights", videos["npz"], "--json", tj,
-                    "--max-frames", "4", "--output", out, "--device", "cpu"])
+                    "--max-frames", "4", "--output", t_out, "--device", "cpu"])
     with open(jj) as a, open(tj) as b:
         want, got = json.load(a), json.load(b)
     assert_close(got, want)
     assert got["summary"]["frames"] == 4 and got["frames"][0]["faces_detected"] == 1
-    # the annotated frames, then the AVI holds them as cv2.imencode(q95) would
+    # the annotated frames, then the --output files: cv2's mp4v bytes
     assert len(cli_env["jax"]) == len(cli_env["port"]) == 4
     assert hershey_jax["jax"] == hershey_jax["port"]
-    reader = VideoReader(out)
-    assert reader.frame_count == 4 and reader.fps == 12.0
     for j_frame, t_frame in zip(cli_env["jax"], cli_env["port"]):
         np.testing.assert_array_equal(t_frame, j_frame)
-        ok, back = reader.read()
-        want_back = cv2.imdecode(np.frombuffer(encode_jpeg(j_frame, 95), np.uint8),
-                                 cv2.IMREAD_COLOR)
-        assert ok
+    with open(j_out, "rb") as a, open(t_out, "rb") as b:
+        assert b.read() == a.read()
+    reader, cap = VideoReader(t_out), _CAPTURE(j_out, cv2.CAP_FFMPEG)
+    assert reader.frame_count == 4 and reader.fps == 12.0
+    for _ in range(4):
+        (ok, back), (ok_c, want_back) = reader.read(), cap.read()
+        assert ok and ok_c
         np.testing.assert_array_equal(back, want_back)
 
 

@@ -252,3 +252,37 @@ def test_jpeg_modes_and_mp4_demux_without_jax_cv2_or_pil():
                        text=True, timeout=300,
                        env=dict(os.environ, PYTHONPATH=REPO))
     assert r.returncode == 0, r.stderr[-2000:]
+
+
+def test_mp4v_writer_writes_without_jax_cv2_or_pil(tmp_path):
+    """The mp4v writer (utils/video.VideoWriter, utils/mpeg4.Encoder,
+    utils/mp4's muxer) and the scenes chip_smoke.py rebuilds
+    (tests/torch_mpeg4_scenes) load and run with jax, cv2 and PIL blocked:
+    an mp4 and an AVI case written equal to cv2's digests and read back."""
+    code = (
+        "import hashlib, json, os, sys\n"
+        "for blocked in ('jax', 'jaxlib', 'cv2', 'PIL'):\n"
+        "    sys.modules[blocked] = None\n"
+        "from tests import torch_mpeg4_scenes as scenes\n"
+        "from real_time_video_deepfake_detection_tpu_torch.utils.video import (\n"
+        "    VideoReader, VideoWriter)\n"
+        "with open(os.path.join('tests', 'data', 'torch_mpeg4_writer', 'digests.json')) as fh:\n"
+        "    ref = json.load(fh)['cases']\n"
+        "for name in ('mp4_pan13', 'avi_face'):\n"
+        "    _, n, h, w, fps, ext = scenes.CASES[name]\n"
+        f"    path = os.path.join({str(tmp_path)!r}, 'o' + ext)\n"
+        "    wr = VideoWriter(path, 'mp4v', fps, (w, h))\n"
+        "    for f in scenes.case_frames(name):\n"
+        "        wr.write(f)\n"
+        "    wr.release()\n"
+        "    with open(path, 'rb') as fh:\n"
+        "        assert hashlib.sha256(fh.read()).hexdigest() == ref[name]['sha256'], name\n"
+        "    r = VideoReader(path)\n"
+        "    assert r.frame_count == n and r.read()[1].shape == (h, w, 3), r.reason\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cv2', 'PIL')\n"
+        "       and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=REPO))
+    assert r.returncode == 0, r.stderr[-2000:]

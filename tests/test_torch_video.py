@@ -83,7 +83,7 @@ def test_reader_seeks_every_index_like_cv2(cv2_avi):
 def test_port_writer_opens_in_cv2(tmp_path, backend):
     frames = moving_frames(7, 120, 176, seed=1)
     path = str(tmp_path / "port.avi")
-    wr = VideoWriter(path, 30, (176, 120))
+    wr = VideoWriter(path, "MJPG", 30, (176, 120))
     for f in frames:
         wr.write(f)
     wr.release()
@@ -120,7 +120,7 @@ def test_a_frame_without_huffman_tables_decodes_like_imdecode(tmp_path):
              for f in frames]
     assert all(b"\xff\xc4" not in j[:600] for j in jpegs)
     path = str(tmp_path / "nodht.avi")
-    wr = VideoWriter(path, 15, (96, 64))
+    wr = VideoWriter(path, "MJPG", 15, (96, 64))
     for j in jpegs:
         wr.write_jpeg(j)
     wr.release()
@@ -219,7 +219,7 @@ def test_resize_area_integer_ratios_and_odd_shapes(hw, dst):
 
 
 def _port_avi(path, frames):
-    wr = VideoWriter(str(path), 20, (frames[0].shape[1], frames[0].shape[0]))
+    wr = VideoWriter(str(path), "MJPG", 20, (frames[0].shape[1], frames[0].shape[0]))
     for f in frames:
         wr.write(f)
     wr.release()
