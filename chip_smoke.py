@@ -189,11 +189,20 @@ in phases, each printing one JSON line:
               (utils/video.VideoWriter) of the committed 640x480 fixture's
               bytes and encode_jpeg(q95) frames with the photograph's face
               moving through it, read back frame for frame equal to
-              decode_jpeg of what was written, seeks exact; encode ms of a
-              224x224 crop and of a frame, read ms per frame; (a2) the
+              utils/mjpeg's decode of what was written (cv2's default
+              backend's), seeks landing on frame i; encode ms of a
+              224x224 crop and of a frame, read ms per frame; (a3) every
+              Motion-JPEG AVI of tests/data/torch_mjpeg read in order and
+              after every seek against the digests of cv2.VideoCapture's
+              (libavcodec's mjpeg decoder, libswscale), the refused and
+              damaged ones stopped with their reason; (a4) the mp4v
+              writer's OpenDML AVI past 1 GiB and mp4 / mov past 4 GiB
+              (tests/data/torch_writer_large) replayed through the muxers,
+              every byte outside the payloads against cv2's; (a2) the
               mp4v writer (utils/video.VideoWriter(path, "mp4v", ...)):
               every case of tests/torch_mpeg4_scenes.CASES (numpy scenes
-              from a seed, frames decoded from committed mp4v files)
+              from a seed, frames decoded from committed mp4v files; the
+              "xy2" scene pins libavcodec's sad16_approx_xy2)
               written in mp4 / mov / m4v / avi and held to the SHA-256 of
               cv2.VideoWriter's file (tests/data/torch_mpeg4_writer); the
               writer's ms per frame at 640x360 and 1920x1080; (b)
@@ -288,7 +297,12 @@ in phases, each printing one JSON line:
               each image equal to cv2's decode resized; (e) host ms of the
               progressive entropy decode against baseline at 720x405 and
               1920x1080, device ms of the 4:1:1 reconstruction at bucket
-              16, host ms of a 720x405 PNG decode
+              16, host ms of a 720x405 PNG decode; and, for the PxM, PAM,
+              PFM, Sun raster, HDR and GIF fixtures of
+              tests/data/torch_image_formats, (a) on the cv2 route against
+              cv2.imdecode's digests, (b) through the same apps (the
+              launches of every kernel in every tick), (d) the loader
+              reading them under .png names
 
 then a `{"kernels": [...]}` line (launches: the wire phase's coef run;
 launches_sharded_tick: one sharded serving tick of two shards;
@@ -3869,8 +3883,11 @@ def _write_video(path: str, frames, fps: float = 25.0) -> None:
 
 
 def _video_io(root: str):
-    """(a) The writer and reader round trip, seeks, and the host times."""
+    """(a) The writer and reader round trip (each frame as utils/mjpeg
+    decodes its JPEG alone, which is cv2.VideoCapture's decode), seeks
+    (every frame a keyframe: cv2 lands on frame i), and the host times."""
     import numpy as np
+    from real_time_video_deepfake_detection_tpu_torch.utils import mjpeg
     from real_time_video_deepfake_detection_tpu_torch.utils.jpeg_encode import encode_jpeg
     from real_time_video_deepfake_detection_tpu_torch.utils.video import VideoReader
     frames = _video_frames(VIDEO_FRAMES, 0)
@@ -3879,15 +3896,16 @@ def _video_io(root: str):
     reader = VideoReader(path)
     if not reader.is_opened() or reader.frame_count != VIDEO_FRAMES or reader.fps != 25.0:
         raise AssertionError(f"video (a): {reader.reason} {reader.frame_count} {reader.fps}")
+    wants = [mjpeg.decode_frame(data)[0] for data, _ in frames]
     t0 = time.perf_counter()
-    for i, (_, want) in enumerate(frames):
+    for i, want in enumerate(wants):
         ok, got = reader.read()
         if not ok or not np.array_equal(got, want):
             raise AssertionError(f"video (a): frame {i} differs from its decode")
     read_ms = (time.perf_counter() - t0) * 1e3 / VIDEO_FRAMES
     for i in (47, 0, 13, 13, 8, 31):
         reader.seek(i)
-        if not np.array_equal(reader.read()[1], frames[i][1]):
+        if not np.array_equal(reader.read()[1], wants[i]):
             raise AssertionError(f"video (a): seek({i}) landed elsewhere")
     frame = frames[1][1]
     crop = np.ascontiguousarray(frame[100:324, 300:524])
@@ -3906,6 +3924,81 @@ def _video_io(root: str):
         "encode_ms_224x224_q95": host_ms(lambda: encode_jpeg(crop, 95)),
         "encode_ms_480x640_q95": host_ms(lambda: encode_jpeg(frame, 95)),
         "bytes_per_frame_480x640_q95": len(frames[1][0])}
+
+
+MJPEG_DIR = os.path.join(REPO, "tests", "data", "torch_mjpeg")
+
+
+def _mjpeg_fixtures():
+    """(a3) Motion-JPEG AVI as cv2.VideoCapture(path) reads it (utils/mjpeg,
+    csrc/mjpeg.cpp on the host): every file of tests/data/torch_mjpeg read
+    in order and after seek(i) at every i, each frame's sha256, the frame
+    count and fps against the committed digests of cv2's default backend;
+    the arithmetic-coded and damaged files stopped where they must, with
+    the reason named; host ms a frame of the 4:2:2 and 4:2:0 files."""
+    import numpy as np
+    from real_time_video_deepfake_detection_tpu_torch.utils.video import VideoReader
+    with open(os.path.join(MJPEG_DIR, "digests.json")) as fh:
+        files = json.load(fh)["files"]
+
+    def reads(path, seek=None):
+        r = VideoReader(path)
+        if seek is not None:
+            r.seek(seek)
+        out = []
+        while True:
+            ok, f = r.read()
+            if not ok:
+                return out, r
+            out.append({"sha256": _sha(f), "shape": list(f.shape)})
+
+    problems, stopped, checked = [], {}, 0
+    for name, e in sorted(files.items()):
+        path = os.path.join(MJPEG_DIR, name)
+        got, r = reads(path)
+        if (r.frame_count, r.fps) != (e["frame_count"], e["fps"]):
+            problems.append(f"{name}: count/fps {r.frame_count} {r.fps}")
+        if r.reason:   # a refused or damaged frame: the frames before it
+            stopped[name] = r.reason
+            if got != e["read"][:len(got)] or len(got) >= max(len(e["read"]), 1):
+                problems.append(f"{name}: frames before the stop")
+            continue
+        checked += len(got)
+        if got != e["read"]:
+            problems.append(f"{name}: sequential frames")
+        for i, want in e["seek"].items():
+            checked += len(want)
+            if reads(path, int(i))[0] != want:
+                problems.append(f"{name}: seek({i})")
+    if problems or len(stopped) != 2:
+        raise AssertionError(f"Motion-JPEG fixtures: {problems[:6]} {stopped}")
+    ms = {}
+    for name in ("port_s422_96x64.avi", "cv2_ffmpeg_96x64.avi"):
+        r = VideoReader(os.path.join(MJPEG_DIR, name))
+        t0 = time.perf_counter()
+        n = sum(1 for _ in iter(lambda: r.read()[0] or None, None))
+        ms[name] = (time.perf_counter() - t0) * 1e3 / max(n, 1)
+    return {"files": len(files), "frames_checked": checked, "stopped": stopped,
+            "host_ms_per_frame_96x64": ms}
+
+
+def _writer_replay():
+    """(a4) The mp4v writer past avienc's 1 GiB and movenc's 4 GiB: the
+    packet sizes and key flags of tools/torch_writer_large_proof.py's runs
+    replayed through the muxers with dummy payloads, the SHA-256 of every
+    byte outside the payloads held to cv2's file's."""
+    sys.path.insert(0, REPO)
+    from tests import torch_writer_replay as replay
+    out = {}
+    for kind, run in sorted(replay.load()["runs"].items()):
+        t0 = time.perf_counter()
+        sink = replay.replay(run)
+        ok = sink.digest() == run["nonpayload_sha256"] and sink.tell() == run["file_size"]
+        if not ok:
+            raise AssertionError(f"writer replay {kind}: the container bytes differ")
+        out[kind] = {"packets": len(run["keys"]), "file_bytes": run["file_size"],
+                     "seconds": time.perf_counter() - t0}
+    return out
 
 
 def _mp4v_writer(root: str):
@@ -4515,8 +4608,10 @@ def _mp4_decode(ctx, root: str, weights: str):
 
 
 def phase_video(ctx):
-    """Video in and out: (a) the Motion-JPEG writer and reader, (a2) the
-    mp4v writer against cv2's digests, (b) the single-video analyzer card
+    """Video in and out: (a) the Motion-JPEG writer and reader, (a3) the
+    Motion-JPEG fixtures against cv2's digests, (a4) the writer's
+    large-file forms replayed, (a2) the mp4v writer against cv2's digests,
+    (b) the single-video analyzer card
     against CPU with mp4v --output in AVI and mp4, (c) the batched analyzer over 4 videos, (d)
     the clip-head trainer's CLI, (e) the face pre-extraction, (f) the mp4
     demuxer, (g) H.264 and MPEG-4 Part 2 mp4 decode."""
@@ -4530,7 +4625,9 @@ def phase_video(ctx):
         parts, times = {}, {}
         t0 = time.time()
         _, path, parts["io"] = _video_io(root)
-        for name, fn in (("mp4v_writer", lambda: _mp4v_writer(root)),
+        for name, fn in (("mjpeg_fixtures", _mjpeg_fixtures),
+                         ("writer_replay", _writer_replay),
+                         ("mp4v_writer", lambda: _mp4v_writer(root)),
                          ("single", lambda: _analyze_single(root, path, weights)),
                          ("multi", lambda: _analyze_multi(root, weights)),
                          ("clip_head", lambda: _clip_head_cli(ctx, root, weights)),
@@ -4934,13 +5031,30 @@ FORMAT_APP_INPUTS = (
     "arith_prog_420_83x41.jpg@537", "lossless_rgb_p5_83x41.jpg",
     "lossless_sub_2x2_rgb_83x41.jpg", "lossless_gray_p1_83x41.jpg",
     "bits12_sof1_rgb_83x41.jpg")
+# (and from tests/data/torch_image_formats) PxM, PAM, PFM (the gray one
+# cv2 returns with one channel), Sun raster, Radiance HDR and GIF, with a
+# run-length Sun raster, an XYZE file and a GIF index past its palette,
+# which both routes refuse
+IMAGE_FORMATS_DIR = os.path.join(REPO, "tests", "data", "torch_image_formats")
+IMAGE_FORMAT_APP_INPUTS = (
+    "p1_ascii_83x41.pbm", "p2_comment_maxval100_83x41.pgm", "p6_16bit_83x41.ppm",
+    "pam_blackandwhite_83x41.pam", "pfm_bigendian_scale2_83x41.pfm", "pfm_gray_83x41.pfm",
+    "ras8_colormap_83x41.ras", "ras32_83x41.ras", "hdr_rle_cv2_83x41.hdr",
+    "gif_transparent_offset_83x41.gif", "gif_interlaced_83x41.gif",
+    "ras_rle_refused_83x41.ras", "hdr_xyze_refused_83x41.hdr",
+    "gif_index_past_palette_refused_83x41.gif")
+FORMAT_APP_INPUTS += IMAGE_FORMAT_APP_INPUTS
 FORMAT_APP_REFUSED = ("base_420_83x41.jpg@304", "lossless_gray_p1_83x41.jpg",
-                      "bits12_sof1_rgb_83x41.jpg")
+                      "bits12_sof1_rgb_83x41.jpg", "ras_rle_refused_83x41.ras",
+                      "hdr_xyze_refused_83x41.hdr", "gif_index_past_palette_refused_83x41.gif")
 FORMAT_LOADER_INPUTS = ("prog_420_83x41.jpg", "exif6_83x41.jpg", "exif3_83x41.jpg",
                         "png_rgb8_83x41.png", "png_exif6_83x41.png", "cmyk_83x41.jpg",
                         "s411_83x41.jpg", "png_adam7_rgb16_83x41.png",
                         "arith_prog_s411_83x41.jpg", "arith_seq_cmyk_83x41.jpg",
                         "lossless_rgb_p2_83x41.jpg", "lossless_sub_2x1_rgb_83x41.jpg")
+# image files the loader reads by content under a .png name, as cv2.imread does
+FORMAT_LOADER_MISNAMED = ("p6_83x41.ppm", "gif_cv2_83x41.gif", "ras24_cv2_83x41.ras",
+                          "hdr_rle_cv2_83x41.hdr", "pam_rgb_cv2_83x41.pam")
 
 
 def _format_inputs(directory=FORMATS_DIR):
@@ -5010,6 +5124,29 @@ def _formats_on_card(inputs, digests):
             "smoothed_inputs": sorted(k for k, e in digests.items() if e["smoothed"])}
 
 
+def _image_formats_on_card(inputs, digests):
+    """(a) Every fixture of tests/data/torch_image_formats through the cv2
+    route (utils/pxm, sunras, hdr, gif: host decoders, csrc/image_host.cpp)
+    against cv2.imdecode's digest, the frame carried to the card and back
+    unchanged; host ms of each family's fixture."""
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.utils import image_decode as ID
+    problems, ms = [], {}
+    for key, e in sorted(digests.items()):
+        t = time.perf_counter()
+        got = ID.cv2_route(inputs[key])
+        ms[key] = (time.perf_counter() - t) * 1e3
+        if got is not None:
+            got = torch.from_numpy(got).cuda().cpu().numpy()
+        if not _matches(got, e["cv2"]):
+            problems.append(key)
+    if problems:
+        raise AssertionError("image formats on the card: " + "; ".join(problems[:8]))
+    return {"inputs": len(digests), "refused": sorted(k for k, e in digests.items()
+                                                      if e["cv2"] is None),
+            "host_ms_first_decode": ms}
+
+
 def _formats_http(ctx, inputs):
     """(b) The batched device-detect app (as detect-serve, full-size B0) on
     the card and on the CPU, each on 127.0.0.1: every input of
@@ -5025,7 +5162,7 @@ def _formats_http(ctx, inputs):
         MultiStreamEngine, create_batched_app)
     import torch
     proto, cm = _ssd_files(ctx)
-    scfg = ServerConfig(max_streams=32, max_batch=8, device_detect=True)
+    scfg = ServerConfig(max_streams=48, max_batch=8, device_detect=True)
 
     def engine(device, cfg=scfg):
         return MultiStreamEngine(_detect_cfg(), cfg, params=backbone_state(ctx), device=device,
@@ -5151,27 +5288,33 @@ def _formats_loader(inputs, digests):
     from real_time_video_deepfake_detection_tpu_torch.utils.image_decode import cv2_route
     root = tempfile.mkdtemp(prefix="chip_smoke_formats_")
     try:
-        for i, name in enumerate(FORMAT_LOADER_INPUTS):
+        source = {}   # the name in the dataset -> the fixture
+        for i, name in enumerate(FORMAT_LOADER_INPUTS + FORMAT_LOADER_MISNAMED):
             d = os.path.join(root, "val", ("real", "fake")[i % 2])
             os.makedirs(d, exist_ok=True)
             src = os.path.join(FORMATS_DIR, name)
-            if not os.path.exists(src):
-                src = os.path.join(JPEG_MODES_DIR, name)
-            shutil.copy(src, os.path.join(d, name))
+            for other in (JPEG_MODES_DIR, IMAGE_FORMATS_DIR):
+                if not os.path.exists(src):
+                    src = os.path.join(other, name)
+            as_name = name if name in FORMAT_LOADER_INPUTS else name.rsplit(".", 1)[0] + ".png"
+            source[as_name] = name
+            shutil.copy(src, os.path.join(d, as_name))
         ds = TD.DeepfakeDataset(root, "val", 224)
         loader = TD.BatchLoader(ds, 4, shuffle=False, drop_last=False, num_workers=4,
                                 device="cuda")
         batches = [x for x, _ in loader]
         got = torch.cat(batches).cpu()
         for k, (path, _) in enumerate(ds.samples):
-            frame = cv2_route(inputs[os.path.basename(path)])
-            if not _matches(frame, digests[os.path.basename(path)]["cv2"]):
+            name = source[os.path.basename(path)]
+            frame = cv2_route(inputs[name])
+            if not _matches(frame, digests[name]["cv2"]):
                 raise AssertionError(f"{path}: the host decode differs from cv2's")
             want = resize_bilinear_u8_cv2(torch.from_numpy(frame)[None], 224, 224,
                                           cv2_rows=True).flip(-1)[0]
             if not torch.equal(got[k], want):
                 raise AssertionError(f"{path}: the loader's image on the card differs")
-        return {"images": len(ds), "batches": len(batches), "device": str(batches[0].device)}
+        return {"images": len(ds), "batches": len(batches), "device": str(batches[0].device),
+                "misnamed_png": sorted(k for k, v in source.items() if k != v)}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -5246,19 +5389,24 @@ def _formats_timing(inputs):
 def phase_formats(ctx):
     """Every image the JAX package decodes on its serving and training
     paths: (a) the fixtures' frames on the card against the digests, the
-    arithmetic, lossless and 12-bit ones too, (b) the batched device-detect
+    arithmetic, lossless and 12-bit ones too, and the PxM, PAM, PFM, Sun
+    raster, HDR and GIF ones, (b) the batched device-detect
     app on the card against the CPU app, launches counted, (c) a
     progressive and an arithmetic stream through the coef plane, (d) the
     loader on the card over mixed formats, (e) decode times."""
     inputs, digests = _format_inputs()
     modes, mode_digests = _format_inputs(JPEG_MODES_DIR)
-    everything = {**inputs, **modes}
+    images, image_digests = _format_inputs(IMAGE_FORMATS_DIR)
+    everything = {**inputs, **modes, **images}
     t0 = time.time()
     out = {"card": ctx["smi"]}
     for key, fn in (("on_card", lambda: _formats_on_card(inputs, digests)),
                     ("jpeg_modes_on_card", lambda: _formats_on_card(modes, mode_digests)),
+                    ("image_formats_on_card", lambda: _image_formats_on_card(images,
+                                                                             image_digests)),
                     ("http", lambda: _formats_http(ctx, everything)),
-                    ("loader", lambda: _formats_loader(everything, {**digests, **mode_digests})),
+                    ("loader", lambda: _formats_loader(everything, {**digests, **mode_digests,
+                                                                    **image_digests})),
                     ("timing", lambda: _formats_timing(inputs))):
         t = time.time()
         out[key] = fn()

@@ -212,6 +212,7 @@ struct Bits {
   int nbits = 0;
   int zeros = 0;        // zero bits appended after the data stopped
   bool stopped = false; // at a marker: pos is its first FF
+  int64_t* errors = nullptr;   // counts codes libavcodec's mjpeg decoder rejects
 
   void fill() {
     while (nbits <= 56) {
@@ -268,6 +269,7 @@ struct Bits {
     }
     if (l > 16) {
       nbits -= 17;
+      if (errors) ++*errors;
       return 0;
     }
     nbits -= l;
@@ -417,6 +419,8 @@ struct Decoder {
   int next_rst = 0;
   int scans = 0;                 // SOS markers read (input_scan_number)
   int last_good_row = 0;         // jdcoefct.c last_good_iMCU_row
+  int64_t huff_errors = 0;       // Huffman codes not in their table, runs past a block
+  bool overran = false;          // a Huffman scan ran out of data (libjpeg's warning)
   bool decoding = false;         // false: a probe, which stops at the first SOS
 
   Decoder(const uint8_t* data, size_t len) : src{data, len} {
@@ -808,6 +812,7 @@ struct Decoder {
       s = rs & 15;
       if (s) {
         k += r;
+        if (k > 63 && br->errors) ++*br->errors;   // a run past the block
         blk[kNatural[k]] = static_cast<int16_t>(extend(br->get(s), s));
       } else {
         if (r != 15) break;
@@ -1195,6 +1200,7 @@ struct Decoder {
     }
 
     Bits br{&src, pos};
+    br.errors = &huff_errors;
     int last_dc[kMaxComps] = {0, 0, 0, 0};
     unsigned eobrun = 0;
     bool insufficient = false, overflow = false;
@@ -1306,7 +1312,7 @@ struct Decoder {
           mcu_start();
           if (insufficient) continue;
           decode_one(0, block_of(k, by, bx));
-          if (br.overrun()) insufficient = true;
+          if (br.overrun()) insufficient = overran = true;
         }
       }
     } else {
@@ -1321,7 +1327,7 @@ struct Decoder {
               for (int h = 0; h < k.h; ++h)
                 decode_one(i, block_of(k, int64_t(my) * k.v + v, int64_t(mx) * k.h + h));
           }
-          if (br.overrun()) insufficient = true;
+          if (br.overrun()) insufficient = overran = true;
         }
       }
     }

@@ -309,10 +309,6 @@ static inline int sad8(const uint8_t* a, int as, const uint8_t* b, int bs) {
   return s;
 }
 static inline int avg2(int a, int b) { return (a + b + 1) >> 1; }
-// pix_abs[0][dxy]: the SAD against a half-pel average of p (x2 and y2 as
-// pavgb; xy2 as libavcodec's non-bitexact sad16_approx_xy2: the
-// horizontal averages of two rows, the odd row's less one (saturated),
-// averaged again with pavgb)
 static inline unsigned isqrt(unsigned a) {  // ff_sqrt: floor(sqrt(a))
   unsigned r = (unsigned)std::sqrt((double)a);
   while ((uint64_t)r * r > a) --r;
@@ -830,8 +826,12 @@ struct Encoder {
 
   // pix_abs[0][dxy]: the SAD of the source macroblock against a half-pel
   // average of the reference at p (x2 and y2 as pavgb; xy2 as libavcodec's
-  // non-bitexact sad16_approx_xy2: the horizontal averages of two rows, the
-  // odd row's less one (saturated), averaged again with pavgb)
+  // non-bitexact ff_sad16_approx_xy2_sse2, read from the bundled library's
+  // code: the pavgb horizontal averages of two reference rows, the one of
+  // odd index from the block's top less one (psubusb, saturating at 0),
+  // averaged again with pavgb; the writer case "xy2" of
+  // tests/torch_mpeg4_scenes.py fails with the even row or the lower row
+  // decremented instead)
   int sad_hpel_at(const uint8_t* pix, const uint8_t* p, int dxy) const {
     int s = 0;
     if (dxy == 1 || dxy == 2) {

@@ -82,7 +82,7 @@ from ..utils.jpeg_ingest import (
     WIRE_PLANES, JpegError, decode_coefs_batch, decode_wire_into, frames_at,
     log_refusal, wire_buffer, wire_views,
 )
-from ..utils.image_decode import cv2_route, decode_frame
+from ..utils.image_decode import as_bgr, cv2_route, decode_frame
 from ..utils.native_prep import prep_frame
 from .batcher import (
     StreamStates, clip_head_spec, device_step_compact, init_stream_states,
@@ -531,7 +531,7 @@ class MultiStreamEngine:
                 r = prep_frame(data, self.cfg.forensic.analysis_size,
                                self.cfg.mtcnn_image_size)
             if r is None:
-                frame = decode_frame(data)
+                frame = as_bgr(decode_frame(data))
                 return dict(_INVALID_IMAGE) if frame is None else self.analyze(
                     frame, stream_id, timeout)
             frame256, aligned, box = r
@@ -680,7 +680,7 @@ class MultiStreamEngine:
         for p, jc in zip(entries, decode_coefs_batch([p.jpeg for p in entries],
                                                      self.server_cfg.prep_threads)):
             if isinstance(jc, JpegError):
-                f = cv2_route(p.jpeg)
+                f = as_bgr(cv2_route(p.jpeg))
                 if f is None:
                     log_refusal(f"native: {jc}")
                     p.result = dict(_INVALID_IMAGE)

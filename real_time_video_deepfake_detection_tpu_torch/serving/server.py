@@ -42,7 +42,7 @@ from ..core.config import DetectorConfig, ServerConfig
 from ..models import backbones
 from ..models.temporal_head import TemporalHead
 from ..pipeline.detector import DeepfakeDetector
-from ..utils.image_decode import decode_frame
+from ..utils.image_decode import as_bgr, decode_frame
 from .batcher import clip_head_spec
 from .wsgi import App, Request, Response, jsonify
 
@@ -51,9 +51,9 @@ logger = logging.getLogger(__name__)
 
 def _decode_frame(data: bytes) -> Optional[np.ndarray]:
     """Image bytes -> BGR u8 (H, W, 3) on the JAX server's ladder (native
-    libjpeg route for FF D8, then the cv2 route); None (the reasons logged
-    once) when both refuse."""
-    return decode_frame(data)
+    libjpeg route for FF D8, then the cv2 route; a one-channel frame gets
+    three); None (the reasons logged once) when both refuse."""
+    return as_bgr(decode_frame(data))
 
 
 def _device_strings(device: Union[str, torch.device]) -> Tuple[str, Optional[str]]:

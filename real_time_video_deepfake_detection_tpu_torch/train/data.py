@@ -41,7 +41,7 @@ import torch
 
 from ..ops.resize import resize_bilinear_u8_cv2
 from ..utils.exif import apply_orientation, jpeg_orientation
-from ..utils.image_decode import JPEG_SIGNATURE, cv2_route, unported_format
+from ..utils.image_decode import JPEG_SIGNATURE, as_bgr, cv2_route, unported_format
 from ..utils.jpeg_ingest import LOSSLESS, JpegError, decode_coefs_batch, reconstruct
 
 # JpegError statuses of a stream cv2 refuses too (truncated, corrupt, 12- or
@@ -125,7 +125,7 @@ class DeepfakeDataset:
         for k, path, data in todo:
             if data.startswith(JPEG_SIGNATURE) and k not in lossless:
                 continue
-            frame = cv2_route(data)   # PNG, BMP, lossless JPEG
+            frame = as_bgr(cv2_route(data))   # PNG, BMP, lossless JPEG, other formats
             if frame is None:
                 out[k] = UnsupportedImage(f"{path}: a format the port does not decode") \
                     if unported_format(data) else OSError(f"{path}: cv2.imread refuses it")

@@ -10,17 +10,21 @@ the same one at each entry point:
   orientation. Lossless JPEGs are refused, as libjpeg-turbo 2.1.5 refuses
   them.
 - `cv2_route`: cv2.imdecode / cv2.imread with IMREAD_COLOR (the fallback
-  of every native entry point, and the training loader). JPEG (CMYK and
-  YCCK too, and lossless RGB and CMYK frames as cv2's libjpeg-turbo 3.1.2
-  decodes them, but not a stream that ends before its EOI marker), PNG and
-  BMP, each turned by its EXIF orientation.
+  of every native entry point, and the training loader). The decoder is
+  picked by cv2's own signature checks: JPEG (CMYK and YCCK too, and
+  lossless RGB and CMYK frames as cv2's libjpeg-turbo 3.1.2 decodes them,
+  but not a stream that ends before its EOI marker), PNG and BMP, each
+  turned by its EXIF orientation; Radiance HDR (utils/hdr.py), Sun raster
+  (utils/sunras.py), PBM / PGM / PPM, PAM and PFM (utils/pxm.py; a Pf
+  comes out (H, W), one channel, as cv2 returns it) and GIF's first frame
+  (utils/gif.py).
 
 `decode_frame` is the single-stream server's ladder (server.py:40-49):
 bytes that start FF D8 try the native route, then the cv2 route. What
 both routes refuse gives None, its reason logged once: 12- and 16-bit
 JPEGs (neither libjpeg build decodes them), and the formats cv2 reads and
-the port does not (WebP, GIF, TIFF, PxM, Sun raster, JPEG 2000, AVIF, HDR,
-OpenEXR), with that reason.
+the port does not (WebP, TIFF, JPEG 2000, AVIF, OpenEXR), with that
+reason.
 """
 
 from __future__ import annotations
@@ -30,22 +34,20 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import bmp, exif, png
+from . import bmp, exif, gif, hdr, png, pxm, sunras
 from .jpeg_ingest import decode_jpeg, log_refusal
 
 JPEG_SIGNATURE = b"\xff\xd8\xff"   # cv2's JPEG decoder signature
 
 
 # Leading bytes of the formats cv2.imdecode reads and the port does not
-_UNPORTED = (b"RIFF", b"GIF87a", b"GIF89a", b"II*\x00", b"MM\x00*", b"\x59\xa6\x6a\x95",
-             b"\x00\x00\x00\x0cjP  ", b"\xff\x4f\xff\x51", b"#?RADIANCE", b"#?RGBE",
-             b"\x76\x2f\x31\x01", b"PF", b"Pf") + tuple(b"P%d" % i for i in range(1, 8))
+_UNPORTED = (b"RIFF", b"II*\x00", b"MM\x00*", b"\x00\x00\x00\x0cjP  ", b"\xff\x4f\xff\x51",
+             b"\x76\x2f\x31\x01")
 
 
 def unported_format(data: bytes) -> bool:
     """Whether `data` looks like an image in a format that cv2 reads and
-    the port does not decode (WebP, GIF, TIFF, Sun raster, JPEG 2000,
-    Radiance HDR, OpenEXR, PxM/PFM, or AVIF)."""
+    the port does not decode (WebP, TIFF, JPEG 2000, OpenEXR or AVIF)."""
     return data.startswith(_UNPORTED) or data[4:12] in (b"ftypavif", b"ftypavis")
 
 
@@ -79,8 +81,31 @@ def cv2_route(data: bytes) -> Optional[np.ndarray]:
     if data.startswith(bmp.SIGNATURE):
         frame = bmp.decode_bmp(data)
         return frame if frame is not None else _refused("BMP that cv2 refuses")
-    return _refused("not a JPEG, PNG or BMP image (cv2 reads more formats; the port "
-                    "decodes these three)")
+    for name, claims, decode in _DECODERS:
+        if claims(data):
+            frame = decode(data)
+            return frame if frame is not None else _refused(f"{name} that cv2 refuses")
+    return _refused("not a JPEG, PNG, BMP, Radiance HDR, Sun raster, PxM, PAM, PFM or GIF "
+                    "image (cv2 reads more formats; the port decodes these)")
+
+
+# cv2's other decoders, each claiming its signature as cv2 checks it
+_DECODERS = (
+    ("Radiance HDR", lambda d: d.startswith(hdr.SIGNATURES), hdr.decode_hdr),
+    ("Sun raster", lambda d: d.startswith(sunras.SIGNATURE), sunras.decode_sunras),
+    ("PBM/PGM/PPM", pxm.is_pxm, pxm.decode_pxm),
+    ("PAM", pxm.is_pam, pxm.decode_pam),
+    ("PFM", pxm.is_pfm, pxm.decode_pfm),
+    ("GIF", lambda d: d.startswith(gif.SIGNATURES), gif.decode_gif),
+)
+
+
+def as_bgr(frame: Optional[np.ndarray]) -> Optional[np.ndarray]:
+    """A decoded frame as the analysis takes it: a one-channel one (a gray
+    PFM, as cv2 returns it) with its gray in all three channels. JAX's
+    entry points analyse cv2's two-dimensional array as it is, along other
+    axes, so their verdicts on such a frame are not this one's."""
+    return np.repeat(frame[..., None], 3, 2) if frame is not None and frame.ndim == 2 else frame
 
 
 def decode_frame(data: bytes) -> Optional[np.ndarray]:

@@ -474,7 +474,10 @@ def read(path) -> VideoTrack:
 # data handler], dinf, stbl: stsd (the mp4v entry with its esds, and btrt in
 # mp4), stts, stss (when not every sample is a keyframe), stsc, stsz (one
 # size when all are equal), stco) and a udta naming the muxer (an iTunes
-# ilst in mp4 and m4v, ©swr in mov).
+# ilst in mp4 and m4v, ©swr in mov). Past 4 GiB the chunk offsets go to a
+# co64 box (once the last sample starts past 2^32 - 1, co64_required) and
+# the mdat, once its size passes 2^32 - 1, takes the placeholder's 8 bytes
+# for a 64-bit size (mov_write_trailer).
 
 MUXER = "Lavf62.12.101"
 _KINDS = {
@@ -577,15 +580,24 @@ class Mp4Muxer:
         else:
             stsz = struct.pack(f">II{n}I", 0, n, *self.sizes)
         boxes.append(_full_box(b"stsz", 0, 0, stsz))
-        boxes.append(_full_box(b"stco", 0, 0, struct.pack(f">I{len(chunks)}I", len(chunks),
-                                                          *[c[0] for c in chunks])))
+        if self.offsets and self.offsets[-1] > 0xFFFFFFFF:
+            boxes.append(_full_box(b"co64", 0, 0, struct.pack(f">I{len(chunks)}Q", len(chunks),
+                                                              *[c[0] for c in chunks])))
+        else:
+            boxes.append(_full_box(b"stco", 0, 0, struct.pack(f">I{len(chunks)}I", len(chunks),
+                                                              *[c[0] for c in chunks])))
         return _box(b"stbl", *boxes)
 
     def finish(self) -> None:
         fh, mov = self.fh, self.kind == "mov"
         end = fh.tell()
-        fh.seek(self.mdat_at)
-        fh.write(struct.pack(">I", end - self.mdat_at))
+        size = end - self.mdat_at
+        if size <= 0xFFFFFFFF:
+            fh.seek(self.mdat_at)
+            fh.write(struct.pack(">I", size))
+        else:   # the placeholder box becomes the 64-bit size's header
+            fh.seek(self.mdat_at - 8)
+            fh.write(struct.pack(">I4sQ", 1, b"mdat", size + 8))
         fh.seek(end)
         n = len(self.sizes)
         duration = n * self.delta

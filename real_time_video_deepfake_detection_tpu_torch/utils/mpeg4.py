@@ -36,7 +36,7 @@ import numpy as np
 from .host_build import build_host_library, csrc
 
 SRC = csrc("mpeg4.cpp")
-INCLUDES = (csrc("yuv2bgr.cpp"),)
+INCLUDES = (csrc("simple_idct.cpp"), csrc("yuv2bgr.cpp"))
 CXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
@@ -194,7 +194,7 @@ class Decoder:
 # ------------------------------------------------------------------ encoder
 
 ENC_SRC = csrc("mpeg4_enc.cpp")
-ENC_INCLUDES = (SRC, csrc("yuv2bgr.cpp"), csrc("bgr2yuv.cpp"))
+ENC_INCLUDES = (SRC, csrc("simple_idct.cpp"), csrc("yuv2bgr.cpp"), csrc("bgr2yuv.cpp"))
 ENC_CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]   # no -march: no FMA contraction
 _enc_lib = None
 

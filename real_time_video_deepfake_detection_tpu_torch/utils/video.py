@@ -42,14 +42,21 @@ Xvid- and DivX-written streams (DivX's packed B-frames among them) are
 refused by the decoder.
 
 Motion-JPEG AVI (a RIFF 'AVI ' file whose video stream is MJPG): each
-frame decoded by the port's JPEG decoder (utils/jpeg_ingest.decode_jpeg),
-which equals libjpeg's: its frames equal cv2.VideoCapture(path,
-cv2.CAP_OPENCV_MJPEG)'s byte for byte, and its `seek` lands on the exact
-frame. Frame offsets come from the idx1 index when the file has one, else
-from a scan of the movi list; OpenDML 'AVIX' continuations are scanned
-too. A frame without a DHT segment (camera Motion-JPEG) gets the standard
-Huffman tables libjpeg supplies. cv2's default (FFmpeg) backend decodes
-Motion-JPEG with its own IDCT and upsampling, which differ from libjpeg's.
+chunk a frame, decoded as libavcodec's mjpeg decoder decodes it and
+converted as libswscale converts it (utils/mjpeg.py), so its frames equal
+cv2.VideoCapture(path)'s (the FFmpeg backend, not CAP_OPENCV_MJPEG, whose
+libjpeg decode differs) byte for byte, in gray, 4:4:4, 4:2:2, 4:2:0, 4:1:1
+and 4:4:0 at any size, with or without DHT segments (the Annex K tables,
+then the stream's last); its chunks are packets as for an mp4v AVI, so
+`frame_count`, `fps` and the landing of `seek` are cv2's too. Other
+samplings and arithmetic, lossless, 12-bit and non-YCbCr frames are
+refused by name when the reader reaches them, and a damaged frame stops it
+(libavcodec conceals the damage and reads on).
+
+Chunk offsets come, as avidec takes them, from the OpenDML index (the
+super index and each part's ix00) when the file has one, else from idx1
+and then a scan of the OpenDML 'AVIX' parts, else from a scan of the movi
+lists. The file is mapped (mmap), not read into memory.
 
 Nothing else opens: a camera index, a missing file, any other container
 or codec (`VideoReader.reason` says why).
@@ -57,8 +64,9 @@ or codec (`VideoReader.reason` says why).
 `VideoWriter(path, fourcc, fps, size)` writes 'mp4v' as cv2 5.0's
 cv2.VideoWriter writes it, byte for byte, in mp4, mov, m4v or AVI by the
 path's extension (utils/mpeg4.Encoder, utils/mp4.Mp4Muxer and avienc's
-layout here); and, under 'MJPG', the port's Motion-JPEG AVI of
-cv2.imencode q95 frames, which cv2 opens with its FFmpeg and its
+layout here), past 4 GiB too (movenc's co64 and 64-bit mdat, avienc's
+OpenDML parts from 1 GiB on); and, under 'MJPG', the port's Motion-JPEG AVI
+of cv2.imencode q95 frames, which cv2 opens with its FFmpeg and its
 Motion-JPEG backends. Other fourccs and containers (.mkv, .webm, no
 extension) raise ValueError naming them.
 """
@@ -66,20 +74,21 @@ extension) raise ValueError naming them.
 from __future__ import annotations
 
 import math
+import mmap
 import os
 import struct
 from typing import List, Optional, Tuple
 
 import numpy as np
 
-from . import h264, mp4, mpeg4
-from .jpeg_encode import encode_jpeg, standard_dht
-from .jpeg_ingest import decode_jpeg
+from . import h264, mjpeg, mp4, mpeg4
+from .jpeg_encode import encode_jpeg
 
 FORMATS = ("H.264 mp4 / mov (Constrained Baseline, Main and High: progressive 8-bit 4:2:0), "
            "MPEG-4 Part 2 mp4 / mov / AVI (mp4v as FFmpeg's mpeg4 encoder writes it: Simple "
            "and Advanced Simple, progressive), and "
-           "Motion-JPEG AVI (RIFF 'AVI ' with an MJPG video stream)")
+           "Motion-JPEG AVI (RIFF 'AVI ' with an MJPG video stream: gray, 4:4:4, 4:2:2, 4:2:0, "
+           "4:1:1 and 4:4:0 frames of 8 bits, Huffman-coded)")
 QUALITY = 95   # of the frames the 'MJPG' writer encodes, as the JAX package's crops
 
 
@@ -93,19 +102,6 @@ def _chunks(data: bytes, off: int, end: int):
         off += 8 + size + (size & 1)
 
 
-def _has_dht(jpeg: bytes) -> bool:
-    """Whether a DHT marker comes before the first SOS."""
-    i = 2
-    while i + 4 <= len(jpeg) and jpeg[i] == 0xFF:
-        m = jpeg[i + 1]
-        if m == 0xC4:
-            return True
-        if m == 0xDA:
-            return False
-        i += 2 + struct.unpack_from(">H", jpeg, i + 2)[0]
-    return False
-
-
 _INT_MAX = 2 ** 31 - 1
 # AVI compression fourccs of MPEG-4 Part 2 (FFmpeg's, cv2's, Xvid's and DivX's)
 _MPEG4_TAGS = (b"MP4V", b"FMP4", b"XVID", b"DIVX", b"DX50", b"MP4S", b"M4S2")
@@ -113,14 +109,18 @@ _INDEX_KEYFRAME, _INDEX_DISCARD = 1, 2
 
 
 class _Mp4Track:
-    """An mp4 track read as cv2 5.0's FFmpeg backend reads it, whatever its
-    codec: grab() decodes packets until a picture comes out
-    (CvCapture_FFMPEG::grabFrame), seek() is CvCapture_FFMPEG::seek over
-    libavformat's backward keyframe seek (ff_index_search_timestamp on the
-    samples' dts). `decoder` is an h264.Decoder or an mpeg4.Decoder."""
+    """An mp4 track (or an AVI stream's chunks) read as cv2 5.0's FFmpeg
+    backend reads it, whatever its codec: grab() decodes packets until a
+    picture comes out (CvCapture_FFMPEG::grabFrame), seek() is
+    CvCapture_FFMPEG::seek over libavformat's backward keyframe seek
+    (ff_index_search_timestamp on the samples' dts). `decoder` is an
+    h264.Decoder, an mpeg4.Decoder or an mjpeg.Decoder. An AVI stream
+    (`avi`) has no nb_frames in libavformat, so its reads do not stop at
+    the frame count (CAP_PROP_FRAME_COUNT, the header's length)."""
 
-    def __init__(self, data: bytes, track: mp4.VideoTrack, decoder):
+    def __init__(self, data: bytes, track: mp4.VideoTrack, decoder, avi: bool = False):
         self.data, self.track, self.decoder = data, track, decoder
+        self.avi = avi
         self.time_base = 1 / track.timescale   # r2d(time_base)
         kept = track.pts[~track.discard] if track.discard.any() else track.pts
         self.start_time = int(kept.min()) if len(kept) else 0
@@ -156,14 +156,14 @@ class _Mp4Track:
             self.eof = True
             self.decoder.drain()
             return True
-        except (h264.H264Error, mpeg4.Mpeg4Error) as e:
+        except (h264.H264Error, mpeg4.Mpeg4Error, mjpeg.MjpegError) as e:
             self.error = str(e)
             return False
 
     def grab(self) -> bool:
         if self.error:
             return False
-        if self.track.frame_count > 0 and self.frame_number > self.track.frame_count:
+        if not self.avi and 0 < self.track.frame_count < self.frame_number:
             return False
         if self.held:
             self.decoder.take(bgr=False)
@@ -248,25 +248,26 @@ class _Mp4Track:
 
 
 class VideoReader:
-    """Frames of an H.264 mp4 / mov (Constrained Baseline, Main, High) or an
-    MPEG-4 Part 2 one (mp4v), as cv2.VideoCapture(path) reads them, or of a
-    Motion-JPEG AVI, as cv2.VideoCapture(path, CAP_OPENCV_MJPEG) reads them:
-    `read()` -> (ok, (H, W, 3) u8 BGR or None), `seek(i)`
-    (CAP_PROP_POS_FRAMES), `frame_count`, `fps`."""
+    """Frames of an H.264 mp4 / mov (Constrained Baseline, Main, High), an
+    MPEG-4 Part 2 mp4 / mov / AVI (mp4v) or a Motion-JPEG AVI, as
+    cv2.VideoCapture(path) reads them: `read()` -> (ok, (H, W, 3) u8 BGR or
+    None), `seek(i)` (CAP_PROP_POS_FRAMES), `frame_count`, `fps`. The file is
+    mapped, not read."""
 
     def __init__(self, path):
         self.reason = ""
         self.fps = 0.0
-        self._frames: List[Tuple[int, int]] = []   # (offset, size) per frame
-        self._pos = 0
         self._data = b""
+        self._map: Optional[mmap.mmap] = None
         self._mp4: Optional[_Mp4Track] = None
         if not isinstance(path, (str, os.PathLike)):
             self.reason = f"{path!r} is not a file path (camera capture is not supported)"
             return
         try:
             with open(path, "rb") as fh:
-                self._data = fh.read()
+                if os.fstat(fh.fileno()).st_size:
+                    self._map = mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_READ)
+                    self._data = self._map
         except OSError as e:
             self.reason = f"cannot read {os.fspath(path)}: {e.strerror}"
             return
@@ -275,7 +276,7 @@ class VideoReader:
         except (struct.error, ValueError, IndexError) as e:
             self.reason = f"malformed AVI: {e}"
         if self.reason:
-            self._frames, self._data, self._mp4 = [], b"", None
+            self.release()
 
     def _parse(self) -> str:
         data = self._data
@@ -322,41 +323,43 @@ class VideoReader:
         stream = self._video_stream(*lists[b"hdrl"])
         if stream is None:
             return f"no MJPG video stream (nor an MPEG-4 Part 2 one); the port reads {FORMATS} only"
-        index, codec, scale, rate, length, width, height = stream
+        index, codec, scale, rate, length, width, height, indx = stream
         self.fps = rate / scale if scale else 0.0
         tags = (b"%02ddc" % index, b"%02ddb" % index)
         movi_off, movi_size = lists[b"movi"]
-        frames = self._from_idx1(idx1, movi_off, tags) if idx1 else None
+        # avidec's order: the OpenDML index, else idx1 and then the chunks
+        # of the OpenDML parts (read on past the index), else the chunks met
+        frames = self._from_odml(indx, tags) if indx else None
         if frames is None:
-            frames = self._scan_movi(movi_off + 4, movi_off + movi_size, tags)
-        for off, size in riffs[1:]:                 # OpenDML RIFF 'AVIX' parts
-            if data[off:off + 4] != b"AVIX":
-                continue
-            for fcc, loff, lsize in _chunks(data, off + 4, off + size):
-                if fcc == b"LIST" and data[loff:loff + 4] == b"movi":
-                    frames += self._scan_movi(loff + 4, loff + lsize, tags)
-        if codec == "mp4v":
-            return self._open_avi_mp4v(frames, scale, rate, length, width, height)
-        self._frames = [(off, size) for off, size, _ in frames]
-        return ""
-
-    def _open_avi_mp4v(self, frames, scale: int, rate: int, length: int, width: int,
-                       height: int) -> str:
-        """An MPEG-4 Part 2 stream in AVI, read as libavformat's avidec gives
-        it to cv2: a packet per chunk, its time the chunk's number in units of
-        the stream header's scale / rate, keyframes as idx1 flags them (all,
-        without an index), the frame count the header's length."""
-        frames = [f for f in frames if f[1] > 0]
+            frames = self._from_idx1(idx1, movi_off, tags) if idx1 else None
+            if frames is None:
+                frames = self._scan_movi(movi_off + 4, movi_off + movi_size, tags)
+            for off, size in riffs[1:]:                 # OpenDML RIFF 'AVIX' parts
+                if data[off:off + 4] != b"AVIX":
+                    continue
+                for fcc, loff, lsize in _chunks(data, off + 4, off + size):
+                    if fcc == b"LIST" and data[loff:loff + 4] == b"movi":
+                        frames += self._scan_movi(loff + 4, loff + lsize, tags)
+        # the AVI stream as libavformat's avidec gives it to cv2: a packet per
+        # chunk of data, its time the chunk's number (empty chunks counted) in
+        # units of the stream header's scale / rate, keyframes as the index
+        # flags them (all, without one), the frame count the header's length
+        numbered = [(i, f) for i, f in enumerate(frames) if f[1] > 0]
+        frames = [f for _, f in numbered]
         n = len(frames)
         count = length or n
+        dts = np.array([i for i, _ in numbered], np.int64) * scale
         track = mp4.VideoTrack(
-            "mp4v", width, height, max(rate, 1),
+            codec, width, height, max(rate, 1),
             np.array([f[0] for f in frames], np.int64), np.array([f[1] for f in frames], np.int64),
-            np.arange(n, dtype=np.int64) * scale, np.arange(n, dtype=np.int64) * scale,
-            np.array([f[2] for f in frames], bool), count, self.fps, np.zeros(n, bool))
-        return self._open_mp4v(track, f"{count} frames")
+            dts, dts.copy(), np.array([f[2] for f in frames], bool), count, self.fps,
+            np.zeros(n, bool))
+        if codec == "mp4v":
+            return self._open_mp4v(track, f"{count} frames", avi=True)
+        self._mp4 = _Mp4Track(data, track, mjpeg.Decoder(), avi=True)
+        return ""
 
-    def _open_mp4v(self, track: mp4.VideoTrack, frames: str) -> str:
+    def _open_mp4v(self, track: mp4.VideoTrack, frames: str, avi: bool = False) -> str:
         """An mp4v track: its esds headers and first sample judged, then
         opened."""
         first = b""
@@ -369,24 +372,26 @@ class VideoReader:
         why = decoder.unsupported()
         if why:
             return f"{track.codec_name}: {why}: {frames}; the port reads {FORMATS} only"
-        self._mp4, self.fps = _Mp4Track(self._data, track, decoder), track.fps
+        self._mp4, self.fps = _Mp4Track(self._data, track, decoder, avi), track.fps
         return ""
 
     def _video_stream(self, off: int, size: int):
-        """(index, codec 'mjpg' / 'mp4v', scale, rate, length, width, height)
-        of the first Motion-JPEG or MPEG-4 Part 2 video stream of hdrl, or
-        None."""
+        """(index, codec 'mjpg' / 'mp4v', scale, rate, length, width, height,
+        its OpenDML super index (offset, size) or None) of the first
+        Motion-JPEG or MPEG-4 Part 2 video stream of hdrl, or None."""
         data = self._data
         index = 0
         for fcc, loff, lsize in _chunks(data, off + 4, off + size):
             if fcc != b"LIST" or data[loff:loff + 4] != b"strl":
                 continue
-            strh = strf = None
+            strh = strf = indx = None
             for sfcc, soff, ssize in _chunks(data, loff + 4, loff + lsize):
                 if sfcc == b"strh" and ssize >= 48:
                     strh = (soff, ssize)
                 elif sfcc == b"strf" and ssize >= 20:
                     strf = (soff, ssize)
+                elif sfcc == b"indx" and ssize >= 24:
+                    indx = (soff, ssize)
             if strh and data[strh[0]:strh[0] + 4] == b"vids":
                 handler = data[strh[0] + 4:strh[0] + 8].upper()
                 compression = data[strf[0] + 16:strf[0] + 20].upper() if strf else b""
@@ -396,9 +401,39 @@ class VideoReader:
                     scale, rate, _, length = struct.unpack_from("<IIII", data, strh[0] + 20)
                     width, height = (struct.unpack_from("<ii", data, strf[0] + 4) if strf
                                      else (0, 0))
-                    return index, codec, scale, rate, length, width, abs(height)
+                    return index, codec, scale, rate, length, width, abs(height), indx
             index += 1
         return None
+
+    def _from_odml(self, indx, tags, depth: int = 0) -> Optional[List[Tuple[int, int, bool]]]:
+        """Frames of an OpenDML index (avidec's read_odml_index): a super
+        index of standard indexes ('ix00': offsets from their base, bit 31 of
+        the size set on a non-keyframe), (offset, size, keyframe) with the
+        empty entries kept; None when it is not one."""
+        data = self._data
+        off, size = indx
+        longs, sub, kind, n, chunk, base = struct.unpack_from("<HBBI4sQ", data, off)
+        if sub or kind > 1 or (kind and longs != 2) or chunk not in tags or depth > 4:
+            return None
+        frames: List[Tuple[int, int, bool]] = []
+        for i in range(min(n, (size - 24) // (8 if kind else 16))):
+            if kind:
+                rel, length = struct.unpack_from("<II", data, off + 24 + 8 * i)
+                at = base + rel
+                length_ = length & 0x7FFFFFFF
+                frames.append((at, length_ if at + length_ <= len(data) else 0,
+                               not length & 0x80000000))
+            else:
+                ix_off = struct.unpack_from("<Q", data, off + 24 + 16 * i)[0]
+                if ix_off + 32 > len(data):
+                    return None
+                ix_size = struct.unpack_from("<I", data, ix_off + 4)[0]
+                part = self._from_odml((ix_off + 8, min(ix_size, len(data) - ix_off - 8)), tags,
+                                       depth + 1)
+                if part is None:
+                    return None
+                frames += part
+        return frames
 
     def _from_idx1(self, idx1, movi_off: int, tags) -> Optional[List[Tuple[int, int, bool]]]:
         """Frames of the idx1 index, (offset, size, keyframe): the offsets
@@ -413,15 +448,15 @@ class VideoReader:
         for base in (movi_off, 0):
             ck_off = base + entries[0][2]
             if data[ck_off:ck_off + 4] == entries[0][0]:
-                return [(base + e[2] + 8, e[3], bool(e[1] & 0x10)) for e in entries
-                        if e[3] > 0 and base + e[2] + 8 + e[3] <= len(data)]
+                return [(base + e[2] + 8, e[3] if base + e[2] + 8 + e[3] <= len(data) else 0,
+                         bool(e[1] & 0x10)) for e in entries]
         return None
 
     def _scan_movi(self, off: int, end: int, tags) -> List[Tuple[int, int, bool]]:
         frames = []
         data = self._data
         for fcc, coff, size in _chunks(data, off, end):
-            if fcc in tags and size > 0:
+            if fcc in tags:
                 frames.append((coff, size, True))
             elif fcc == b"LIST" and data[coff:coff + 4] == b"rec ":
                 frames += self._scan_movi(coff + 4, coff + size, tags)
@@ -433,53 +468,41 @@ class VideoReader:
 
     @property
     def frame_count(self) -> int:
-        if self._mp4 is not None:
-            return self._mp4.track.frame_count
-        return len(self._frames)
+        return self._mp4.track.frame_count if self._mp4 is not None else 0
 
     def seek(self, index: int) -> None:
-        """Position the reader on frame `index`: exactly (clamped to the
-        video) in an AVI, where cv2 lands in an mp4."""
+        """Position the reader where cv2's set(CAP_PROP_POS_FRAMES, index)
+        lands."""
         if self._mp4 is not None:
             self._mp4.seek(index)
             self._stopped()
-            return
-        self._pos = min(max(int(index), 0), len(self._frames))
+
+    _CODECS = {"mp4v": "MPEG-4 Part 2", "mjpg": "Motion-JPEG"}
 
     def _stopped(self) -> None:
         if self._mp4 is not None and self._mp4.error and not self.reason:
             # a parameter set or VOL inside a later sample may name what is not decoded
             kind = "unsupported" if self._mp4.decoder.unsupported() else "damaged"
-            codec = "H.264" if self._mp4.track.codec != "mp4v" else "MPEG-4 Part 2"
+            codec = self._CODECS.get(self._mp4.track.codec, "H.264")
             self.reason = f"{kind} {codec} stream: {self._mp4.error}"
-
-    def _next_jpeg(self) -> Optional[bytes]:
-        """The next frame's JPEG bytes (the standard Huffman tables inserted
-        when it has none), or None past the end."""
-        if self._pos >= len(self._frames):
-            return None
-        off, size = self._frames[self._pos]
-        self._pos += 1
-        jpeg = self._data[off:off + size]
-        if jpeg[:2] == b"\xff\xd8" and not _has_dht(jpeg):
-            jpeg = jpeg[:2] + standard_dht() + jpeg[2:]
-        return jpeg
 
     def read(self) -> Tuple[bool, Optional[np.ndarray]]:
         """(True, frame) for the next frame; (False, None) past the end or
-        for a frame the decoder refuses."""
-        if self._mp4 is not None:
-            ok = self._mp4.grab()
-            self._stopped()
-            return (True, self._mp4.retrieve()) if ok else (False, None)
-        jpeg = self._next_jpeg()
-        if jpeg is None:
+        where a frame is refused or damaged (`reason` says which)."""
+        if self._mp4 is None:
             return False, None
-        frame = decode_jpeg(jpeg)
-        return frame is not None, frame
+        ok = self._mp4.grab()
+        self._stopped()
+        return (True, self._mp4.retrieve()) if ok else (False, None)
 
     def release(self) -> None:
-        self._frames, self._data, self._pos, self._mp4 = [], b"", 0, None
+        self._data, self._mp4 = b"", None
+        if self._map is not None:
+            try:
+                self._map.close()
+            except BufferError:   # a view of it is still alive: the collector closes it
+                pass
+            self._map = None
 
 
 def _fourcc_name(fourcc) -> str:
@@ -608,6 +631,9 @@ def _list(typ: bytes, payload: bytes) -> bytes:
     return b"LIST" + struct.pack("<I", len(payload) + 4) + typ + payload
 
 
+AVI_MAX_RIFF_SIZE = 1 << 30   # avienc starts an OpenDML 'AVIX' part past this
+
+
 class _Mp4vAvi:
     """An mp4v stream in AVI as libavformat 62.12's avienc writes it: hdrl
     (avih, strl with strh / strf and the OpenDML super index reserved as
@@ -615,58 +641,152 @@ class _Mp4vAvi:
     of padding, the movi list of '00dc' chunks and the idx1 index (keyframes
     flagged); finish() writes the counts. The super index reserves room for
     the RIFF parts of a 10-hour file at 110% of the bit rate (avienc's
-    estimate when the duration is unknown), at least 256 entries. Files past
-    1 GiB (OpenDML RIFF 'AVIX' parts) are not written."""
+    estimate when the duration is unknown), at least 256 entries.
 
-    def __init__(self, fh, width: int, height: int, num: int, den: int, bit_rate: int):
+    Past `riff_limit` bytes of a RIFF (avienc's 1 GiB) the next chunk opens
+    an OpenDML part, as avienc's avi_write_packet_internal does: the part's
+    'ix00' standard index (offsets from its movi list, bit 31 set on a
+    non-keyframe) closes its movi list, the first RIFF also gets its idx1
+    and the counts so far (avih's total frames stays that count), and a
+    'RIFF AVIX' with its own movi list follows. The super index 'indx'
+    (then no longer JUNK) lists each part's ix00, and finish() turns the
+    odml JUNK into a LIST whose dmlh holds the total frame count. Each
+    payload goes to the file in a write() of its own. `riff_limit` and
+    `fourcc` (the stream's handler and compression) let the tests build
+    small OpenDML files of other codecs."""
+
+    def __init__(self, fh, width: int, height: int, num: int, den: int, bit_rate: int,
+                 riff_limit: int = AVI_MAX_RIFF_SIZE, fourcc: bytes = b"mp4v"):
         self.fh = fh
+        self.fourcc = fourcc
         self.width, self.height, self.num, self.den = width, height, num, den
         self.bit_rate = bit_rate
-        self.index: List[Tuple[int, int, bool]] = []
+        self.riff_limit = riff_limit
+        self.index: List[Tuple[int, int, bool]] = []   # this RIFF's (offset, size, key)
         self.max_size = 0
+        self.packets = 0
+        self.first_count = 0   # avih's total frames: the count when the first RIFF closed
+        self.parts: List[Tuple[int, int, int]] = []   # super index: (ix offset, size, entries)
         filesize_est = 10 * 60 * 60.0 * (bit_rate // 8) * 1.10
         self.index_entries = max(math.ceil(filesize_est / (1 << 30)) + 1, 256)
-        # the movi list's type field, which the idx1 offsets count from
-        self.movi_at = 5674 + 16 * (self.index_entries - 256)
-        fh.write(self._header())
+        # the first movi list's type field, which the idx1 offsets count from
+        self.first_movi_at = 5674 + 16 * (self.index_entries - 256)
+        self.movi_at = self.first_movi_at   # the current part's
+        self.riff_at = 8                    # the current RIFF's type field
+        self.first_movi_end = self.first_end = 0   # once the first RIFF is closed
+        fh.write(self._header(0, 0))
 
-    def _header(self, end: int = 0, movi_end: int = 0) -> bytes:
-        w, h, n = self.width, self.height, len(self.index)
+    def _header(self, first_end: int, movi_end: int) -> bytes:
+        w, h = self.width, self.height
+        count = self.first_count if self.parts else self.packets
         avih = struct.pack("<10I16x", 1000000 * self.num // self.den, self.bit_rate // 8, 0,
-                           0x910, n, 0, 1, 1 << 20, w, h)
-        strh = struct.pack("<4s4sIHHIIIIIIiI4h", b"vids", b"mp4v", 0, 0, 0, 0, self.num,
-                           self.den, 0, n, self.max_size, -1, 0, 0, 0, w, h)
-        strf = struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 24, b"mp4v", w * h * 3, 0, 0, 0, 0)
-        indx = struct.pack("<HBBI4s", 4, 0, 0, 0, b"00dc").ljust(24 + 16 * self.index_entries,
-                                                                  b"\0")
+                           0x910, count, 0, 1, 1 << 20, w, h)
+        strh = struct.pack("<4s4sIHHIIIIIIiI4h", b"vids", self.fourcc, 0, 0, 0, 0, self.num,
+                           self.den, 0, self.packets, self.max_size, -1, 0, 0, 0, w, h)
+        strf = struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 24, self.fourcc, w * h * 3, 0, 0, 0,
+                           0)
+        indx = struct.pack("<HBBI4s", 4, 0, 0, len(self.parts), b"00dc") + b"\0" * 12
+        indx += b"".join(struct.pack("<QII", *p) for p in self.parts)
+        indx = indx.ljust(24 + 16 * self.index_entries, b"\0")
         strl = _list(b"strl", _chunk(b"strh", strh) + _chunk(b"strf", strf)
-                     + _chunk(b"JUNK", indx))
-        odml = _chunk(b"JUNK", b"odmldmlh" + struct.pack("<I", 248) + b"\0" * 248)
+                     + _chunk(b"indx" if self.parts else b"JUNK", indx))
+        dmlh = b"dmlh" + struct.pack("<II", 248, self.packets if self.parts else 0) + b"\0" * 244
+        odml = (b"LIST" + struct.pack("<I", 4 + len(dmlh)) + b"odml" + dmlh if self.parts else
+                _chunk(b"JUNK", b"odml" + dmlh))
         hdrl = _list(b"hdrl", _chunk(b"avih", avih) + strl + odml)
         info = _list(b"INFO", _chunk(b"ISFT", mp4.MUXER.encode() + b"\0"))
-        movi_size = movi_end - self.movi_at if movi_end else 0
-        return (b"RIFF" + struct.pack("<I", max(end - 8, 0)) + b"AVI " + hdrl + info
+        movi_size = movi_end - self.first_movi_at if movi_end else 0
+        return (b"RIFF" + struct.pack("<I", max(first_end - 8, 0)) + b"AVI " + hdrl + info
                 + _chunk(b"JUNK", b"\0" * 1016) + b"LIST" + struct.pack("<I", movi_size)
                 + b"movi")
 
+    def _write_ix(self) -> None:
+        """The current part's ix00, listed in the super index."""
+        fh = self.fh
+        at = fh.tell()
+        fh.write(b"ix00" + struct.pack("<IHBBI4sQI", 24 + 8 * len(self.index), 2, 0, 1,
+                                       len(self.index), b"00dc", self.movi_at, 0))
+        fh.write(b"".join(struct.pack("<II", off + 8, size | (0 if key else 0x80000000))
+                          for off, size, key in self.index))
+        self.parts.append((at, fh.tell() - at, len(self.index)))
+        if len(self.parts) >= self.index_entries:
+            raise ValueError(f"more than {self.index_entries - 1} OpenDML parts: the super "
+                             "index's reserve is full")
+
+    def _write_idx1(self) -> None:
+        self.fh.write(b"idx1" + struct.pack("<I", 16 * len(self.index)))
+        self.fh.write(b"".join(struct.pack("<4sIII", b"00dc", 0x10 if key else 0, off, size)
+                               for off, size, key in self.index))
+
+    def _close_list(self, type_at: int) -> int:
+        """Patch the size of the list or RIFF whose type field is at
+        `type_at`; the position after it."""
+        fh = self.fh
+        end = fh.tell()
+        fh.seek(type_at - 4)
+        fh.write(struct.pack("<I", end - type_at))
+        fh.seek(end)
+        return end
+
     def add(self, sample: bytes, key: bool) -> None:
-        at = self.fh.tell()
-        self.fh.write(b"00dc" + struct.pack("<I", len(sample)) + sample)
+        fh = self.fh
+        self.packets += 1
+        at = fh.tell()
+        if at - self.riff_at > self.riff_limit:   # an OpenDML part
+            self._write_ix()
+            movi_end = self._close_list(self.movi_at)
+            if not self.first_end:
+                self._write_idx1()
+                self.first_count = self.packets
+                self.first_movi_end, self.first_end = movi_end, fh.tell()
+            else:
+                self._close_list(self.riff_at)
+            self.riff_at = fh.tell() + 8
+            fh.write(b"RIFF\0\0\0\0AVIXLIST\0\0\0\0movi")
+            self.movi_at = fh.tell() - 4
+            self.index = []
+            at = fh.tell()
+        fh.write(b"00dc" + struct.pack("<I", len(sample)))
+        fh.write(sample)
         if len(sample) & 1:
-            self.fh.write(b"\0")
+            fh.write(b"\0")
         self.index.append((at - self.movi_at, len(sample), key))
         self.max_size = max(self.max_size, len(sample))
 
     def finish(self) -> None:
         fh = self.fh
-        movi_end = fh.tell()
-        fh.write(b"idx1" + struct.pack("<I", 16 * len(self.index)))
-        for off, size, key in self.index:
-            fh.write(struct.pack("<4sIII", b"00dc", 0x10 if key else 0, off, size))
-        end = fh.tell()
+        if not self.first_end:
+            movi_end = fh.tell()
+            self._write_idx1()
+            end = fh.tell()
+            fh.seek(0)
+            fh.write(self._header(end, movi_end))
+            fh.seek(end)
+            return
+        self._write_ix()
+        self._close_list(self.movi_at)
+        end = self._close_list(self.riff_at)
         fh.seek(0)
-        fh.write(self._header(end, movi_end))
+        fh.write(self._header(self.first_end, self.first_movi_end))
         fh.seek(end)
+
+
+def mp4v_muxer(fh, kind: str, width: int, height: int, fps: float, header: bytes):
+    """The muxer cv2's FFmpeg writer opens for an mp4v stream of (even)
+    `width` x `height` at `fps` in container `kind` (MP4V_CONTAINERS'
+    values) on the binary file `fh`: its add(packet, key) appends a packet,
+    its finish() closes the file's structures. `header` is the encoder's
+    global header (the esds decoder config; unused in AVI)."""
+    num, den = _cv2_time_base(fps)
+    bit_rate = _cv2_bit_rate(fps, width, height)
+    if kind == "avi":
+        g = math.gcd(num, den)
+        return _Mp4vAvi(fh, width, height, num // g, den // g, bit_rate)
+    timescale = den
+    while timescale < 10000:
+        timescale *= 2
+    return mp4.Mp4Muxer(fh, kind, width, height, timescale, timescale * num // den, header,
+                        bit_rate)
 
 
 class VideoWriter:
@@ -713,15 +833,8 @@ class VideoWriter:
         self._encoder = mpeg4.Encoder(self.width, self.height, num, den, bit_rate,
                                       global_header=kind != "avi")
         self._fh = open(path, "wb")
-        if kind == "avi":
-            g = math.gcd(num, den)
-            self._mux = _Mp4vAvi(self._fh, self.width, self.height, num // g, den // g, bit_rate)
-        else:
-            timescale = den
-            while timescale < 10000:
-                timescale *= 2
-            self._mux = mp4.Mp4Muxer(self._fh, kind, self.width, self.height, timescale,
-                                     timescale * num // den, self._encoder.header, bit_rate)
+        self._mux = mp4v_muxer(self._fh, kind, self.width, self.height, float(fps),
+                               self._encoder.header)
         self._pts = 0
 
     def write(self, frame: np.ndarray) -> None:

@@ -7,9 +7,9 @@ Both packages see the same frames (a photograph with a face, which the
 haar_native rung finds, and frames without one) and the same parameters:
 the small EfficientNet of tests/torch_port_util.py, handed to both CLIs as
 a JAX .npz through --weights (their `backbones.make` returns that spec).
-JAX reads the videos with cv2.VideoCapture's CAP_OPENCV_MJPEG backend,
-which decodes with libjpeg as the port's reader does (its default FFmpeg
-backend decodes Motion-JPEG differently).
+JAX reads the videos as it always does, with cv2.VideoCapture(path): the
+default FFmpeg backend, whose Motion-JPEG decode (libavcodec, libswscale)
+the port's reader reproduces.
 
 cv2 5.0 draws FONT_HERSHEY_SIMPLEX with its TrueType engine; the port
 draws cv2 4.x's Hershey strokes (held to OpenCV 4.6 in
@@ -193,15 +193,12 @@ def videos(tmp_path_factory, weights):
 
 @pytest.fixture
 def cli_env(monkeypatch, weights):
-    """Both CLIs build the small spec; JAX reads with CAP_OPENCV_MJPEG and
-    its writer (cv2's own) records the annotated frames as it writes them;
-    the port's writer records its frames before they are encoded."""
+    """Both CLIs build the small spec; JAX reads with cv2's default backend
+    and its writer (cv2's own) records the annotated frames as it writes
+    them; the port's writer records its frames before they are encoded."""
     spec_j, spec_t, _ = weights
     monkeypatch.setattr(j_backbones, "make", lambda name, *a, **k: spec_j)
     monkeypatch.setattr(t_backbones, "make", lambda name, *a, **k: spec_t)
-    real_capture = cv2.VideoCapture
-    monkeypatch.setattr(cv2, "VideoCapture",
-                        lambda src, *a: real_capture(src, cv2.CAP_OPENCV_MJPEG))
     written = {"jax": [], "port": []}
 
     real_writer = cv2.VideoWriter

@@ -28,7 +28,8 @@ def test_every_port_module_imports_without_jax():
     assert {p + "parallel.tensor_parallel", p + "ops.jpeg_scaled", p + "cli.fetch_weights",
             p + "data_tools.dfdc_download", p + "utils.image_decode", p + "utils.exif",
             p + "utils.png", p + "utils.bmp", p + "utils.mp4", p + "utils.h264",
-            p + "utils.mpeg4"} <= set(mods)
+            p + "utils.mpeg4", p + "utils.mjpeg", p + "utils.pxm", p + "utils.sunras",
+            p + "utils.hdr", p + "utils.gif"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "for blocked in ('jax', 'cv2', 'PIL', 'orbax', 'requests'):\n"
@@ -59,6 +60,34 @@ def test_h264_decodes_with_jax_and_cv2_blocked():
         "want = json.load(open('tests/data/torch_h264/digests.json'))\n"
         "want = want['files']['torch_mp4/baseline_160x96.mp4']['read'][0]['sha256']\n"
         "assert ok and hashlib.sha256(f.tobytes()).hexdigest() == want\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=REPO))
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
+@pytest.mark.parametrize("path, digests, key", [
+    ("tests/data/torch_image_formats/p3_ascii_83x41.ppm",
+     "tests/data/torch_image_formats/digests.json", "p3_ascii_83x41.ppm"),
+    ("tests/data/torch_image_formats/ras8_colormap_83x41.ras",
+     "tests/data/torch_image_formats/digests.json", "ras8_colormap_83x41.ras"),
+    ("tests/data/torch_image_formats/hdr_rle_cv2_83x41.hdr",
+     "tests/data/torch_image_formats/digests.json", "hdr_rle_cv2_83x41.hdr"),
+    ("tests/data/torch_image_formats/gif_interlaced_83x41.gif",
+     "tests/data/torch_image_formats/digests.json", "gif_interlaced_83x41.gif"),
+])
+def test_image_formats_decode_with_jax_and_cv2_blocked(path, digests, key):
+    """utils/image_decode.cv2_route decodes PxM, Sun raster, HDR and GIF
+    (csrc/image_host.cpp built on first use) where jax, cv2 and the JAX
+    package cannot be imported, equal to the committed cv2 digest."""
+    code = (
+        "import sys, hashlib, json\n"
+        "for blocked in ('jax', 'cv2', 'PIL', 'real_time_video_deepfake_detection_tpu'):\n"
+        "    sys.modules[blocked] = None\n"
+        "from real_time_video_deepfake_detection_tpu_torch.utils.image_decode import cv2_route\n"
+        f"f = cv2_route(open({path!r}, 'rb').read())\n"
+        f"want = json.load(open({digests!r}))['inputs'][{key!r}]['cv2']['sha256']\n"
+        "assert hashlib.sha256(f.tobytes()).hexdigest() == want\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                        text=True, timeout=300,
                        env=dict(os.environ, PYTHONPATH=REPO))

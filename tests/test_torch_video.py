@@ -1,8 +1,8 @@
 """The port's video I/O against cv2 on the CPU: the Motion-JPEG AVI reader
-(utils/video.py) against cv2.VideoCapture's CAP_OPENCV_MJPEG backend,
-which decodes each frame with libjpeg as cv2.imdecode does (its default
-FFmpeg backend decodes Motion-JPEG with another IDCT and upsampling); the
-writer against both of cv2's backends; the JPEG encoder
+(utils/video.py) against cv2.VideoCapture(path), the default FFmpeg
+backend the JAX package opens every video with (libavcodec's mjpeg
+decoder and libswscale; tests/test_torch_mjpeg_ffmpeg.py holds the rest);
+the writer against both of cv2's backends; the JPEG encoder
 (utils/jpeg_encode.py) against cv2.imencode byte for byte; and INTER_AREA
 (utils/host_resize.resize_area_u8) against cv2.resize."""
 
@@ -54,7 +54,10 @@ def cv2_avi(tmp_path_factory):
 
 
 def test_reader_equals_cv2_mjpeg_backend(cv2_avi):
-    cap = cv2.VideoCapture(cv2_avi, cv2.CAP_OPENCV_MJPEG)
+    """The file cv2's Motion-JPEG writer wrote, read as cv2.VideoCapture(path)
+    (the FFmpeg backend) reads it."""
+    cap = cv2.VideoCapture(cv2_avi)
+    assert cap.getBackendName() == "FFMPEG"
     want = read_all(cap)
     reader = VideoReader(cv2_avi)
     assert reader.is_opened() and reader.reason == ""
@@ -68,7 +71,7 @@ def test_reader_equals_cv2_mjpeg_backend(cv2_avi):
 
 
 def test_reader_seeks_every_index_like_cv2(cv2_avi):
-    cap = cv2.VideoCapture(cv2_avi, cv2.CAP_OPENCV_MJPEG)
+    cap = cv2.VideoCapture(cv2_avi)
     reader = VideoReader(cv2_avi)
     for i in [11, 0, 5, 5, 3] + list(range(12)):
         cap.set(cv2.CAP_PROP_POS_FRAMES, i)
@@ -95,12 +98,14 @@ def test_port_writer_opens_in_cv2(tmp_path, backend):
     assert len(got) == 7 and all(g.shape == (120, 176, 3) for g in got)
     want = [cv2.imdecode(np.frombuffer(encode_jpeg(f, 95), np.uint8), cv2.IMREAD_COLOR)
             for f in frames]
-    if backend == "mjpeg":   # FFmpeg decodes Motion-JPEG with its own IDCT
+    port = read_all(VideoReader(path))
+    assert len(port) == 7
+    if backend == "mjpeg":   # libjpeg, as cv2.imdecode decodes each frame
         for a, b in zip(got, want):
             np.testing.assert_array_equal(a, b)
-    # and the port reads its own file back as libjpeg decodes it
-    for a, b in zip(read_all(VideoReader(path)), want):
-        np.testing.assert_array_equal(a, b)
+    else:   # the port reads its own file back as cv2's FFmpeg backend does
+        for a, b in zip(port, got):
+            np.testing.assert_array_equal(a, b)
 
 
 def _strip_dht(jpeg: bytes) -> bytes:
@@ -114,7 +119,8 @@ def _strip_dht(jpeg: bytes) -> bytes:
 
 
 def test_a_frame_without_huffman_tables_decodes_like_imdecode(tmp_path):
-    """Camera Motion-JPEG leaves out DHT: libjpeg's standard tables apply."""
+    """Camera Motion-JPEG leaves out DHT: the Annex K tables apply, as in
+    cv2.imdecode, and the frames equal cv2.VideoCapture(path)'s."""
     frames = moving_frames(3, 64, 96, seed=2)
     jpegs = [_strip_dht(cv2.imencode(".jpg", f, [cv2.IMWRITE_JPEG_QUALITY, 80])[1].tobytes())
              for f in frames]
@@ -125,10 +131,12 @@ def test_a_frame_without_huffman_tables_decodes_like_imdecode(tmp_path):
         wr.write_jpeg(j)
     wr.release()
     got = read_all(VideoReader(path))
-    assert len(got) == 3
-    for g, j in zip(got, jpegs):
-        np.testing.assert_array_equal(g, cv2.imdecode(np.frombuffer(j, np.uint8),
-                                                      cv2.IMREAD_COLOR))
+    want = read_all(cv2.VideoCapture(path))
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    for j in jpegs:   # the tables are the ones cv2.imdecode supplies too
+        assert cv2.imdecode(np.frombuffer(j, np.uint8), cv2.IMREAD_COLOR) is not None
 
 
 def test_what_does_not_open(tmp_path):
@@ -229,7 +237,8 @@ def _port_avi(path, frames):
 
 def test_reader_scans_movi_without_idx1_and_follows_avix(tmp_path):
     """An AVI without its idx1 index is scanned; an OpenDML 'AVIX' RIFF
-    after the first adds its movi list's frames (in a 'rec ' list too)."""
+    after the first adds its movi list's frames (in a 'rec ' list too),
+    read past the frame count as cv2's default backend reads them."""
     frames = moving_frames(6, 48, 64, seed=3)
     data = _port_avi(tmp_path / "a.avi", frames[:4])
     cut = data.rindex(b"idx1")
@@ -237,11 +246,11 @@ def test_reader_scans_movi_without_idx1_and_follows_avix(tmp_path):
     struct.pack_into("<I", riff, 4, len(riff) - 8)
     (tmp_path / "noidx.avi").write_bytes(bytes(riff))
     got = read_all(VideoReader(str(tmp_path / "noidx.avi")))
-    assert len(got) == 4
-    jpegs = [encode_jpeg(f, 95) for f in frames]
-    decoded = [cv2.imdecode(np.frombuffer(j, np.uint8), cv2.IMREAD_COLOR) for j in jpegs]
-    for g, w in zip(got, decoded):
+    want = read_all(cv2.VideoCapture(str(tmp_path / "noidx.avi")))
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+    jpegs = [encode_jpeg(f, 95) for f in frames]
 
     def chunk(fcc, payload):
         return fcc + struct.pack("<I", len(payload)) + payload + b"\0" * (len(payload) & 1)
@@ -253,12 +262,15 @@ def test_reader_scans_movi_without_idx1_and_follows_avix(tmp_path):
         b"LIST" + struct.pack("<I", len(movi)) + movi
     (tmp_path / "avix.avi").write_bytes(data + avix)
     reader = VideoReader(str(tmp_path / "avix.avi"))
-    assert reader.frame_count == 6
-    got = read_all(reader)
-    for g, w in zip(got, decoded):
+    cap = cv2.VideoCapture(str(tmp_path / "avix.avi"))
+    assert reader.frame_count == cap.get(cv2.CAP_PROP_FRAME_COUNT) == 4   # the header's
+    got, want = read_all(reader), read_all(cap)
+    assert len(got) == len(want) == 6
+    for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
     reader.seek(5)
-    np.testing.assert_array_equal(reader.read()[1], decoded[5])
+    cap.set(cv2.CAP_PROP_POS_FRAMES, 5)
+    np.testing.assert_array_equal(reader.read()[1], cap.read()[1])
 
 
 def test_reader_refuses_an_avi_without_a_motion_jpeg_stream(tmp_path):
@@ -276,8 +288,11 @@ def test_a_file_cut_short_reads_its_whole_frames(tmp_path):
     cut = data.index(b"00dc", data.index(b"00dc", data.index(b"movi")) + 8) + 8 + 300
     (tmp_path / "cut.avi").write_bytes(data[:cut])   # inside the second frame
     reader = VideoReader(str(tmp_path / "cut.avi"))
-    assert reader.is_opened() and reader.frame_count == 2
+    cap = cv2.VideoCapture(str(tmp_path / "cut.avi"))
+    assert reader.is_opened() and reader.frame_count == cap.get(cv2.CAP_PROP_FRAME_COUNT) == 5
     ok, first = reader.read()
     assert ok
     np.testing.assert_array_equal(first, read_all(VideoReader(str(tmp_path / "a.avi")))[0])
-    assert reader.read() == (False, None)   # the cut frame is refused
+    np.testing.assert_array_equal(first, cap.read()[1])
+    assert reader.read() == (False, None)   # the cut frame stops the reader
+    assert reader.reason.startswith("damaged") and not cap.read()[0]

@@ -4,10 +4,10 @@ end to end, face-crop pre-extraction (`data_tools/face_extract.py`) and
 the DFDC zip processor (`data_tools/dfdc_process.py`).
 
 Videos are Motion-JPEG AVIs written by cv2's CAP_OPENCV_MJPEG writer; the
-JAX side reads them through cv2.VideoCapture with that backend, which
-decodes with libjpeg as the port's reader does. The JAX face extractor
-globs *.mp4, the port's *.avi: each video is written under both names,
-with the same bytes."""
+JAX side reads them as it always does, through cv2.VideoCapture(path) (the
+default FFmpeg backend, whose decode the port's reader reproduces). The
+JAX face extractor globs *.mp4, the port's *.avi: each video is written
+under both names, with the same bytes."""
 
 import json
 import os
@@ -38,12 +38,6 @@ from real_time_video_deepfake_detection_tpu_torch.utils.convert import params_fr
 from tests.test_torch_analyze import face_frames, plain_frames, write_avi
 from tests.torch_port_util import small_models
 from tests.torch_train_util import one_torch_thread  # noqa: F401 (autouse fixture)
-
-
-@pytest.fixture(autouse=True)
-def jax_reads_mjpeg(monkeypatch):
-    real = cv2.VideoCapture
-    monkeypatch.setattr(cv2, "VideoCapture", lambda src, *a: real(src, cv2.CAP_OPENCV_MJPEG))
 
 
 @pytest.fixture(scope="module")

@@ -15,8 +15,14 @@ scene-change I-VOP inside a GOP), flat black and white, motion of 7 x 3
 pixels a frame across GOPs (the previous vectors the search starts from),
 jumps of 53 pixels (f_code 3 and more, long vectors made intra), a new
 texture that pans after a cut the encoder codes as a P-VOP, half-pel
-motion, 2x2 and 18x2 pictures, and the decoded frames of two cv2-written
-files.
+motion, 2x2 and 18x2 pictures, the decoded frames of two cv2-written
+files, and "xy2": a band of noise (which holds the quantiser high) beside
+white dots on black moving half a pixel a frame on the diagonal, whose
+reconstructions ring down to 0, the one place where the row that
+libavcodec's x86 sad16_approx_xy2 decrements (the odd rows of the block's
+reference, saturating) changes a vector; its seed, found by a search,
+separates that routine from decrementing the even rows and from
+decrementing the lower row always (each writes other bytes than cv2's).
 """
 
 from __future__ import annotations
@@ -62,7 +68,10 @@ CASES = {
     "avi_18x2": ("fast", 30, 2, 18, 25, ".avi"),
     "mp4_clip": ("cv2_640x360.mp4", 12, 360, 640, 25, ".mp4"),
     "avi_face": ("cv2_face_272x320.mp4", 14, 320, 272, 12, ".avi"),
+    "mp4_xy2": ("xy2", 13, 96, 128, 25, ".mp4"),
+    "avi_xy2": ("xy2", 13, 96, 128, 25, ".avi"),
 }
+XY2_SEED = 2081
 CUT_AT = 14   # the first black frame of the "cut" scene
 
 
@@ -74,6 +83,25 @@ def _texture(h: int, w: int, seed: int) -> np.ndarray:
     ramp = (np.arange(h)[:, None, None] * 64 // max(h, 1)
             + np.arange(w)[None, :, None] * 64 // max(w, 1))
     return (big + ramp).clip(0, 255).astype(np.uint8)
+
+
+def _xy2(n: int, h: int, w: int, seed: int):
+    """The "xy2" scene: frame k is a dot texture bilinearly sampled at
+    (k / 2, k / 2) with a band of fresh noise over its left 32-96 pixels."""
+    rng = np.random.default_rng(seed)
+    nf = rng.integers(1, 4)
+    thick = rng.integers(1, 4)
+    small = (rng.random((h // thick + 8, w // thick + 8)) < rng.uniform(0.05, 0.3))
+    tex = np.repeat(np.repeat(small.astype(np.float32), thick, 0), thick, 1) * 255
+    out = []
+    for k in range(n):
+        o = k // 2
+        t = tex[o:o + h + 1, o:o + w + 1]
+        f = (t[:-1, :-1] + t[1:, :-1] + t[:-1, 1:] + t[1:, 1:]) / 4 if k % 2 else t[:-1, :-1]
+        f = np.repeat(f[:, :, None], 3, 2)
+        f[:, :32 * nf] = rng.integers(0, 256, (h, 32 * nf, 3))
+        out.append(np.ascontiguousarray(f.clip(0, 255).astype(np.uint8)))
+    return out
 
 
 def frames(scene: str, n: int, h: int, w: int, seed: int = SEED):
@@ -124,6 +152,8 @@ def frames(scene: str, n: int, h: int, w: int, seed: int = SEED):
         big[1::2, 0::2] = (t + d + 1) // 2
         big[1::2, 1::2] = (t + r + d + np.roll(d, -1, 1) + 2) // 4
         return [np.ascontiguousarray(big[k:k + h, k:k + w].astype(np.uint8)) for k in range(n)]
+    if scene == "xy2":
+        return _xy2(n, h, w, XY2_SEED)
     if scene in ("flat0", "flat255"):
         return [np.full((h, w, 3), 255 if scene == "flat255" else 0, np.uint8)] * n
     base = _texture(h + 64, w + 64, seed)
