@@ -302,7 +302,11 @@ in phases, each printing one JSON line:
               tests/data/torch_image_formats, (a) on the cv2 route against
               cv2.imdecode's digests, (b) through the same apps (the
               launches of every kernel in every tick), (d) the loader
-              reading them under .png names
+              reading them under .png names; and the same for the TIFF and
+              WebP fixtures of tests/data/torch_tiff_webp (the files cv2
+              reads and the port refuses by name refused with their
+              reason), with (e) host ms of a lossy WebP and an LZW TIFF
+              decode at 720x405 and 1920x1080
 
 then a `{"kernels": [...]}` line (launches: the wire phase's coef run;
 launches_sharded_tick: one sharded serving tick of two shards;
@@ -5044,9 +5048,21 @@ IMAGE_FORMAT_APP_INPUTS = (
     "ras_rle_refused_83x41.ras", "hdr_xyze_refused_83x41.hdr",
     "gif_index_past_palette_refused_83x41.gif")
 FORMAT_APP_INPUTS += IMAGE_FORMAT_APP_INPUTS
+# (and from tests/data/torch_tiff_webp) TIFF (LZW with the predictor, JPEG
+# with YCbCr, an orientation-6 tiled file) and WebP (lossless, lossy, lossy
+# with alpha, animated), with a TIFF and a WebP both routes refuse
+TIFF_WEBP_DIR = os.path.join(REPO, "tests", "data", "torch_tiff_webp")
+TIFF_WEBP_APP_INPUTS = (
+    "tiff_cv2_lzw_pred_83x41.tif", "tiff_jpeg_ycbcr420_83x41.tif",
+    "tiff_orientation6_tiles_83x41.tif", "webp_cv2_lossless_83x41.webp",
+    "webp_cv2_q50_83x41.webp", "webp_cv2_bgra_q80_83x41.webp",
+    "webp_cv2_animation_q60_83x41.webp", "tiff_zstd_refused_83x41.tif",
+    "webp_alph_damaged_refused_83x41.webp")
+FORMAT_APP_INPUTS += TIFF_WEBP_APP_INPUTS
 FORMAT_APP_REFUSED = ("base_420_83x41.jpg@304", "lossless_gray_p1_83x41.jpg",
                       "bits12_sof1_rgb_83x41.jpg", "ras_rle_refused_83x41.ras",
-                      "hdr_xyze_refused_83x41.hdr", "gif_index_past_palette_refused_83x41.gif")
+                      "hdr_xyze_refused_83x41.hdr", "gif_index_past_palette_refused_83x41.gif",
+                      "tiff_zstd_refused_83x41.tif", "webp_alph_damaged_refused_83x41.webp")
 FORMAT_LOADER_INPUTS = ("prog_420_83x41.jpg", "exif6_83x41.jpg", "exif3_83x41.jpg",
                         "png_rgb8_83x41.png", "png_exif6_83x41.png", "cmyk_83x41.jpg",
                         "s411_83x41.jpg", "png_adam7_rgb16_83x41.png",
@@ -5054,7 +5070,9 @@ FORMAT_LOADER_INPUTS = ("prog_420_83x41.jpg", "exif6_83x41.jpg", "exif3_83x41.jp
                         "lossless_rgb_p2_83x41.jpg", "lossless_sub_2x1_rgb_83x41.jpg")
 # image files the loader reads by content under a .png name, as cv2.imread does
 FORMAT_LOADER_MISNAMED = ("p6_83x41.ppm", "gif_cv2_83x41.gif", "ras24_cv2_83x41.ras",
-                          "hdr_rle_cv2_83x41.hdr", "pam_rgb_cv2_83x41.pam")
+                          "hdr_rle_cv2_83x41.hdr", "pam_rgb_cv2_83x41.pam",
+                          "tiff_cv2_lzw_pred_83x41.tif", "tiff_ycbcr42_83x41.tif",
+                          "webp_cv2_lossless_83x41.webp", "webp_cv2_bgra_q80_83x41.webp")
 
 
 def _format_inputs(directory=FORMATS_DIR):
@@ -5145,6 +5163,80 @@ def _image_formats_on_card(inputs, digests):
     return {"inputs": len(digests), "refused": sorted(k for k, e in digests.items()
                                                       if e["cv2"] is None),
             "host_ms_first_decode": ms}
+
+
+def _tiff_webp_on_card(inputs, digests):
+    """(a) Every fixture of tests/data/torch_tiff_webp through the cv2
+    route (utils/tiff.py, csrc/tiff.cpp, the port's JPEG decoder for
+    JPEG-in-TIFF; utils/webp.py, csrc/webp_lossless.cpp, csrc/vp8.cpp)
+    against cv2.imdecode's digest, the frame carried to the card and back
+    unchanged; the fixtures cv2 reads and the port refuses by name refused
+    with their reason; host ms of each fixture's first decode (the
+    libraries built on first use)."""
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.utils import image_decode as ID
+    from real_time_video_deepfake_detection_tpu_torch.utils import tiff
+    problems, ms = [], {}
+    for key, e in sorted(digests.items()):
+        data = inputs[key]
+        if "not_ported" in e:
+            try:
+                tiff.decode_tiff(data)
+                problems.append(f"{key}: decoded, not refused by name")
+            except tiff.NotPorted as err:
+                if e["not_ported"] not in str(err):
+                    problems.append(f"{key}: {err}")
+            continue
+        t = time.perf_counter()
+        got = ID.cv2_route(data)
+        ms[key] = (time.perf_counter() - t) * 1e3
+        if got is not None:
+            got = torch.from_numpy(got).cuda().cpu().numpy()
+        if not _matches(got, e["cv2"]):
+            problems.append(key)
+    if problems:
+        raise AssertionError("TIFF and WebP on the card: " + "; ".join(problems[:8]))
+    return {"inputs": len(digests),
+            "refused": sorted(k for k, e in digests.items() if e["cv2"] is None),
+            "refused_by_name": sorted(k for k, e in digests.items() if "not_ported" in e),
+            "host_ms_first_decode": ms}
+
+
+def _tiff_webp_timing(inputs):
+    """(e) Host ms (median of 10) of the decode of a lossy WebP (quality 80,
+    committed) and of an LZW TIFF with the predictor (as cv2 writes one,
+    built here from the same frame: tests/torch_tiff_webp_writers.lzw_tiff)
+    of the 720x405 and 1920x1080 JPEG fixture frames; the TIFF decode is
+    held to the frame it was built from."""
+    import numpy as np
+    from real_time_video_deepfake_detection_tpu_torch.utils import jpeg_ingest as J
+    from real_time_video_deepfake_detection_tpu_torch.utils.tiff import decode_tiff
+    from real_time_video_deepfake_detection_tpu_torch.utils.webp import decode_webp
+    sys.path.insert(0, REPO)
+    from tests.torch_tiff_webp_writers import lzw_tiff
+
+    def host_ms(fn, n=10):
+        fn()
+        ts = []
+        for _ in range(n):
+            t = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(ts)
+
+    with open(os.path.join(JPEG_DIR, FRAME_JPEG), "rb") as fh:
+        frames = {"720x405": J.decode_jpeg(fh.read())}
+    frames["1920x1080"] = J.decode_jpeg(inputs["prog_420_1920x1080.jpg"])
+    out = {}
+    for label, bgr in frames.items():
+        webp_bytes = inputs[f"webp_timing_q80_{label}.webp"]
+        tiff_bytes = lzw_tiff(np.ascontiguousarray(bgr[..., ::-1]))
+        if not np.array_equal(decode_tiff(tiff_bytes), bgr):
+            raise AssertionError(f"the {label} LZW TIFF does not decode to its frame")
+        out[label] = {"webp_lossy_ms": host_ms(lambda: decode_webp(webp_bytes)),
+                      "tiff_lzw_ms": host_ms(lambda: decode_tiff(tiff_bytes)),
+                      "bytes": {"webp_lossy": len(webp_bytes), "tiff_lzw": len(tiff_bytes)}}
+    return out
 
 
 def _formats_http(ctx, inputs):
@@ -5293,7 +5385,7 @@ def _formats_loader(inputs, digests):
             d = os.path.join(root, "val", ("real", "fake")[i % 2])
             os.makedirs(d, exist_ok=True)
             src = os.path.join(FORMATS_DIR, name)
-            for other in (JPEG_MODES_DIR, IMAGE_FORMATS_DIR):
+            for other in (JPEG_MODES_DIR, IMAGE_FORMATS_DIR, TIFF_WEBP_DIR):
                 if not os.path.exists(src):
                     src = os.path.join(other, name)
             as_name = name if name in FORMAT_LOADER_INPUTS else name.rsplit(".", 1)[0] + ".png"
@@ -5306,7 +5398,7 @@ def _formats_loader(inputs, digests):
         got = torch.cat(batches).cpu()
         for k, (path, _) in enumerate(ds.samples):
             name = source[os.path.basename(path)]
-            frame = cv2_route(inputs[name])
+            frame = cv2_route(inputs[name], from_file=True)
             if not _matches(frame, digests[name]["cv2"]):
                 raise AssertionError(f"{path}: the host decode differs from cv2's")
             want = resize_bilinear_u8_cv2(torch.from_numpy(frame)[None], 224, 224,
@@ -5389,25 +5481,30 @@ def _formats_timing(inputs):
 def phase_formats(ctx):
     """Every image the JAX package decodes on its serving and training
     paths: (a) the fixtures' frames on the card against the digests, the
-    arithmetic, lossless and 12-bit ones too, and the PxM, PAM, PFM, Sun
-    raster, HDR and GIF ones, (b) the batched device-detect
-    app on the card against the CPU app, launches counted, (c) a
-    progressive and an arithmetic stream through the coef plane, (d) the
-    loader on the card over mixed formats, (e) decode times."""
+    arithmetic, lossless and 12-bit ones too, the PxM, PAM, PFM, Sun
+    raster, HDR and GIF ones, and the TIFF and WebP ones, (b) the batched
+    device-detect app on the card against the CPU app, launches counted,
+    (c) a progressive and an arithmetic stream through the coef plane,
+    (d) the loader on the card over mixed formats, (e) decode times (WebP
+    and LZW TIFF at 720x405 and 1920x1080 among them)."""
     inputs, digests = _format_inputs()
     modes, mode_digests = _format_inputs(JPEG_MODES_DIR)
     images, image_digests = _format_inputs(IMAGE_FORMATS_DIR)
-    everything = {**inputs, **modes, **images}
+    tw, tw_digests = _format_inputs(TIFF_WEBP_DIR)
+    everything = {**inputs, **modes, **images, **tw}
     t0 = time.time()
     out = {"card": ctx["smi"]}
     for key, fn in (("on_card", lambda: _formats_on_card(inputs, digests)),
                     ("jpeg_modes_on_card", lambda: _formats_on_card(modes, mode_digests)),
                     ("image_formats_on_card", lambda: _image_formats_on_card(images,
                                                                              image_digests)),
+                    ("tiff_webp_on_card", lambda: _tiff_webp_on_card(tw, tw_digests)),
                     ("http", lambda: _formats_http(ctx, everything)),
                     ("loader", lambda: _formats_loader(everything, {**digests, **mode_digests,
-                                                                    **image_digests})),
-                    ("timing", lambda: _formats_timing(inputs))):
+                                                                    **image_digests,
+                                                                    **tw_digests})),
+                    ("timing", lambda: _formats_timing(inputs)),
+                    ("tiff_webp_timing", lambda: _tiff_webp_timing(everything))):
         t = time.time()
         out[key] = fn()
         out[key]["seconds"] = time.time() - t

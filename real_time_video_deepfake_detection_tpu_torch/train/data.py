@@ -23,8 +23,9 @@ the host (utils/png.py, utils/bmp.py, utils/jpeg_ingest.lossless_bgr). A
 file cv2 would refuse (a truncated or corrupt JPEG, a 12-bit one, a
 grayscale lossless one, a damaged PNG, anything unreadable) is
 substituted, as in the JAX package (train.py:512-513). A file the port
-cannot decode although cv2 might (WebP, TIFF and the other formats the
-port lacks, a JPEG over 2^25 pixels) raises UnsupportedImage, which the
+cannot decode although cv2 might (JPEG 2000, AVIF, a TIFF with a
+compression or photometric the port lacks, a JPEG over 2^25 pixels;
+WebP and TIFF are decoded, utils/image_decode) raises UnsupportedImage, which the
 loader does not swallow: substituting another sample would silently
 change the training set.
 """
@@ -125,7 +126,7 @@ class DeepfakeDataset:
         for k, path, data in todo:
             if data.startswith(JPEG_SIGNATURE) and k not in lossless:
                 continue
-            frame = as_bgr(cv2_route(data))   # PNG, BMP, lossless JPEG, other formats
+            frame = as_bgr(cv2_route(data, from_file=True))   # PNG, BMP, lossless JPEG, ...
             if frame is None:
                 out[k] = UnsupportedImage(f"{path}: a format the port does not decode") \
                     if unported_format(data) else OSError(f"{path}: cv2.imread refuses it")

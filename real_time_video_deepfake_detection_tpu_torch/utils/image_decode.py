@@ -16,15 +16,18 @@ the same one at each entry point:
   but not a stream that ends before its EOI marker), PNG and BMP, each
   turned by its EXIF orientation; Radiance HDR (utils/hdr.py), Sun raster
   (utils/sunras.py), PBM / PGM / PPM, PAM and PFM (utils/pxm.py; a Pf
-  comes out (H, W), one channel, as cv2 returns it) and GIF's first frame
-  (utils/gif.py).
+  comes out (H, W), one channel, as cv2 returns it), GIF's first frame
+  (utils/gif.py), WebP (utils/webp.py: lossless, lossy, with alpha, an
+  animation's first frame) and TIFF's first page (utils/tiff.py, as
+  libtiff 4.7.1's RGBA interface reads it).
 
 `decode_frame` is the single-stream server's ladder (server.py:40-49):
 bytes that start FF D8 try the native route, then the cv2 route. What
 both routes refuse gives None, its reason logged once: 12- and 16-bit
-JPEGs (neither libjpeg build decodes them), and the formats cv2 reads and
-the port does not (WebP, TIFF, JPEG 2000, AVIF, OpenEXR), with that
-reason.
+JPEGs (neither libjpeg build decodes them); the formats cv2 5.0 reads and
+the port does not yet: JPEG 2000, AVIF, and the TIFF compressions and
+photometrics utils/tiff.py names; and OpenEXR, which the port refuses by
+its signature and which this cv2 build (OpenEXR "NO") refuses too.
 """
 
 from __future__ import annotations
@@ -34,20 +37,28 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import bmp, exif, gif, hdr, png, pxm, sunras
+from . import bmp, exif, gif, hdr, png, pxm, sunras, tiff, webp
 from .jpeg_ingest import decode_jpeg, log_refusal
 
 JPEG_SIGNATURE = b"\xff\xd8\xff"   # cv2's JPEG decoder signature
 
 
-# Leading bytes of the formats cv2.imdecode reads and the port does not
-_UNPORTED = (b"RIFF", b"II*\x00", b"MM\x00*", b"\x00\x00\x00\x0cjP  ", b"\xff\x4f\xff\x51",
-             b"\x76\x2f\x31\x01")
+# Leading bytes of JPEG 2000 (JP2 box, raw codestream), which cv2 reads and
+# the port does not, and of OpenEXR, which neither this cv2 build nor the port reads
+_UNPORTED = (b"\x00\x00\x00\x0cjP  ", b"\xff\x4f\xff\x51", b"\x76\x2f\x31\x01")
 
 
 def unported_format(data: bytes) -> bool:
-    """Whether `data` looks like an image in a format that cv2 reads and
-    the port does not decode (WebP, TIFF, JPEG 2000, OpenEXR or AVIF)."""
+    """Whether `data` is an image the port does not decode in a format
+    cv2 5.0 reads: JPEG 2000, AVIF, a TIFF whose compression or
+    photometric the port does not decode yet; and OpenEXR, which this cv2
+    build refuses as well."""
+    if tiff.is_tiff(data):
+        try:
+            tiff.decode_tiff(data)
+        except tiff.NotPorted:
+            return True
+        return False
     return data.startswith(_UNPORTED) or data[4:12] in (b"ftypavif", b"ftypavis")
 
 
@@ -66,9 +77,10 @@ def native_route(data: bytes) -> Optional[np.ndarray]:
     return decode_jpeg(data, "native")
 
 
-def cv2_route(data: bytes) -> Optional[np.ndarray]:
+def cv2_route(data: bytes, from_file: bool = False) -> Optional[np.ndarray]:
     """cv2.imdecode(data, IMREAD_COLOR): (H, W, 3) u8 BGR, or None (the
-    reason logged once)."""
+    reason logged once). `from_file`: cv2.imread(path, IMREAD_COLOR) of a
+    file holding `data`, which differs for TIFF (utils/tiff.decode_tiff)."""
     if data.startswith(JPEG_SIGNATURE):
         frame = decode_jpeg(data, "cv2")
         return None if frame is None else _oriented(frame, exif.jpeg_orientation(data))
@@ -81,17 +93,25 @@ def cv2_route(data: bytes) -> Optional[np.ndarray]:
     if data.startswith(bmp.SIGNATURE):
         frame = bmp.decode_bmp(data)
         return frame if frame is not None else _refused("BMP that cv2 refuses")
+    if tiff.is_tiff(data):
+        try:
+            frame = tiff.decode_tiff(data, from_file)
+        except tiff.NotPorted as e:
+            return _refused(f"{e} (cv2 reads it; the port does not decode it yet)")
+        return frame if frame is not None else _refused("TIFF that cv2 refuses")
     for name, claims, decode in _DECODERS:
         if claims(data):
             frame = decode(data)
             return frame if frame is not None else _refused(f"{name} that cv2 refuses")
-    return _refused("not a JPEG, PNG, BMP, Radiance HDR, Sun raster, PxM, PAM, PFM or GIF "
-                    "image (cv2 reads more formats; the port decodes these)")
+    return _refused("not a JPEG, PNG, BMP, WebP, TIFF, Radiance HDR, Sun raster, PxM, PAM, "
+                    "PFM or GIF image (cv2 5.0 reads JPEG 2000 and AVIF too, which the port "
+                    "does not decode yet; OpenEXR neither reads)")
 
 
 # cv2's other decoders, each claiming its signature as cv2 checks it
 _DECODERS = (
     ("Radiance HDR", lambda d: d.startswith(hdr.SIGNATURES), hdr.decode_hdr),
+    ("WebP", webp.is_webp, webp.decode_webp),
     ("Sun raster", lambda d: d.startswith(sunras.SIGNATURE), sunras.decode_sunras),
     ("PBM/PGM/PPM", pxm.is_pxm, pxm.decode_pxm),
     ("PAM", pxm.is_pam, pxm.decode_pam),

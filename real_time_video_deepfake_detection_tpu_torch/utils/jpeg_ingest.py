@@ -17,7 +17,10 @@ each with a reason:
   marker is refused, as cv2 refuses it; CMYK and YCCK convert to BGR as
   cv2 converts them; a lossless frame of 2- to 8-bit samples decodes as
   cv2's libjpeg-turbo 3.1.2 decodes it (`lossless_bgr`; utils/
-  image_decode.py adds PNG, BMP and EXIF).
+  image_decode.py adds PNG, BMP and EXIF);
+- "tiff" (libjpeg under libtiff's JPEG codec, utils/tiff.py): nothing is
+  refused after the entropy decode, a cut stream padded, the caller
+  choosing the colour conversion.
 
 A progressive frame whose first AC coefficients are inexact (in practice
 a truncated progressive upload) is block-smoothed as libjpeg smooths it
@@ -56,7 +59,7 @@ CXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 INFO_LEN = 24   # kInfoLen in csrc/jpeg_entropy.cpp
 EXTRA_LEN = 2   # kExtraLen
 COLOR_SPACES = ("gray", "ycbcr", "rgb", "cmyk", "ycck")   # info[15]
-ROUTES = ("native", "cv2")
+ROUTES = ("native", "cv2", "tiff")
 
 LOSSLESS = -7   # kLossless: a lossless (SOF3) frame
 STATUS = {-1: "not a JPEG stream", -2: "truncated JPEG stream",

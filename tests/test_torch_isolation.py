@@ -29,7 +29,7 @@ def test_every_port_module_imports_without_jax():
             p + "data_tools.dfdc_download", p + "utils.image_decode", p + "utils.exif",
             p + "utils.png", p + "utils.bmp", p + "utils.mp4", p + "utils.h264",
             p + "utils.mpeg4", p + "utils.mjpeg", p + "utils.pxm", p + "utils.sunras",
-            p + "utils.hdr", p + "utils.gif"} <= set(mods)
+            p + "utils.hdr", p + "utils.gif", p + "utils.tiff", p + "utils.webp"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "for blocked in ('jax', 'cv2', 'PIL', 'orbax', 'requests'):\n"
@@ -75,11 +75,21 @@ def test_h264_decodes_with_jax_and_cv2_blocked():
      "tests/data/torch_image_formats/digests.json", "hdr_rle_cv2_83x41.hdr"),
     ("tests/data/torch_image_formats/gif_interlaced_83x41.gif",
      "tests/data/torch_image_formats/digests.json", "gif_interlaced_83x41.gif"),
+    ("tests/data/torch_tiff_webp/tiff_cv2_lzw_pred_83x41.tif",
+     "tests/data/torch_tiff_webp/digests.json", "tiff_cv2_lzw_pred_83x41.tif"),
+    ("tests/data/torch_tiff_webp/tiff_jpeg_ycbcr420_83x41.tif",
+     "tests/data/torch_tiff_webp/digests.json", "tiff_jpeg_ycbcr420_83x41.tif"),
+    ("tests/data/torch_tiff_webp/webp_cv2_lossless_83x41.webp",
+     "tests/data/torch_tiff_webp/digests.json", "webp_cv2_lossless_83x41.webp"),
+    ("tests/data/torch_tiff_webp/webp_cv2_bgra_q80_83x41.webp",
+     "tests/data/torch_tiff_webp/digests.json", "webp_cv2_bgra_q80_83x41.webp"),
 ])
 def test_image_formats_decode_with_jax_and_cv2_blocked(path, digests, key):
-    """utils/image_decode.cv2_route decodes PxM, Sun raster, HDR and GIF
-    (csrc/image_host.cpp built on first use) where jax, cv2 and the JAX
-    package cannot be imported, equal to the committed cv2 digest."""
+    """utils/image_decode.cv2_route decodes PxM, Sun raster, HDR, GIF
+    (csrc/image_host.cpp), TIFF (csrc/tiff.cpp, Python's zlib, the port's
+    JPEG decoder) and WebP (csrc/webp_lossless.cpp, csrc/vp8.cpp), each
+    library built on first use, where jax, cv2 and the JAX package cannot
+    be imported, equal to the committed cv2 digest."""
     code = (
         "import sys, hashlib, json\n"
         "for blocked in ('jax', 'cv2', 'PIL', 'real_time_video_deepfake_detection_tpu'):\n"
