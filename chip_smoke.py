@@ -306,7 +306,14 @@ in phases, each printing one JSON line:
               WebP fixtures of tests/data/torch_tiff_webp (the files cv2
               reads and the port refuses by name refused with their
               reason), with (e) host ms of a lossy WebP and an LZW TIFF
-              decode at 720x405 and 1920x1080
+              decode at 720x405 and 1920x1080; and the JPEG 2000 fixtures
+              of tests/data/torch_jpeg2000: (a) on the cv2 route against
+              the digests (the files refused by name refused with their
+              reason), (b) through the device-detect app and a host-prep
+              app with clahe_device, each on the card against the CPU, one
+              launch of each kernel in each frame tick, (d) the loader
+              reading them under .png names, (e) host ms of a reversible
+              and a lossy (compression 100) decode at 720x405 and 1920x1080
 
 then a `{"kernels": [...]}` line (launches: the wire phase's coef run;
 launches_sharded_tick: one sharded serving tick of two shards;
@@ -5059,10 +5066,22 @@ TIFF_WEBP_APP_INPUTS = (
     "webp_cv2_animation_q60_83x41.webp", "tiff_zstd_refused_83x41.tif",
     "webp_alph_damaged_refused_83x41.webp")
 FORMAT_APP_INPUTS += TIFF_WEBP_APP_INPUTS
+# (and from tests/data/torch_jpeg2000) JPEG 2000: cv2's reversible and
+# lossy JP2, a lossy layered raw codestream, a palette, sYCC, every
+# code-block style, and a cut file and an HTJ2K one, which both routes refuse
+JPEG2000_DIR = os.path.join(REPO, "tests", "data", "torch_jpeg2000")
+JPEG2000_APP_INPUTS = (
+    "j2k_cv2_q1000_83x41.jp2", "j2k_cv2_q100_83x41.jp2", "j2k_pil_raw_lossy_layers_83x41.j2k",
+    "j2k_box_pclr_rgb_83x41.jp2", "j2k_box_colr_sycc_83x41.jp2",
+    "j2k_opj_style_all_lossy_83x41.j2k", "j2k_cut_60_refused_83x41.j2k",
+    "j2k_htj2k_cblk_style_83x41.j2k")
+FORMAT_APP_INPUTS += JPEG2000_APP_INPUTS
+JPEG2000_APP_REFUSED = ("j2k_cut_60_refused_83x41.j2k", "j2k_htj2k_cblk_style_83x41.j2k")
 FORMAT_APP_REFUSED = ("base_420_83x41.jpg@304", "lossless_gray_p1_83x41.jpg",
                       "bits12_sof1_rgb_83x41.jpg", "ras_rle_refused_83x41.ras",
                       "hdr_xyze_refused_83x41.hdr", "gif_index_past_palette_refused_83x41.gif",
-                      "tiff_zstd_refused_83x41.tif", "webp_alph_damaged_refused_83x41.webp")
+                      "tiff_zstd_refused_83x41.tif", "webp_alph_damaged_refused_83x41.webp"
+                      ) + JPEG2000_APP_REFUSED
 FORMAT_LOADER_INPUTS = ("prog_420_83x41.jpg", "exif6_83x41.jpg", "exif3_83x41.jpg",
                         "png_rgb8_83x41.png", "png_exif6_83x41.png", "cmyk_83x41.jpg",
                         "s411_83x41.jpg", "png_adam7_rgb16_83x41.png",
@@ -5072,7 +5091,9 @@ FORMAT_LOADER_INPUTS = ("prog_420_83x41.jpg", "exif6_83x41.jpg", "exif3_83x41.jp
 FORMAT_LOADER_MISNAMED = ("p6_83x41.ppm", "gif_cv2_83x41.gif", "ras24_cv2_83x41.ras",
                           "hdr_rle_cv2_83x41.hdr", "pam_rgb_cv2_83x41.pam",
                           "tiff_cv2_lzw_pred_83x41.tif", "tiff_ycbcr42_83x41.tif",
-                          "webp_cv2_lossless_83x41.webp", "webp_cv2_bgra_q80_83x41.webp")
+                          "webp_cv2_lossless_83x41.webp", "webp_cv2_bgra_q80_83x41.webp",
+                          "j2k_cv2_q1000_83x41.jp2", "j2k_pil_raw_lossy_layers_83x41.j2k",
+                          "j2k_box_cdef_reversed_83x41.jp2")
 
 
 def _format_inputs(directory=FORMATS_DIR):
@@ -5239,6 +5260,127 @@ def _tiff_webp_timing(inputs):
     return out
 
 
+def _jpeg2000_on_card(inputs, digests):
+    """(a) Every fixture of tests/data/torch_jpeg2000 through the cv2 route
+    (utils/jpeg2000.py, csrc/jpeg2000.cpp) against cv2.imdecode's digest,
+    the frame carried to the card and back unchanged; the fixtures refused
+    by name refused with their reason; host ms of each fixture's first
+    decode (the library built on first use)."""
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.utils import image_decode as ID
+    from real_time_video_deepfake_detection_tpu_torch.utils import jpeg2000
+    problems, ms = [], {}
+    for key, e in sorted(digests.items()):
+        data = inputs[key]
+        if "not_ported" in e:
+            try:
+                jpeg2000.decode_jpeg2000(data)
+                problems.append(f"{key}: decoded, not refused by name")
+            except jpeg2000.NotPorted as err:
+                if e["not_ported"] not in str(err):
+                    problems.append(f"{key}: {err}")
+            continue
+        t = time.perf_counter()
+        got = ID.cv2_route(data)
+        ms[key] = (time.perf_counter() - t) * 1e3
+        if got is not None:
+            got = torch.from_numpy(got).cuda().cpu().numpy()
+        if not _matches(got, e["cv2"]):
+            problems.append(key)
+    if problems:
+        raise AssertionError("JPEG 2000 on the card: " + "; ".join(problems[:8]))
+    return {"inputs": len(digests),
+            "refused": sorted(k for k, e in digests.items() if e["cv2"] is None),
+            "refused_by_name": sorted(k for k, e in digests.items() if "not_ported" in e),
+            "host_ms_first_decode": ms}
+
+
+def _jpeg2000_host_prep(ctx, inputs):
+    """(b) The batched host-prep app (heuristic faces, the preproc and hue
+    kernels, clahe_device; full-size B0) on the card, on 127.0.0.1: every
+    input of JPEG2000_APP_INPUTS on a stream of its own, the refused ones
+    a 400 and the others a verdict, one launch of each kernel in each
+    frame tick (the launches counted from 0). The device-detect app of
+    _formats_http holds the same inputs' responses to the CPU's."""
+    import torch
+    from real_time_video_deepfake_detection_tpu_torch.core.config import (
+        DetectorConfig, ServerConfig)
+    from real_time_video_deepfake_detection_tpu_torch.serving.multi import (
+        MultiStreamEngine, create_batched_app)
+    scfg = ServerConfig(max_streams=16, max_batch=8)
+    cfg = DetectorConfig(use_pallas_preproc=True, use_pallas_color=True, clahe_device=True,
+                         face_backend="heuristic")
+    card = MultiStreamEngine(cfg, scfg, params=backbone_state(ctx), device="cuda")
+    tick_launches, frames_per_tick = [], []
+    dispatch = card._dispatch
+
+    def counted_dispatch(tick_cfg, arrays, states):
+        before = _read_launches()
+        out = dispatch(tick_cfg, arrays, states)
+        torch.cuda.synchronize()
+        after = _read_launches()
+        tick_launches.append({k: after[k] - before[k] for k in after})
+        frames_per_tick.append(int(arrays[4].sum()))
+        return out
+
+    card._dispatch = counted_dispatch
+    op = _client()
+    got, problems = {}, []
+    try:
+        with _serving(create_batched_app(card, scfg)) as url_card:
+            _reset_launches()
+            for i, key in enumerate(JPEG2000_APP_INPUTS):
+                got[key] = _http(op, url_card + "/analyze", inputs[key], sid=f"j{i}")[:2]
+            launches = _read_launches()
+    finally:
+        card.shutdown()
+    statuses = {k: st for k, (st, _) in got.items()}
+    if {k for k, st in statuses.items() if st != 200} != set(JPEG2000_APP_REFUSED):
+        problems.append(f"statuses {statuses}")
+    for k, (st, body) in got.items():
+        if st == 200 and not isinstance(body.get("fake_probability"), float):
+            problems.append(f"{k}: no verdict: {sorted(body)}")
+    for i, (tl, n) in enumerate(zip(tick_launches, frames_per_tick)):
+        if any(v != 1 for v in tl.values()):
+            problems.append(f"tick {i} ({n} frames): not one launch of each kernel: {tl}")
+    if not tick_launches:
+        problems.append("no tick ran")
+    if problems:
+        raise AssertionError("JPEG 2000 host prep: " + "; ".join(problems[:8]))
+    return {"inputs": list(JPEG2000_APP_INPUTS), "statuses": statuses,
+            "ticks": len(tick_launches), "frames_per_tick": frames_per_tick,
+            "launches": launches, "launches_per_tick": tick_launches}
+
+
+def _jpeg2000_timing(inputs, digests):
+    """(e) Host ms (median of 5 at 720x405, of 3 at 1920x1080) of the
+    decode of a reversible and a lossy (cv2's compression 100) JP2 of the
+    JPEG fixture frames, each decode held to its digest."""
+    from real_time_video_deepfake_detection_tpu_torch.utils.jpeg2000 import decode_jpeg2000
+
+    def host_ms(fn, n):
+        fn()
+        ts = []
+        for _ in range(n):
+            t = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(ts)
+
+    out = {}
+    for label, n in (("720x405", 5), ("1920x1080", 3)):
+        row = {}
+        for kind in ("lossless", "q100"):
+            key = f"j2k_timing_{kind}_{label}.jp2"
+            data = inputs[key]
+            if not _matches(decode_jpeg2000(data), digests[key]["cv2"]):
+                raise AssertionError(f"{key} differs from its digest")
+            row[f"{kind}_ms"] = host_ms(lambda: decode_jpeg2000(data), n)
+            row[f"{kind}_bytes"] = len(data)
+        out[label] = row
+    return out
+
+
 def _formats_http(ctx, inputs):
     """(b) The batched device-detect app (as detect-serve, full-size B0) on
     the card and on the CPU, each on 127.0.0.1: every input of
@@ -5385,7 +5527,7 @@ def _formats_loader(inputs, digests):
             d = os.path.join(root, "val", ("real", "fake")[i % 2])
             os.makedirs(d, exist_ok=True)
             src = os.path.join(FORMATS_DIR, name)
-            for other in (JPEG_MODES_DIR, IMAGE_FORMATS_DIR, TIFF_WEBP_DIR):
+            for other in (JPEG_MODES_DIR, IMAGE_FORMATS_DIR, TIFF_WEBP_DIR, JPEG2000_DIR):
                 if not os.path.exists(src):
                     src = os.path.join(other, name)
             as_name = name if name in FORMAT_LOADER_INPUTS else name.rsplit(".", 1)[0] + ".png"
@@ -5482,16 +5624,18 @@ def phase_formats(ctx):
     """Every image the JAX package decodes on its serving and training
     paths: (a) the fixtures' frames on the card against the digests, the
     arithmetic, lossless and 12-bit ones too, the PxM, PAM, PFM, Sun
-    raster, HDR and GIF ones, and the TIFF and WebP ones, (b) the batched
-    device-detect app on the card against the CPU app, launches counted,
+    raster, HDR and GIF ones, the TIFF and WebP ones and the JPEG 2000
+    ones, (b) the batched device-detect app on the card against the CPU
+    app, launches counted, and a host-prep app over the JPEG 2000 inputs,
     (c) a progressive and an arithmetic stream through the coef plane,
-    (d) the loader on the card over mixed formats, (e) decode times (WebP
-    and LZW TIFF at 720x405 and 1920x1080 among them)."""
+    (d) the loader on the card over mixed formats, (e) decode times (WebP,
+    LZW TIFF and JPEG 2000 at 720x405 and 1920x1080 among them)."""
     inputs, digests = _format_inputs()
     modes, mode_digests = _format_inputs(JPEG_MODES_DIR)
     images, image_digests = _format_inputs(IMAGE_FORMATS_DIR)
     tw, tw_digests = _format_inputs(TIFF_WEBP_DIR)
-    everything = {**inputs, **modes, **images, **tw}
+    j2k, j2k_digests = _format_inputs(JPEG2000_DIR)
+    everything = {**inputs, **modes, **images, **tw, **j2k}
     t0 = time.time()
     out = {"card": ctx["smi"]}
     for key, fn in (("on_card", lambda: _formats_on_card(inputs, digests)),
@@ -5499,12 +5643,16 @@ def phase_formats(ctx):
                     ("image_formats_on_card", lambda: _image_formats_on_card(images,
                                                                              image_digests)),
                     ("tiff_webp_on_card", lambda: _tiff_webp_on_card(tw, tw_digests)),
+                    ("jpeg2000_on_card", lambda: _jpeg2000_on_card(j2k, j2k_digests)),
                     ("http", lambda: _formats_http(ctx, everything)),
+                    ("jpeg2000_host_prep", lambda: _jpeg2000_host_prep(ctx, j2k)),
                     ("loader", lambda: _formats_loader(everything, {**digests, **mode_digests,
                                                                     **image_digests,
-                                                                    **tw_digests})),
+                                                                    **tw_digests,
+                                                                    **j2k_digests})),
                     ("timing", lambda: _formats_timing(inputs)),
-                    ("tiff_webp_timing", lambda: _tiff_webp_timing(everything))):
+                    ("tiff_webp_timing", lambda: _tiff_webp_timing(everything)),
+                    ("jpeg2000_timing", lambda: _jpeg2000_timing(j2k, j2k_digests))):
         t = time.time()
         out[key] = fn()
         out[key]["seconds"] = time.time() - t

@@ -23,9 +23,10 @@ the host (utils/png.py, utils/bmp.py, utils/jpeg_ingest.lossless_bgr). A
 file cv2 would refuse (a truncated or corrupt JPEG, a 12-bit one, a
 grayscale lossless one, a damaged PNG, anything unreadable) is
 substituted, as in the JAX package (train.py:512-513). A file the port
-cannot decode although cv2 might (JPEG 2000, AVIF, a TIFF with a
-compression or photometric the port lacks, a JPEG over 2^25 pixels;
-WebP and TIFF are decoded, utils/image_decode) raises UnsupportedImage, which the
+cannot decode although cv2 might (AVIF, a TIFF with a compression or
+photometric the port lacks, a JPEG 2000 file with a feature
+utils/jpeg2000.py refuses by name, a JPEG over 2^25 pixels; WebP, TIFF and
+JPEG 2000 are decoded, utils/image_decode) raises UnsupportedImage, which the
 loader does not swallow: substituting another sample would silently
 change the training set.
 """

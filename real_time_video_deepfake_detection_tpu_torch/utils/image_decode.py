@@ -18,16 +18,19 @@ the same one at each entry point:
   (utils/sunras.py), PBM / PGM / PPM, PAM and PFM (utils/pxm.py; a Pf
   comes out (H, W), one channel, as cv2 returns it), GIF's first frame
   (utils/gif.py), WebP (utils/webp.py: lossless, lossy, with alpha, an
-  animation's first frame) and TIFF's first page (utils/tiff.py, as
-  libtiff 4.7.1's RGBA interface reads it).
+  animation's first frame), TIFF's first page (utils/tiff.py, as
+  libtiff 4.7.1's RGBA interface reads it) and JPEG 2000 (utils/
+  jpeg2000.py: JP2 files and raw codestreams, as OpenJPEG 2.5.3 decodes
+  them).
 
 `decode_frame` is the single-stream server's ladder (server.py:40-49):
 bytes that start FF D8 try the native route, then the cv2 route. What
 both routes refuse gives None, its reason logged once: 12- and 16-bit
 JPEGs (neither libjpeg build decodes them); the formats cv2 5.0 reads and
-the port does not yet: JPEG 2000, AVIF, and the TIFF compressions and
-photometrics utils/tiff.py names; and OpenEXR, which the port refuses by
-its signature and which this cv2 build (OpenEXR "NO") refuses too.
+the port does not yet: AVIF, the TIFF compressions and photometrics
+utils/tiff.py names, and the JPEG 2000 features utils/jpeg2000.py names
+(HTJ2K code-blocks among them); and OpenEXR, which the port refuses by its
+signature and which this cv2 build (OpenEXR "NO") refuses too.
 """
 
 from __future__ import annotations
@@ -37,28 +40,29 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import bmp, exif, gif, hdr, png, pxm, sunras, tiff, webp
+from . import bmp, exif, gif, hdr, jpeg2000, png, pxm, sunras, tiff, webp
 from .jpeg_ingest import decode_jpeg, log_refusal
 
 JPEG_SIGNATURE = b"\xff\xd8\xff"   # cv2's JPEG decoder signature
 
 
-# Leading bytes of JPEG 2000 (JP2 box, raw codestream), which cv2 reads and
-# the port does not, and of OpenEXR, which neither this cv2 build nor the port reads
-_UNPORTED = (b"\x00\x00\x00\x0cjP  ", b"\xff\x4f\xff\x51", b"\x76\x2f\x31\x01")
+# Leading bytes of OpenEXR, which neither this cv2 build nor the port reads
+_UNPORTED = (b"\x76\x2f\x31\x01",)
 
 
 def unported_format(data: bytes) -> bool:
     """Whether `data` is an image the port does not decode in a format
-    cv2 5.0 reads: JPEG 2000, AVIF, a TIFF whose compression or
-    photometric the port does not decode yet; and OpenEXR, which this cv2
-    build refuses as well."""
+    cv2 5.0 reads: AVIF, a TIFF whose compression or photometric the port
+    does not decode yet, a JPEG 2000 file with a feature utils/jpeg2000.py
+    refuses by name; and OpenEXR, which this cv2 build refuses as well."""
     if tiff.is_tiff(data):
         try:
             tiff.decode_tiff(data)
         except tiff.NotPorted:
             return True
         return False
+    if jpeg2000.is_jpeg2000(data):
+        return jpeg2000.not_ported(data) is not None
     return data.startswith(_UNPORTED) or data[4:12] in (b"ftypavif", b"ftypavis")
 
 
@@ -99,13 +103,19 @@ def cv2_route(data: bytes, from_file: bool = False) -> Optional[np.ndarray]:
         except tiff.NotPorted as e:
             return _refused(f"{e} (cv2 reads it; the port does not decode it yet)")
         return frame if frame is not None else _refused("TIFF that cv2 refuses")
+    if jpeg2000.is_jpeg2000(data):
+        try:
+            frame = jpeg2000.decode_jpeg2000(data)
+        except jpeg2000.NotPorted as e:
+            return _refused(f"JPEG 2000 with {e} (cv2 reads it; the port does not decode it yet)")
+        return frame if frame is not None else _refused("JPEG 2000 that cv2 refuses")
     for name, claims, decode in _DECODERS:
         if claims(data):
             frame = decode(data)
             return frame if frame is not None else _refused(f"{name} that cv2 refuses")
-    return _refused("not a JPEG, PNG, BMP, WebP, TIFF, Radiance HDR, Sun raster, PxM, PAM, "
-                    "PFM or GIF image (cv2 5.0 reads JPEG 2000 and AVIF too, which the port "
-                    "does not decode yet; OpenEXR neither reads)")
+    return _refused("not a JPEG, PNG, BMP, WebP, TIFF, JPEG 2000, Radiance HDR, Sun raster, "
+                    "PxM, PAM, PFM or GIF image (cv2 5.0 reads AVIF too, which the port does "
+                    "not decode yet; OpenEXR neither reads)")
 
 
 # cv2's other decoders, each claiming its signature as cv2 checks it

@@ -15,8 +15,8 @@ csrc/image_host.cpp) on JAX's cv2 route, against cv2 5.0:
 - seeded files cv2 writes, and byte-flipped and cut copies of them (GIF:
   clean streams only; see utils/gif.py on the malformed LZW streams cv2
   5.0 reads), against cv2;
-- unported_format still naming JPEG 2000, OpenEXR and AVIF and none of
-  these, WebP and TIFF decoded;
+- unported_format still naming OpenEXR and AVIF and none of these,
+  WebP, TIFF and JPEG 2000 decoded;
 - /analyze on the single-stream app, the host-prep app and the
   device-detect app against the JAX apps (status, and every field within
   test_torch_http's tolerance; a gray PFM, which cv2 returns with one
@@ -388,19 +388,22 @@ def test_gif_lzw_round_trips_a_full_table():
 
 
 def test_signatures_of_the_formats_still_unported():
-    """WebP and TIFF are decoded now (tests/test_torch_webp.py,
-    tests/test_torch_tiff.py); JPEG 2000 and AVIF, which cv2 reads, and
-    OpenEXR, which this cv2 build does not read either, are still refused
-    by their signatures."""
-    for data in (b"\x00\x00\x00\x0cjP  \r\n\x87\n", b"\xff\x4f\xff\x51\x00",
-                 b"\x76\x2f\x31\x01\x02", b"\x00\x00\x00\x1cftypavif"):
+    """WebP, TIFF and JPEG 2000 are decoded now (tests/test_torch_webp.py,
+    tests/test_torch_tiff.py, tests/test_torch_jpeg2000.py); AVIF, which
+    cv2 reads, and OpenEXR, which this cv2 build does not read either, are
+    still refused by their signatures."""
+    for data in (b"\x76\x2f\x31\x01\x02", b"\x00\x00\x00\x1cftypavif"):
         assert ID.unported_format(data)
-    tiff_webp = os.path.join(os.path.dirname(DATA), "torch_tiff_webp")
-    for name in ("webp_cv2_q50_83x41.webp", "webp_cv2_lossless_83x41.webp",
-                 "tiff_cv2_lzw_83x41.tif", "tiff_bigtiff_be_83x41.tif"):
-        with open(os.path.join(tiff_webp, name), "rb") as fh:
-            data = fh.read()
-        assert not ID.unported_format(data) and ID.cv2_route(data) is not None, name
+    for data in (b"\x00\x00\x00\x0cjP  \r\n\x87\n", b"\xff\x4f\xff\x51\x00"):
+        assert not ID.unported_format(data) and ID.cv2_route(data) is None
+    decoded = {"torch_tiff_webp": ("webp_cv2_q50_83x41.webp", "webp_cv2_lossless_83x41.webp",
+                                   "tiff_cv2_lzw_83x41.tif", "tiff_bigtiff_be_83x41.tif"),
+               "torch_jpeg2000": ("j2k_cv2_q1000_83x41.jp2", "j2k_pil_raw_lossless_83x41.j2k")}
+    for folder, names in decoded.items():
+        for name in names:
+            with open(os.path.join(os.path.dirname(DATA), folder, name), "rb") as fh:
+                data = fh.read()
+            assert not ID.unported_format(data) and ID.cv2_route(data) is not None, name
     for name in FIXTURES:
         assert not ID.unported_format(_data(name)), name
     assert pxm.is_pxm(b"P6\n") and pxm.is_pam(b"P7\n") and pxm.is_pfm(b"Pf\n")

@@ -29,7 +29,8 @@ def test_every_port_module_imports_without_jax():
             p + "data_tools.dfdc_download", p + "utils.image_decode", p + "utils.exif",
             p + "utils.png", p + "utils.bmp", p + "utils.mp4", p + "utils.h264",
             p + "utils.mpeg4", p + "utils.mjpeg", p + "utils.pxm", p + "utils.sunras",
-            p + "utils.hdr", p + "utils.gif", p + "utils.tiff", p + "utils.webp"} <= set(mods)
+            p + "utils.hdr", p + "utils.gif", p + "utils.tiff", p + "utils.webp",
+            p + "utils.jpeg2000"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "for blocked in ('jax', 'cv2', 'PIL', 'orbax', 'requests'):\n"
@@ -83,11 +84,16 @@ def test_h264_decodes_with_jax_and_cv2_blocked():
      "tests/data/torch_tiff_webp/digests.json", "webp_cv2_lossless_83x41.webp"),
     ("tests/data/torch_tiff_webp/webp_cv2_bgra_q80_83x41.webp",
      "tests/data/torch_tiff_webp/digests.json", "webp_cv2_bgra_q80_83x41.webp"),
+    ("tests/data/torch_jpeg2000/j2k_cv2_q100_83x41.jp2",
+     "tests/data/torch_jpeg2000/digests.json", "j2k_cv2_q100_83x41.jp2"),
+    ("tests/data/torch_jpeg2000/j2k_opj_style_all_lossy_83x41.j2k",
+     "tests/data/torch_jpeg2000/digests.json", "j2k_opj_style_all_lossy_83x41.j2k"),
 ])
 def test_image_formats_decode_with_jax_and_cv2_blocked(path, digests, key):
     """utils/image_decode.cv2_route decodes PxM, Sun raster, HDR, GIF
     (csrc/image_host.cpp), TIFF (csrc/tiff.cpp, Python's zlib, the port's
-    JPEG decoder) and WebP (csrc/webp_lossless.cpp, csrc/vp8.cpp), each
+    JPEG decoder), WebP (csrc/webp_lossless.cpp, csrc/vp8.cpp) and JPEG
+    2000 (csrc/jpeg2000.cpp), each
     library built on first use, where jax, cv2 and the JAX package cannot
     be imported, equal to the committed cv2 digest."""
     code = (

@@ -105,9 +105,10 @@ def test_loader_batches_equal_jax_loader(tmp_path):
 
 
 def test_unported_image_raises_naming_the_file(tmp_path):
-    """A format cv2 reads and the port does not (JPEG 2000, under a .png
-    name) raises; a progressive JPEG, and a WebP under a .png name (decoded
-    since WebP was ported), load as the JAX loader loads them."""
+    """A format cv2 reads and the port does not (AVIF, under a .png name)
+    raises; a progressive JPEG, and a WebP and a JPEG 2000 file under .png
+    names (decoded since those formats were ported), load as the JAX loader
+    loads them."""
     import cv2
     ds = _dataset(tmp_path / "ds", extra=("progressive_720x405_q85.jpg",))
     tds, jds = TD.DeepfakeDataset(ds, "train", 32), JD.DeepfakeDataset(ds, "train", 32)
@@ -120,12 +121,18 @@ def test_unported_image_raises_naming_the_file(tmp_path):
     tds, jds = TD.DeepfakeDataset(ds, "train", 32), JD.DeepfakeDataset(ds, "train", 32)
     i = [p for p, _ in tds.samples].index(os.path.join(tds.dir, "fake", "webp.png"))
     np.testing.assert_array_equal(tds.load_image(i), jds.load_image(i))
-    jp2 = cv2.imencode(".jp2", np.zeros((40, 40, 3), np.uint8))[1].tobytes()
+    jp2 = cv2.imencode(".jp2", np.full((40, 40, 3), 99, np.uint8))[1].tobytes()
     with open(os.path.join(ds, "train", "fake", "jp2.png"), "wb") as fh:
         fh.write(jp2)
+    tds, jds = TD.DeepfakeDataset(ds, "train", 32), JD.DeepfakeDataset(ds, "train", 32)
+    i = [p for p, _ in tds.samples].index(os.path.join(tds.dir, "fake", "jp2.png"))
+    np.testing.assert_array_equal(tds.load_image(i), jds.load_image(i))
+    avif = cv2.imencode(".avif", np.zeros((40, 40, 3), np.uint8))[1].tobytes()
+    with open(os.path.join(ds, "train", "fake", "avif.png"), "wb") as fh:
+        fh.write(avif)
     loader = TD.BatchLoader(TD.DeepfakeDataset(ds, "train", 32), 16, shuffle=False,
                             drop_last=False, num_workers=2)
-    with pytest.raises(TD.UnsupportedImage, match="jp2.png"):
+    with pytest.raises(TD.UnsupportedImage, match="avif.png"):
         for _ in loader:
             pass
     # a damaged file is replaced by another sample, as in the JAX loader
